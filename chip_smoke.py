@@ -8,21 +8,30 @@ imports nothing of JAX or of the JAX package.  Phases, in order — any
 failure exits non-zero and no result line is printed:
 
   1. the card's name and power limit (``nvidia-smi``), then the build of
-     the four kernels from ``src/repro_torch/csrc`` (timed);
+     the six kernels from ``src/repro_torch/csrc`` (timed);
   2. each kernel against its plain PyTorch version on the card, bit for
-     bit (all four are integer kernels: the tolerance is zero), at the
+     bit (all six are integer kernels: the tolerance is zero), at the
      listed shapes, then timed with CUDA events beside the plain version,
-     the library call where one exists, and the memory-rate bound;
+     the library call where one exists, and the memory-rate bound, and
+     traced with ``torch.profiler`` for the kernels' own device time;
   3. end to end: the same seeded two-thread schedule through
-     ``make_tm("multiverse", array_heap=True)`` on the card and on the
-     CPU must leave identical heaps, lock words, clocks, mirrors and
+     ``make_tm(b, array_heap=True)`` for b in multiverse, tl2, dctl,
+     norec, tinystm and mvstore, on the card and on the CPU, must leave
+     identical heaps (blocks and rings), lock words, clocks, mirrors and
      counters;
-  4. the main path: ``make_tm("multiverse", n, array_heap=True)`` on the
-     card drives the longread (scan4096, scan1M) and rwmix (w1024)
-     traffic in threads.  Every completed scan or check must see its
-     exact invariant sum (``violations == 0``), every trial must make
-     progress, and every kernel's launch counter — set to 0 before each
-     trial and read after it — must have risen.
+  4. the main path: ``make_tm(b, n, array_heap=True)`` on the card drives
+     the longread (scan4096 on every backend, scan1M on multiverse) and
+     rwmix (w1024, every backend) traffic in threads; TL2 and DCTL
+     commit 1024-word rotations in groups of 8 through ``CommitBatcher``
+     over a 1,000,000-word heap; and the MVStore serves 1,000,000-word
+     snapshots beside 2-word transfers, then resolves every clock of its
+     ring window through ``MVStoreHandle.snapshot``.  Every completed
+     scan or check must see its exact invariant sum (``violations ==
+     0``), every trial must make progress (for the unversioned baselines
+     under a long scan: in updates), and every kernel's launch counter —
+     set to 0 before each trial and read after it — must have risen;
+  5. the card's idle share: four of the trials run again for a 3 s window
+     under a profiler trace of their GPU activity.
 
 The last two lines are the kernels summary and
 ``{"ok": true, "device": {...}}``.
@@ -48,7 +57,7 @@ SEED = 0
 INITIAL = 100                  # per-word prefill (eval/workloads.py)
 AMOUNT = 5
 
-#: kernel -> (CUDA source, TPU kernel it replaces, main-path N timed)
+#: kernel -> (CUDA source, TPU kernel it replaces, main-path shape timed)
 KERNELS = {
     "gather_read": ("src/repro_torch/csrc/gather_read.cu",
                     "src/repro/kernels/gather_read.py:58", 256),
@@ -58,7 +67,24 @@ KERNELS = {
                  "src/repro/kernels/validate.py:74", 1024),
     "version_select": ("src/repro_torch/csrc/version_select.cu",
                        "src/repro/kernels/version_select.py:62", 256),
+    "commit_fused": ("src/repro_torch/csrc/commit_fused.cu",
+                     "src/repro/kernels/commit_fused.py:238", "group"),
+    "snapshot_select": ("src/repro_torch/csrc/snapshot_select.cu",
+                        "src/repro/kernels/snapshot_select.py:49",
+                        1_000_000),
 }
+BACKENDS = ("multiverse", "tl2", "dctl", "norec", "tinystm", "mvstore")
+#: each kernel's __global__ functions, as named in a profiler trace
+DEVICE_KERNELS = {
+    "gather_read": ("gather_read_kernel",),
+    "scatter_write": ("scatter_write_kernel",),
+    "validate": ("validate_kernel",),
+    "version_select": ("version_select_kernel",),
+    "commit_fused": ("decide_kernel", "publish_kernel"),
+    "snapshot_select": ("snapshot_select_kernel",),
+}
+GPU_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+TRACE_DIR = os.path.join(HERE, "build", "traces")
 
 
 class Failed(Exception):
@@ -95,6 +121,55 @@ def time_ms(torch, fn, iters=200, warm=20):
     return start.elapsed_time(end) / iters
 
 
+def gpu_activity(prof, kernels=()):
+    """``(events, busy_us, kernels_us)`` of a finished ``torch.profiler``
+    run: how many GPU activities (kernels, copies, memsets) its trace
+    holds, their summed duration, and the summed duration of the kernels
+    whose names contain one of ``kernels``.  On one stream the activities
+    do not overlap, so the sum is the time the card was busy."""
+    os.makedirs(TRACE_DIR, exist_ok=True)
+    path = os.path.join(TRACE_DIR, f"trace_{os.getpid()}.json")
+    prof.export_chrome_trace(path)
+    try:
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.remove(path)
+    gpu = [e for e in events if e.get("cat") in GPU_CATS and "dur" in e]
+    named = sum(e["dur"] for e in gpu if e["cat"] == "kernel"
+                and any(k in e["name"] for k in kernels))
+    return len(gpu), sum(e["dur"] for e in gpu), named
+
+
+def device_times(torch, fn, kernels, iters=50, warm=5):
+    """Per-call device time of ``fn`` from a profiler trace of ``iters``
+    warmed calls: ``kernel_device_ms`` (the named CUDA kernels alone) and
+    ``device_busy_ms`` (every GPU activity the call enqueued, copies and
+    memsets included); both None when the trace shows no GPU activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    n, busy, named = gpu_activity(prof, kernels)
+    if n == 0:
+        return {"kernel_device_ms": None, "device_busy_ms": None}
+    return {"kernel_device_ms": named / iters / 1e3,
+            "device_busy_ms": busy / iters / 1e3}
+
+
+def kernel_row(torch, name, fn, **rest):
+    """A timing row for kernel ``name``'s wrapper call ``fn``: ``ms`` from
+    CUDA events (host launch path included) and the device times from a
+    profiler trace, beside the ``rest`` of the row."""
+    return dict(ms=time_ms(torch, fn),
+                **device_times(torch, fn, DEVICE_KERNELS[name]), **rest)
+
+
 def equal(torch, a, b):
     return a.shape == b.shape and bool(torch.equal(a, b))
 
@@ -127,8 +202,8 @@ def kernel_checks(torch, dev, rng):
         check(np.array_equal(got.cpu().numpy(), row_np[idx]),
               f"gather_read != host row at N={n}")
         if n in (256, 1_000_000):
-            rows.setdefault("gather_read", {})[n] = dict(
-                ms=time_ms(torch, lambda: GR.gather_read_dev(row, idx_t)),
+            rows.setdefault("gather_read", {})[n] = kernel_row(
+                torch, "gather_read", lambda: GR.gather_read_dev(row, idx_t),
                 plain_ms=time_ms(torch,
                                  lambda: GR.gather_plain(row, idx_t)),
                 library_ms=time_ms(
@@ -148,14 +223,27 @@ def kernel_checks(torch, dev, rng):
               f"scatter_write != host scatter at N={n}")
         if n in (1024, 1_000_000):
             c = row.clone()
-            rows.setdefault("scatter_write", {})[n] = dict(
-                ms=time_ms(torch,
-                           lambda: SW.scatter_write_dev(a, idx_t, val_t)),
+            rows.setdefault("scatter_write", {})[n] = kernel_row(
+                torch, "scatter_write",
+                lambda: SW.scatter_write_dev(a, idx_t, val_t),
                 plain_ms=time_ms(torch,
                                  lambda: SW.scatter_plain(b, idx_t, val_t)),
                 library_ms=time_ms(
                     torch, lambda: c.index_copy_(0, idx_t, val_t)),
                 bound_ms=bound(24 * n))
+
+    # gather_read over an int32 row (the MVStore block and ring rows)
+    row32_np = rng.integers(-(1 << 31), 1 << 31, H, dtype=np.int64) \
+        .astype(np.int32)
+    row32 = torch.from_numpy(row32_np).to(dev)
+    for n in (1, 255, 4096, 1_000_000):
+        idx = rng.integers(0, H, n, dtype=np.int64)
+        got = GR.gather_read(row32, idx)
+        check(got.dtype == torch.int32 and equal(
+            torch, got, GR.gather_plain(row32, to_device(idx, dev))),
+            f"gather_read int32 != plain at N={n}")
+        check(np.array_equal(got.cpu().numpy(), row32_np[idx]),
+              f"gather_read int32 != host row at N={n}")
 
     # validate: all three modes, versions near 2^40
     base = 1 << 40
@@ -184,9 +272,9 @@ def kernel_checks(torch, dev, rng):
         check(bool(all_ok) and bool(mask.all()),
               f"validate all-valid set failed at N={n}")
         if n in (1024, 1_000_000):
-            rows.setdefault("validate", {})[n] = dict(
-                ms=time_ms(torch, lambda: VK.validate_mask(
-                    *args, seen_t, base, 1, 0)),
+            rows.setdefault("validate", {})[n] = kernel_row(
+                torch, "validate", lambda: VK.validate_mask(
+                    *args, seen_t, base, 1, 0),
                 plain_ms=time_ms(torch, lambda: VK.validate_plain(
                     *args, seen_t, base, 1, 0).all()),
                 library_ms=None,
@@ -209,14 +297,272 @@ def kernel_checks(torch, dev, rng):
             check(equal(torch, v, pv) and equal(torch, ok, pok),
                   f"version_select != plain at N={n}")
         if n in (256, 65_536):
-            rows.setdefault("version_select", {})[n] = dict(
-                ms=time_ms(torch,
-                           lambda: VS.version_select(ts_t, data_t, base)),
+            rows.setdefault("version_select", {})[n] = kernel_row(
+                torch, "version_select",
+                lambda: VS.version_select(ts_t, data_t, base),
                 plain_ms=time_ms(torch, lambda: VS.version_select_plain(
                     ts_t, data_t, base)),
                 library_ms=None,
                 bound_ms=bound((2 * 8 * 4 + 12) * n))
+    rows.update(commit_fused_checks(torch, dev, rng, bound))
+    rows.update(snapshot_select_checks(torch, dev, rng, bound))
     return rows
+
+
+def _words(ver, own, meta):
+    """Packed lock words (ArrayLockTable's layout) from version, owner
+    tid and meta (bit0 locked, bit1 flag)."""
+    from repro_torch.kernels import commit_fused as CF
+    own = np.asarray(own, np.int64)
+    meta = np.asarray(meta, np.int64)
+    return ((np.asarray(ver, np.int64) << CF.VER_SHIFT)
+            | (((own + CF.TID_BIAS) & CF.TID_MASK) << 2)
+            | ((meta & 1) << 1) | ((meta >> 1) & 1))
+
+
+def _group_batch(rng, n_txn, h, rows_per, n_l, n_r, base, fail):
+    """A packed group: member t writes ``rows_per[t]`` distinct rows of a
+    heap of ``h`` words; ``n_l``/``n_r`` lock and read entries with
+    versions near ``base``; with ``fail`` some entries are locked by
+    foreign tids, flagged, or too new, so some members fail."""
+    perm = rng.permutation(h)[:int(sum(rows_per))]
+    cut = np.cumsum([0] + list(rows_per))
+    w_parts = [perm[cut[t]:cut[t + 1]].astype(np.int64)
+               for t in range(n_txn)]
+    from repro_torch.kernels.commit_fused import pack_segments
+    w_flat, w_seg, _ = pack_segments(w_parts)
+    big = 1 << 62
+    w_val = rng.integers(-big, big, w_flat.size, dtype=np.int64)
+
+    def entries(k):
+        ver = base + rng.integers(-40, 1, k, dtype=np.int64)
+        own = rng.integers(-1, n_txn, k)
+        meta = np.zeros(k, np.int64)
+        if fail:
+            meta = rng.integers(0, 4, k) * (rng.random(k) < 0.002)
+            ver = ver + rng.integers(0, 80, k) * (rng.random(k) < 0.002)
+        return _words(ver, own, meta)
+    return dict(
+        w_addr=w_flat, w_val=w_val, w_seg=w_seg,
+        l_words=entries(n_l),
+        l_seg=rng.integers(0, n_txn, n_l).astype(np.int64),
+        r_words=entries(n_r),
+        r_seen=base + rng.integers(-40, 1, n_r, dtype=np.int64),
+        r_seg=rng.integers(0, n_txn, n_r).astype(np.int64),
+        tids=np.arange(n_txn, dtype=np.int64),
+        r_clocks=np.full(n_txn, base, np.int64))
+
+
+def commit_fused_checks(torch, dev, rng, bound):
+    """commit_fused against its plain version on the card: modes LT, LE
+    and EQ, failing members, empty read or lock batches, int64 payloads
+    beyond int32, ragged N, in place and out of place; the MVStore's
+    fused publish with its ring refresh against the CPU route; then the
+    timings at the group trial's shape and at the MVStore publish."""
+    from repro_torch.core import mvstore as MV
+    from repro_torch.configs.base import MVStoreConfig
+    from repro_torch.kernels import commit_fused as CF
+    from repro_torch.kernels._lib import to_device
+
+    H = 1_000_000
+    base = 1 << 40
+    heap_np = rng.integers(-(1 << 62), 1 << 62, H, dtype=np.int64)
+
+    def both(heap_t, b, cv, n_txn, mode, oop):
+        k_heap = heap_t.clone()
+        got = CF.commit_fused(k_heap, b["w_addr"], b["w_val"], b["w_seg"],
+                              b["l_words"], b["l_seg"], b["r_words"],
+                              b["r_seen"], b["r_seg"], b["tids"],
+                              b["r_clocks"], cv, n_txn, mode=mode,
+                              out_of_place=oop)
+        dv = {k: to_device(np.asarray(v, np.int64), dev)
+              for k, v in b.items()}
+        want = CF.commit_fused_plain(
+            heap_t.clone(), dv["w_addr"], dv["w_val"].to(heap_t.dtype),
+            dv["w_seg"], dv["l_words"], dv["l_seg"], dv["r_words"],
+            dv["r_seen"], dv["r_seg"], dv["tids"], dv["r_clocks"], cv,
+            n_txn, mode, oop)
+        return got, want, k_heap
+
+    heap_t = to_device(heap_np, dev)
+    cases = 0
+    for mode in (CF.MODE_LT, CF.MODE_LE, CF.MODE_EQ):
+        for n_l, n_r in ((2000, 2000), (0, 1500), (1500, 0), (0, 0)):
+            n_txn = 8
+            rows = rng.integers(0, 300, n_txn)        # ragged, some empty
+            b = _group_batch(rng, n_txn, H, rows, n_l, n_r, base,
+                             fail=True)
+            for oop in (False, True):
+                got, want, k_heap = both(heap_t, b, base + 7, n_txn, mode,
+                                         oop)
+                for g, w, what in zip(got, want, ("heap", "ok", "l_out")):
+                    check(equal(torch, g, w),
+                          f"commit_fused {what} != plain (mode {mode}, "
+                          f"L={n_l}, M={n_r}, out_of_place={oop})")
+                check((got[0] is k_heap) != oop,
+                      "commit_fused in/out of place mixed up")
+                if oop:
+                    check(equal(torch, k_heap, heap_t),
+                          "out-of-place commit_fused wrote its input")
+                cases += 1
+    # a group whose member 3 finds a write lock held by a foreign tid:
+    # exactly that member fails, and its rows stay as they were
+    b = _group_batch(rng, 8, H, [64] * 8, 400, 400, base, fail=False)
+    j = int(np.nonzero(b["l_seg"] == 3)[0][0])
+    b["l_words"][j] = _words([base], [9], [1])[0]
+    got, want, _ = both(heap_t, b, base + 7, 8, CF.MODE_LE, False)
+    check(got[1].cpu().numpy().tolist() == [True] * 3 + [False] + [True] * 4
+          and equal(torch, got[0], want[0]),
+          "commit_fused: the member with a foreign lock did not fail alone")
+    rows3 = b["w_addr"][b["w_seg"] == 3]
+    check(np.array_equal(got[0][to_device(rows3, dev)].cpu().numpy(),
+                         heap_np[rows3]), "a failed member's rows changed")
+
+    # the MVStore publish (int32 block, out of place) with the ring
+    # refresh, against the same publish on the CPU
+    cfg = MVStoreConfig(ring_slots=8)
+    blk = rng.integers(-1000, 1000, H).astype(np.int32)
+    sts = {d: MV.mv_init({"heap": torch.from_numpy(blk.copy()).to(d)}, cfg,
+                         versioned="all") for d in (dev, "cpu")}
+    for step in range(10):
+        a = rng.choice(H, 2, replace=False)
+        v = rng.integers(-1000, 1000, 2)
+        for d in sts:
+            sts[d] = MV.mv_commit_fused(sts[d], "heap", a, v,
+                                        local_mode="U", cfg=cfg)
+    g, c = sts[dev], sts["cpu"]
+    for what, x, y in (("block", g.live["heap"], c.live["heap"]),
+                       ("ring", g.ring["['heap']"], c.ring["['heap']"]),
+                       ("ring_ts", g.ring_ts["['heap']"],
+                        c.ring_ts["['heap']"])):
+        check(equal(torch, x.cpu(), y), f"mv_commit_fused {what}: card != "
+                                        "CPU")
+    check(g.clock == c.clock == 10, "mv_commit_fused clock")
+
+    # the group trial's shape: 8 members x 1024 rows, 8192 lock and 8192
+    # read entries, in place over the 1M-word int64 heap; one batch in
+    # which every member survives (the one timed below) and one in which
+    # member 2 meets a foreign write lock and member 5 a read too new
+    n_txn, n_l, n_r = 8, 8192, 8192
+    b = _group_batch(rng, n_txn, H, [1024] * n_txn, n_l, n_r, base,
+                     fail=False)
+    b_fail = _group_batch(rng, n_txn, H, [1024] * n_txn, n_l, n_r, base,
+                          fail=False)
+    b_fail["l_words"][np.nonzero(b_fail["l_seg"] == 2)[0][0]] = _words(
+        [base], [9], [1])[0]
+    b_fail["r_words"][np.nonzero(b_fail["r_seg"] == 5)[0][0]] = _words(
+        [base + 50], [-1], [0])[0]
+    survivors = []
+    for bb in (b, b_fail):
+        got, want, _ = both(heap_t, bb, base + 7, n_txn, CF.MODE_LE, False)
+        for g, w, what in zip(got, want, ("heap", "ok", "l_out")):
+            check(equal(torch, g, w), f"commit_fused {what} != plain at "
+                                      "the group trial's shape")
+        survivors.append(got[1].cpu().numpy().tolist())
+        cases += 1
+    check(survivors == [[True] * 8, [True] * 2 + [False] + [True] * 2
+                        + [False] + [True] * 2],
+          f"commit_fused group-shape verdicts: {survivors}")
+    emit({"kernel_check": "commit_fused", "cases": cases,
+          "group_shape_verdicts": survivors, "mvstore_publishes": 10,
+          "bit_identical": True})
+
+    rows = {}
+    n = b["w_addr"].size
+    dv = {k: to_device(np.asarray(v, np.int64), dev) for k, v in b.items()}
+    g_heap, p_heap, l_heap = heap_t.clone(), heap_t.clone(), heap_t.clone()
+
+    def kern():
+        CF.commit_fused(g_heap, b["w_addr"], b["w_val"], b["w_seg"],
+                        b["l_words"], b["l_seg"], b["r_words"], b["r_seen"],
+                        b["r_seg"], b["tids"], b["r_clocks"], base + 7,
+                        n_txn, mode=CF.MODE_LE)
+
+    def plain():
+        CF.commit_fused_plain(p_heap, dv["w_addr"], dv["w_val"],
+                              dv["w_seg"], dv["l_words"], dv["l_seg"],
+                              dv["r_words"], dv["r_seen"], dv["r_seg"],
+                              dv["tids"], dv["r_clocks"], base + 7, n_txn,
+                              CF.MODE_LE)
+    rows["group"] = kernel_row(
+        torch, "commit_fused", kern,
+        shape=f"T={n_txn} N={n} L={n_l} M={n_r} H={H} int64 in place",
+        plain_ms=time_ms(torch, plain),
+        library_ms=time_ms(torch, lambda: l_heap.index_copy_(
+            0, dv["w_addr"], dv["w_val"])),
+        library="index_copy_ (the scatter part alone)",
+        # LE mode reads each read entry's word and segment (no seen),
+        # each lock entry's word and segment and writes its release
+        # word, each write row's address, value and segment and writes
+        # one heap word, and the members' tid and clock (ok written)
+        bound_ms=bound(16 * n_r + 24 * n_l + 32 * n + 20 * n_txn))
+    # the timed publishes rewrite the same values: both heaps agree
+    check(equal(torch, g_heap, p_heap),
+          "commit_fused heap != plain after the timed group publishes")
+
+    # MVStore publish shape: one member, two rows, 1M-word int32 block,
+    # out of place (the kernel's copy phase seeds the new block)
+    blk_t = torch.from_numpy(blk).to(dev)
+    a2 = np.array([17, 999_983], np.int64)
+    v2 = np.array([5, -5], np.int64)
+    z, one = np.zeros((0,), np.int64), np.zeros(1, np.int64)
+    a2_t, v2_t = to_device(a2, dev), to_device(v2, dev).to(torch.int32)
+    z_t, one_t = to_device(z, dev), to_device(one, dev)
+    rows["mvstore"] = kernel_row(
+        torch, "commit_fused", lambda: CF.commit_fused(
+            blk_t, a2, v2, [0, 0], z, z, z, z, z, one, one, 3, 1,
+            out_of_place=True),
+        shape=f"T=1 N=2 H={H} int32 out of place",
+        plain_ms=time_ms(torch, lambda: CF.commit_fused_plain(
+            blk_t, a2_t, v2_t, to_device(np.zeros(2, np.int64), dev), z_t,
+            z_t, z_t, z_t, z_t, one_t, one_t, 3, 1, CF.MODE_LE, True)),
+        library_ms=time_ms(torch, lambda: torch.index_copy(
+            blk_t, 0, a2_t, v2_t)),
+        library="torch.index_copy (out of place)",
+        # the block read once and the new block written once, plus the
+        # two rows (address, value, segment) and the member's tid/clock
+        bound_ms=bound(2 * 4 * H + 2 * (8 + 8 + 8 + 4) + 20))
+    return {"commit_fused": rows}
+
+
+def snapshot_select_checks(torch, dev, rng, bound):
+    """snapshot_select against its plain version on the card: ties (the
+    first maximum wins), no valid slot (slot 0, ok False), NO_TS slots,
+    a ragged row; then timed at R=8, n=1,000,000 int32."""
+    from repro_torch.kernels import snapshot_select as SS
+
+    R, n = 8, 1_000_000
+    ring = torch.from_numpy(rng.integers(
+        -(1 << 31), 1 << 31, (R, n), dtype=np.int64).astype(np.int32)).to(dev)
+    cases = {"ties": [3, 7, 7, 2, 7, -1, 5, 1],
+             "no_valid": [9, 10, 11, 12, 13, 14, 15, 16],
+             "no_ts": [-1] * R, "mixed": [4, -1, 6, 3, -1, 8, 2, 6]}
+    for name, ts_l in cases.items():
+        ts = torch.tensor(ts_l, dtype=torch.int32, device=dev)
+        for clock in (0, 4, 6, 7, 20):
+            got, ok = SS.snapshot_select(ring, ts, clock)
+            want, wok = SS.snapshot_select_plain(ring, ts, clock)
+            check(equal(torch, got, want) and bool(ok) == bool(wok),
+                  f"snapshot_select != plain ({name}, clock {clock})")
+    ragged = ring[:, :1001].contiguous()
+    ts = torch.tensor(cases["mixed"], dtype=torch.int32, device=dev)
+    got, ok = SS.snapshot_select(ragged, ts, 6)
+    want, wok = SS.snapshot_select_plain(ragged, ts, 6)
+    check(equal(torch, got, want) and bool(ok) == bool(wok),
+          "snapshot_select != plain on a ragged row")
+    emit({"kernel_check": "snapshot_select", "cases": 5 * len(cases) + 1,
+          "bit_identical": True})
+    ts = torch.tensor([1, 2, 3, 4, 5, 6, 7, 8], dtype=torch.int32,
+                      device=dev)
+    slot = int(SS.select_slot_plain(ts, 5)[0])
+    return {"snapshot_select": {n: kernel_row(
+        torch, "snapshot_select", lambda: SS.snapshot_select(ring, ts, 5),
+        shape=f"R={R} n={n} int32",
+        plain_ms=time_ms(torch, lambda: SS.snapshot_select_plain(ring, ts,
+                                                                 5)),
+        library_ms=time_ms(torch, lambda: ring[slot].clone()),
+        library="ring[slot].clone()",
+        bound_ms=bound(2 * 4 * n + 4 * R + 4))}}
 
 
 # ---------------------------------------------------------------------------
@@ -225,7 +571,7 @@ def kernel_checks(torch, dev, rng):
 
 
 def run_schedule(make_tm, AbortTx, device, seed, forced_mode=None,
-                 steps=400, region=600):
+                 steps=400, region=600, backend="multiverse"):
     """Two tids' transactions interleaved from one thread: a scan reads
     ``region`` words in chunks, one chunk per step, while the other tid
     commits point transfers or block rotations between its chunks (each
@@ -234,10 +580,16 @@ def run_schedule(make_tm, AbortTx, device, seed, forced_mode=None,
     operation.  Returns ``(trace, raw stats, tm)``."""
     from repro_torch.configs.paper_stm import MultiverseParams
 
-    tm = make_tm("multiverse", 2, array_heap=True, start_bg=False,
-                 device=device, forced_mode=forced_mode,
-                 params=MultiverseParams(k1=2, k2=6, k3=6,
-                                         lock_table_bits=8))
+    params = MultiverseParams(k1=2, k2=6, k3=6, lock_table_bits=8)
+    if backend == "multiverse":
+        tm = make_tm(backend, 2, array_heap=True, start_bg=False,
+                     device=device, forced_mode=forced_mode, params=params)
+    elif backend == "mvstore":
+        tm = make_tm(backend, 2, start_bg=False, device=device,
+                     ring_slots=4, params=params)
+    else:
+        tm = make_tm(backend, 2, array_heap=True, device=device,
+                     params=params)
     base = tm.alloc(region, INITIAL)
     rng = random.Random(seed)
     trace, scan = [], {}
@@ -292,29 +644,50 @@ def run_schedule(make_tm, AbortTx, device, seed, forced_mode=None,
     for st in scan.values():
         if st is not None:
             tm.abort(st[0])
-    stats = tm.raw.stats()
+    stats = tm.stats() if backend == "mvstore" else tm.raw.stats()
     tm.stop()
     return trace, stats, tm
 
 
-def schedule_check(torch):
-    from repro_torch.api import AbortTx, dump_numpy_state, make_tm
+def _state(tm):
+    """The array state of a word backend or of the MVStore, as numpy."""
+    from repro_torch.api import dump_numpy_state
 
-    for seed, mode in ((0, "U"), (1, None), (2, "Q")):
+    if getattr(tm, "name", "") != "mvstore":
+        return dump_numpy_state(tm)
+    st = tm.state
+    out = {"clock": st.clock, "block_clocks": sorted(
+        st.block_clocks.items()), "heap": st.live["heap"].cpu().numpy()}
+    for k in st.ring:
+        out["ring" + k] = st.ring[k].cpu().numpy()
+        out["ring_ts" + k] = st.ring_ts[k].cpu().numpy()
+    return out
+
+
+def schedule_check(torch):
+    from repro_torch.api import AbortTx, make_tm
+
+    runs = [("multiverse", 0, "U"), ("multiverse", 1, None),
+            ("multiverse", 2, "Q")]
+    runs += [(b, 3, None) for b in BACKENDS[1:]]
+    for backend, seed, mode in runs:
         out = {}
         for device in ("cuda", "cpu"):
             trace, stats, tm = run_schedule(make_tm, AbortTx, device, seed,
-                                            mode)
-            out[device] = (trace, stats, dump_numpy_state(tm))
+                                            mode, backend=backend)
+            out[device] = (trace, stats, _state(tm))
         (tg, sg, dg), (tc, sc, dc) = out["cuda"], out["cpu"]
-        check(tg == tc, f"schedule seed {seed}: traces differ")
-        check(sg == sc, f"schedule seed {seed}: stats differ {sg} {sc}")
+        what = f"schedule {backend} seed {seed}"
+        check(tg == tc, f"{what}: traces differ")
+        check(sg == sc, f"{what}: stats differ {sg} {sc}")
+        check(set(dg) == set(dc), f"{what}: state keys differ")
         for k in dc:
             check(np.array_equal(np.asarray(dg[k]), np.asarray(dc[k])),
-                  f"schedule seed {seed}: {k} differs")
-        emit({"schedule": seed, "forced_mode": mode, "steps": len(tg),
-              "aborts": sg["aborts"], "commits": sg["commits"],
-              "version_gather_hits": sg["version_gather_hits"],
+                  f"{what}: {k} differs")
+        emit({"schedule": seed, "backend": backend, "forced_mode": mode,
+              "steps": len(tg), "aborts": sg["aborts"],
+              "commits": sg["commits"],
+              "version_gather_hits": sg.get("version_gather_hits"),
               "cuda_equals_cpu": True})
 
 
@@ -327,11 +700,12 @@ class _Stopped(Exception):
     """Raised inside a long transaction once the trial window closed."""
 
 
-def run_trial(workers, duration_s, warmup_s=0.0, done=None):
+def run_trial(workers, duration_s, warmup_s=0.0, done=None, probe=None):
     """Run ``workers[i](stop, counters[i])`` threads.  The window closes
     after ``duration_s`` — or earlier once ``done(totals)`` holds.
     Returns (counter deltas after the warmup, seconds measured); the
-    violations count is the raw total."""
+    violations count is the raw total.  A ``probe`` (a ``torch.profiler``
+    run) is started and stopped with the window."""
     old = sys.getswitchinterval()
     sys.setswitchinterval(2e-5)            # the eval's (eval/driver.py)
     stop = threading.Event()
@@ -352,12 +726,16 @@ def run_trial(workers, duration_s, warmup_s=0.0, done=None):
             t.start()
         time.sleep(warmup_s)
         baseline = [dict(c) for c in counters]
+        if probe is not None:
+            probe.start()
         t0 = time.perf_counter()
         while time.perf_counter() - t0 < duration_s and not stop.is_set():
             time.sleep(0.05)
             if done is not None and done(_totals(counters, baseline)):
                 break
         dt = time.perf_counter() - t0
+        if probe is not None:
+            probe.stop()
     finally:
         stop.set()
         for t in threads:
@@ -382,16 +760,27 @@ def _sum(vals):
     return sum(int(v) for v in vals)
 
 
+def _make(backend, n_threads, params, **kw):
+    """The trial's TM on the card: word backends on the int64 array
+    heap (eval/workloads.py ``_make``), the MVStore on its int32 block."""
+    from repro_torch.api import make_tm
+
+    return make_tm(backend, n_threads, array_heap=True, params=params, **kw)
+
+
 def longread_trial(torch, name, scan, lock_bits, duration_s, warmup_s,
-                   forced_mode=None, min_scans=None):
-    """1 scanner + 2 transfer updaters (eval/workloads.py longread)."""
-    from repro_torch.api import MaxRetriesExceeded, make_tm, run
+                   forced_mode=None, min_scans=None, backend="multiverse",
+                   probe=None):
+    """1 scanner + 2 transfer updaters (eval/workloads.py longread).
+    Multiverse must finish scans; the other backends must make progress
+    in updates (an unversioned scan may starve: the paper's result)."""
+    from repro_torch.api import MaxRetriesExceeded, run
     from repro_torch.configs.paper_stm import MultiverseParams
 
     chunk = 256
-    tm = make_tm("multiverse", 3, array_heap=True, forced_mode=forced_mode,
-                 params=MultiverseParams(k1=2, k2=3, k3=3,
-                                         lock_table_bits=lock_bits))
+    kw = {"forced_mode": forced_mode} if forced_mode else {}
+    tm = _make(backend, 3, MultiverseParams(k1=2, k2=3, k3=3,
+                                            lock_table_bits=lock_bits), **kw)
     base = tm.alloc(scan, INITIAL)
     expected = scan * INITIAL
     done_at = []                 # perf_counter() of each completed scan
@@ -447,14 +836,15 @@ def longread_trial(torch, name, scan, lock_bits, duration_s, warmup_s,
         (lambda tot: tot["scans"] >= min_scans)
     t_start = time.perf_counter()
     tot, dt = run_trial([scanner, updater(1), updater(2)], duration_s,
-                        warmup_s, done)
+                        warmup_s, done, probe)
     final = run(tm, lambda tx: _sum(tx.read_bulk(range(base, base + scan))),
                 tid=0)
     stats = tm.stats()
     tm.stop()
     check(final == expected, f"{name}: final region sum {final}")
-    row = {"trial": name, "scan_words": scan, "chunk": chunk,
-           "lock_bits": lock_bits, "forced_mode": forced_mode,
+    row = {"trial": name, "backend": backend, "scan_words": scan,
+           "chunk": chunk, "lock_bits": lock_bits,
+           "forced_mode": forced_mode,
            "seconds": dt, "scans": tot["scans"],
            "scans_per_s": tot["scans"] / dt,
            "failed_scans": tot["failed_scans"],
@@ -464,20 +854,21 @@ def longread_trial(torch, name, scan, lock_bits, duration_s, warmup_s,
            "violations": tot["violations"],
            "mode_transitions": stats["mode_transitions"],
            "final_mode": stats["mode"]}
-    check(tot["scans"] > 0 and tot["updates"] > 0,
+    check(tot["updates"] > 0 and (tot["scans"] > 0
+                                  or backend != "multiverse"),
           f"{name}: no progress ({dict(tot)})")
     return row
 
 
-def rwmix_trial(torch, name, wb, duration_s, warmup_s):
+def rwmix_trial(torch, name, wb, duration_s, warmup_s, backend="multiverse",
+                probe=None):
     """2 block-rotation updaters + 1 checker (eval/workloads.py rwmix)."""
-    from repro_torch.api import MaxRetriesExceeded, make_tm, run
+    from repro_torch.api import MaxRetriesExceeded, run
     from repro_torch.configs.paper_stm import MultiverseParams
 
     n_blocks, n_upd = 8, 2
-    tm = make_tm("multiverse", 3, array_heap=True,
-                 params=MultiverseParams(k1=30, k2=200, k3=200,
-                                         lock_table_bits=16))
+    tm = _make(backend, 3, MultiverseParams(k1=30, k2=200, k3=200,
+                                            lock_table_bits=16))
     base = tm.alloc(wb * n_blocks, INITIAL)
     block_sum = wb * INITIAL
 
@@ -517,14 +908,15 @@ def rwmix_trial(torch, name, wb, duration_s, warmup_s):
                 c["failed_checks"] += 1
 
     tot, dt = run_trial([updater(0), updater(1), checker], duration_s,
-                        warmup_s)
+                        warmup_s, probe=probe)
     final = run(tm, lambda tx: [_sum(tx.read_bulk(
         range(base + wb * b, base + wb * (b + 1)))) for b in range(n_blocks)],
         tid=0)
     stats = tm.stats()
     tm.stop()
     check(final == [block_sum] * n_blocks, f"{name}: final sums {final}")
-    row = {"trial": name, "write_words": wb, "n_blocks": n_blocks,
+    row = {"trial": name, "backend": backend, "write_words": wb,
+           "n_blocks": n_blocks,
            "seconds": dt, "updates_per_s": tot["updates"] / dt,
            "failed_updates": tot["failed_updates"],
            "checks_per_s": tot["checks"] / dt,
@@ -533,6 +925,189 @@ def rwmix_trial(torch, name, wb, duration_s, warmup_s):
            "mode_transitions": stats["mode_transitions"],
            "final_mode": stats["mode"]}
     check(tot["updates"] > 0 and tot["checks"] > 0,
+          f"{name}: no progress ({dict(tot)})")
+    return row
+
+
+def group_trial(torch, name, backend, duration_s=6.0, warmup_s=1.0,
+                probe=None):
+    """Group commit on a 1,000,000-word heap with the 2^16 lock table
+    (eval/workloads.py durability, ``inmem-group``, at rwmix's 1024-word
+    writes): 2 updaters each commit batches of 8 disjoint contiguous
+    1024-word rotations through ``CommitBatcher``; 1 checker reads block
+    sums."""
+    from repro_torch.api import MaxRetriesExceeded, run
+    from repro_torch.configs.paper_stm import MultiverseParams
+    from repro_torch.core.engine.errors import AbortTx
+    from repro_torch.core.engine.groupcommit import CommitBatcher
+
+    heap_words, wb, n_blocks, n_upd = 1_000_000, 1024, 16, 2
+    # member tids are the block ids; the checker sits above them
+    tm = _make(backend, n_blocks + 1, MultiverseParams(
+        k1=30, k2=200, k3=200, lock_table_bits=16))
+    base = tm.alloc(heap_words, INITIAL)
+    eng = tm.raw
+    block_sum = wb * INITIAL
+
+    def updater(worker):
+        mine = [b for b in range(n_blocks) if b % n_upd == worker]
+
+        def work(stop, c):
+            batcher = CommitBatcher(eng)
+            while not stop.is_set():
+                txs = []
+                for b in mine:
+                    off = base + wb * b
+                    for _attempt in range(4):
+                        tx = eng.begin(b)
+                        try:
+                            vals = tx.read_bulk(range(off, off + wb))
+                            vals = torch.as_tensor(vals, dtype=torch.int64)
+                            tx.write_bulk(range(off, off + wb),
+                                          torch.roll(vals, 1))
+                            txs.append(tx)
+                            break
+                        except AbortTx:
+                            continue
+                for tx in txs:
+                    batcher.add(tx)
+                ok = batcher.commit_all()
+                c["updates"] += sum(ok)
+                c["failed_updates"] += len(ok) - sum(ok)
+                c["batches"] += 1
+            c["groups"] = batcher.stats["groups"]
+            c["grouped_members"] = batcher.stats["grouped"]
+        return work
+
+    def checker(stop, c):
+        r = random.Random(SEED * 10007 + 900)
+
+        def chk(tx):
+            off = base + wb * r.randrange(n_blocks)
+            return _sum(tx.read_bulk(range(off, off + wb)))
+        while not stop.is_set():
+            try:
+                got = run(tm, chk, tid=n_blocks, max_retries=2000)
+                c["checks"] += 1
+                if got != block_sum:
+                    c["violations"] += 1
+            except MaxRetriesExceeded:
+                c["failed_checks"] += 1
+
+    tot, dt = run_trial([updater(0), updater(1), checker], duration_s,
+                        warmup_s, probe=probe)
+    final = run(tm, lambda tx: [_sum(tx.read_bulk(
+        range(base + wb * b, base + wb * (b + 1)))) for b in range(n_blocks)],
+        tid=n_blocks)
+    groups = tot["groups"]
+    tm.stop()
+    check(final == [block_sum] * n_blocks, f"{name}: final sums {final}")
+    row = {"trial": name, "backend": backend, "heap_words": heap_words,
+           "write_words": wb, "n_blocks": n_blocks, "batch": n_blocks // 2,
+           "seconds": dt, "updates_per_s": tot["updates"] / dt,
+           "failed_updates": tot["failed_updates"],
+           "groups": groups, "grouped_members": tot["grouped_members"],
+           "checks_per_s": tot["checks"] / dt,
+           "failed_checks": tot["failed_checks"],
+           "violations": tot["violations"]}
+    check(groups > 0 and tot["updates"] > 0 and tot["checks"] > 0,
+          f"{name}: no progress ({dict(tot)})")
+    return row
+
+
+def mvstore_trial(torch, name, duration_s=6.0, warmup_s=1.0, probe=None):
+    """The MVStore on a 1,000,000-word int32 block, every block versioned,
+    an 8-slot ring: 2 updaters commit 2-word transfers (each publish one
+    ``commit_fused`` launch, out of place, plus the ring refresh) and 1
+    scanner reads the whole block at the current or a past clock, in
+    turn with ``snapshot_bulk`` and with ``snapshot`` (``mv_snapshot``,
+    the trainer snapshot's call: one ``snapshot_select`` launch).
+    Afterwards every clock of the ring window resolves through
+    ``snapshot`` and must equal the plain ``snapshot_select`` on the same
+    ring and ``snapshot_bulk``."""
+    from repro_torch.api import MaxRetriesExceeded, run
+    from repro_torch.configs.paper_stm import MultiverseParams
+    from repro_torch.kernels import snapshot_select as SS
+
+    words, R = 1_000_000, 8
+    h = _make("mvstore", 3, MultiverseParams(k1=2, k2=3, k3=3),
+              versioned="all", ring_slots=R)
+    base = h.alloc(words, INITIAL)
+    expected = words * INITIAL
+    addrs = np.arange(base, base + words, dtype=np.int64)
+
+    def scanner(stop, c):
+        r = random.Random(SEED * 10007 + 7)
+        whole = False
+        while not stop.is_set():
+            rc = max(0, h.clock - r.randrange(R))
+            whole = not whole
+            if whole:
+                view, ok = h.snapshot(rc)
+                ok = bool(ok)
+                vals = view["heap"][base:base + words] if ok else None
+            else:
+                vals, ok = h.snapshot_bulk(addrs, rc)
+            if not ok:
+                c["stale_scans"] += 1
+                continue
+            c["scans"] += 1
+            c["snapshot_scans"] += whole
+            if _sum(vals) != expected:
+                c["violations"] += 1
+
+    def updater(tid):
+        r = random.Random(SEED * 10007 + 100 + tid)
+
+        def transfer(tx):
+            i = r.randrange(words)
+            j = r.randrange(words - 1)
+            if j >= i:
+                j += 1
+            a = tx.read(base + i)
+            b = tx.read(base + j)
+            tx.write(base + i, a - AMOUNT)
+            tx.write(base + j, b + AMOUNT)
+
+        def work(stop, c):
+            while not stop.is_set():
+                try:
+                    run(h, transfer, tid=tid, max_retries=2000)
+                    c["updates"] += 1
+                except MaxRetriesExceeded:
+                    c["failed_updates"] += 1
+        return work
+
+    tot, dt = run_trial([scanner, updater(1), updater(2)], duration_s,
+                        warmup_s, probe=probe)
+    clock = h.clock
+    window = list(range(max(0, clock - R + 1), clock + 1))
+    state = h.state
+    ring, ring_ts = state.ring["['heap']"], state.ring_ts["['heap']"]
+    for rc in window:
+        vp, okp = h.snapshot(rc)
+        vx, okx = SS.snapshot_select_plain(ring, ring_ts, rc)
+        vb, okb = h.snapshot_bulk(addrs, rc)
+        check(bool(okp) and bool(okx) and okb,
+              f"{name}: clock {rc} of the ring window did not resolve")
+        blk = vp["heap"][base:base + words]
+        check(equal(torch, vp["heap"], vx),
+              f"{name}: mv_snapshot != plain snapshot_select at clock {rc}")
+        check(equal(torch, blk, vb), f"{name}: mv_snapshot != snapshot_bulk "
+                                     f"at clock {rc}")
+        check(_sum(blk) == expected, f"{name}: snapshot sum at clock {rc}")
+    stats = h.stats()
+    h.stop()
+    row = {"trial": name, "backend": "mvstore", "block_words": words,
+           "ring_slots": R, "seconds": dt,
+           "scans_per_s": tot["scans"] / dt,
+           "snapshot_scans": tot["snapshot_scans"],
+           "stale_scans": tot["stale_scans"],
+           "updates_per_s": tot["updates"] / dt,
+           "failed_updates": tot["failed_updates"],
+           "violations": tot["violations"], "ring_window_checked": window,
+           "mode_transitions": stats["mode_transitions"]}
+    check(tot["scans"] > 0 and tot["updates"] > 0,
           f"{name}: no progress ({dict(tot)})")
     return row
 
@@ -551,7 +1126,18 @@ def main_path(torch):
         lambda: rwmix_trial(torch, "rwmix_w1024", 1024, duration_s=6.0,
                             warmup_s=1.0),
     ]
+    for b in BACKENDS[1:]:
+        trials.append(lambda b=b: longread_trial(
+            torch, f"longread_scan4096_{b}", 4096, 12, duration_s=6.0,
+            warmup_s=1.0, backend=b))
+        trials.append(lambda b=b: rwmix_trial(
+            torch, f"rwmix_w1024_{b}", 1024, duration_s=6.0, warmup_s=1.0,
+            backend=b))
+    trials += [lambda: group_trial(torch, "group_tl2_1M", "tl2"),
+               lambda: group_trial(torch, "group_dctl_1M", "dctl"),
+               lambda: mvstore_trial(torch, "mvstore_1M")]
     totals = defaultdict(int)
+    rows = {}
 
     def one(trial):
         torch.cuda.reset_peak_memory_stats()
@@ -563,10 +1149,18 @@ def main_path(torch):
         for k, v in row["launches"].items():
             totals[k] += v
         emit(row)
+        rows[row["trial"]] = row
         check(row["violations"] == 0, f"{row['trial']}: violations")
 
     for t in trials:
         one(t)
+    # the group publish and the MVStore's ran through their kernels
+    # (DCTL groups release only: no commit_fused by design)
+    check(rows["group_tl2_1M"]["launches"]["commit_fused"] > 0,
+          "group_tl2_1M launched no commit_fused")
+    for k in ("commit_fused", "snapshot_select", "gather_read"):
+        check(rows["mvstore_1M"]["launches"][k] > 0,
+              f"mvstore_1M launched no {k}")
     if totals["version_select"] == 0:
         # the natural runs never resolved a versioned read through the
         # mirror: pin Mode U (api/registry.py forced_mode) so they do
@@ -577,6 +1171,39 @@ def main_path(torch):
         check(totals[k] > 0, f"kernel {k} was never launched on the main "
                              "path")
     return dict(totals)
+
+
+def idle_shares(torch):
+    """The card's idle share in four trials, each run again for a 3 s
+    window under a ``torch.profiler`` trace of its GPU activity (kernels,
+    copies, memsets): idle share = 1 - busy time / window.  Kept apart
+    from the main path, whose numbers stay untraced; its launches are not
+    counted."""
+    from torch.profiler import ProfilerActivity
+
+    from repro_torch import kernels as K
+
+    traced = {
+        "longread_scan4096": lambda p: longread_trial(
+            torch, "longread_scan4096", 4096, 12, 3.0, 1.0, probe=p),
+        "rwmix_w1024": lambda p: rwmix_trial(
+            torch, "rwmix_w1024", 1024, 3.0, 1.0, probe=p),
+        "group_tl2_1M": lambda p: group_trial(
+            torch, "group_tl2_1M", "tl2", 3.0, 1.0, probe=p),
+        "mvstore_1M": lambda p: mvstore_trial(torch, "mvstore_1M", 3.0, 1.0,
+                                              probe=p),
+    }
+    for name, trial in traced.items():
+        prof = torch.profiler.profile(activities=[ProfilerActivity.CUDA])
+        row = trial(prof)
+        check(row["violations"] == 0, f"traced {name}: violations")
+        n, busy_us, _ = gpu_activity(prof)
+        window_ms = row["seconds"] * 1e3
+        emit({"trace": name, "window_s": row["seconds"], "gpu_events": n,
+              "device_busy_ms": busy_us / 1e3 if n else None,
+              "device_idle_share": 1 - busy_us / 1e3 / window_ms if n
+              else None})
+    K.reset_launch_counts()
 
 
 # ---------------------------------------------------------------------------
@@ -620,6 +1247,7 @@ def main() -> int:
 
     schedule_check(torch)
     launches = main_path(torch)
+    idle_shares(torch)
 
     summary = []
     for name, (src, replaces, n) in KERNELS.items():
@@ -627,9 +1255,12 @@ def main() -> int:
         summary.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches[name],
-            "max_abs_err": 0, "n": n, "ms": row["ms"],
-            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": "bytes", "library_ms": row["library_ms"]})
+            "max_abs_err": 0, "n": n, "shape": row.get("shape"),
+            "ms": row["ms"], "kernel_device_ms": row["kernel_device_ms"],
+            "device_busy_ms": row["device_busy_ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": "bytes",
+            "library_ms": row["library_ms"]})
     print(smi[0], flush=True)
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu",

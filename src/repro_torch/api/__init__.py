@@ -3,6 +3,7 @@
     from repro_torch.api import make_tm, atomic, run
 
     tm = make_tm("multiverse", n_threads=4, array_heap=True)   # the card
+    # or "tl2" / "dctl" / "norec" / "tinystm" / "mvstore"
     base = tm.alloc(100, 0)
 
     @atomic(tm)
@@ -18,6 +19,7 @@ PyTorch version.  ``state.load_numpy_state`` / ``dump_numpy_state`` move
 the array state in and out as numpy arrays.
 """
 from repro_torch.api.adapters import WordSubstrate  # noqa: F401
+from repro_torch.api.mvhandle import MVStoreHandle  # noqa: F401
 from repro_torch.api.registry import (  # noqa: F401
     backend_names,
     make_tm,
@@ -44,7 +46,8 @@ from repro_torch.core.stats_schema import (  # noqa: F401
 )
 
 __all__ = [
-    "AbortTx", "MaxRetriesExceeded", "STATS_KEYS", "Substrate",
+    "AbortTx", "MaxRetriesExceeded", "MVStoreHandle", "STATS_KEYS",
+    "Substrate",
     "SubstrateBase", "Txn", "WordSubstrate", "as_substrate", "atomic",
     "backend_names", "base_stats", "dump_numpy_state", "load_numpy_state",
     "make_tm", "normalize_stats", "register_backend", "run",

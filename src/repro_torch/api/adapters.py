@@ -1,7 +1,8 @@
 """Thin adapter that puts the word-level engine behind the Substrate protocol.
 
-`WordSubstrate` wraps any `TransactionEngine` (in this slice the
-Multiverse STM, a policy over `repro_torch.core.engine`).
+`WordSubstrate` wraps any `TransactionEngine` (the Multiverse STM or a
+TL2/DCTL/NOrec/TinySTM baseline — all policies over
+`repro_torch.core.engine`).
 It owns none of the transactional logic — begin/read/write/commit stay in
 the engine — it only normalizes the lifecycle so the shared retry loop
 (`repro_torch.api.run`), the `txn()` context manager and `@atomic` work

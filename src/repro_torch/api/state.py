@@ -14,6 +14,9 @@ read the port's state back for a bit-for-bit comparison
     mirror_ts    int64[2^bits, ways, depth]
     mirror_data  int64[2^bits, ways, depth]
 
+The mirror keys exist only for Multiverse (the baselines keep no
+versions).
+
 Only the array state moves: version lists, bloom filters and EBR are
 host objects that ``load_numpy_state`` leaves as they are, so a loaded
 mirror is consistent with the version lists only if the caller makes it
@@ -54,7 +57,9 @@ def load_numpy_state(tm, state: Dict) -> None:
                          f"state has {words.shape}")
     eng.locks._words.copy_(torch.from_numpy(words.copy()))
     eng.clock.store(int(state["clock"]))
-    eng.policy.vlt.mirror.load(*(state[k] for k in _MIRROR_KEYS))
+    vlt = getattr(eng.policy, "vlt", None)
+    if vlt is not None:
+        vlt.mirror.load(*(state[k] for k in _MIRROR_KEYS))
 
 
 def dump_numpy_state(tm) -> Dict:
@@ -64,6 +69,8 @@ def dump_numpy_state(tm) -> Dict:
     out = {"heap": eng.heap.live().cpu().numpy().copy(),
            "lock_words": eng.locks._words.cpu().numpy().copy(),
            "clock": eng.clock.load()}
-    for src, key in zip(eng.policy.vlt.mirror.arrays(), _MIRROR_KEYS):
-        out[key] = src.cpu().numpy().copy()
+    vlt = getattr(eng.policy, "vlt", None)
+    if vlt is not None:
+        for src, key in zip(vlt.mirror.arrays(), _MIRROR_KEYS):
+            out[key] = src.cpu().numpy().copy()
     return out

@@ -2,8 +2,8 @@
 
 The paper's claim is that versioned and unversioned transactions share a
 single programming model; this module is that model for the port.  Every
-backend (in this slice, the word-level Multiverse STM) is driven through
-the same five verbs:
+backend — the word-level Multiverse STM, the TL2/DCTL/NOrec/TinySTM
+baselines, and the Layer-B MVStore — is driven through the same five verbs:
 
     tm = make_tm("multiverse", n_threads=4)
     a = tm.alloc(2, 100)
@@ -223,7 +223,7 @@ class SubstrateBase:
     def read_bulk(self, ctx: Any, addrs) -> Any:
         """`Txn.read_bulk` hook: default is the scalar loop, so every
         substrate supports the batched surface even before it vectorizes
-        (`WordSubstrate` overrides with real batches)."""
+        (`WordSubstrate`/`MVStoreHandle` override with real batches)."""
         return [self.read(ctx, int(a)) for a in addrs]
 
     def validate(self, ctx: Any) -> bool:

@@ -1,2 +1,2 @@
 """Configurations of the port: the paper's STM tunables
-(``paper_stm.MultiverseParams``)."""
+(``paper_stm.MultiverseParams``) and the store's ``base.MVStoreConfig``."""

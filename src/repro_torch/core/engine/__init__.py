@@ -1,14 +1,17 @@
 """repro_torch.core.engine — the shared transaction-engine layer.
 
 One ``TransactionEngine`` (heap + clock + lock table + descriptors +
-commit/abort orchestration) drives the word-level backend; the algorithm
-itself is a ``TMPolicy`` object (``core/stm.py``).  Layered as:
+commit/abort orchestration) drives every word-level backend; the
+algorithm itself is a ``TMPolicy`` object (``core/stm.py``,
+``core/baselines.py``).  Layered as:
 
     descriptor.py   TxnDescriptor — unified per-thread txn context
     validation.py   commit-time revalidation (scalar + bulk kernel)
     bulkread.py     batched reads (Txn.read_bulk): three gather_read
                     launches + stability predicate, scalar fallback
-    commit.py       lock-release / write-back / rollback steps
+    commit.py       lock-acquire / write-back / release / rollback steps
+    groupcommit.py  CommitBatcher: conflict-disjoint groups published at
+                    one clock tick through the commit_fused kernel
     policy.py       TMPolicy protocol + PolicyBase defaults
     arrayheap.py    ObjectHeap / device ArrayHeap / packed ArrayLockTable
     engine.py       TransactionEngine + the _Tx user handle

@@ -47,10 +47,11 @@ import numpy as np
 import torch
 
 from repro_torch.core.engine.arrayheap import ArrayHeap
+from repro_torch.kernels import gather_read as GR
 from repro_torch.kernels._lib import to_device
 
 __all__ = ["as_addr_array", "bulk_read_lockver", "finish_with_scalar",
-           "gather_lockver", "heap_gather", "lockver_verdict"]
+           "gather_lockver", "gather_row", "heap_gather", "lockver_verdict"]
 
 
 def as_addr_array(addrs: Sequence[int]) -> np.ndarray:
@@ -63,6 +64,15 @@ def as_addr_array(addrs: Sequence[int]) -> np.ndarray:
     if isinstance(addrs, torch.Tensor):
         return addrs.reshape(-1).cpu().numpy().astype(np.int64, copy=False)
     return np.fromiter((int(a) for a in addrs), np.int64)
+
+
+def gather_row(row: torch.Tensor, addrs: np.ndarray) -> torch.Tensor:
+    """``row[addrs]`` for any 1-D int64 or int32 value row — the MVStore
+    block and its ring rows: one ``gather_read`` launch on the card (the
+    plain version on the CPU), returning a tensor of the row's dtype on
+    its device.  Every address must lie in ``[0, len(row))``, at both
+    ends, or ``IndexError`` is raised before anything launches."""
+    return GR.gather_read(row, addrs)
 
 
 def heap_gather(heap, addrs: np.ndarray, dev_idx=None):

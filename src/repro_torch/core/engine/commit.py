@@ -1,8 +1,10 @@
-"""Commit pipeline steps for encounter-time policies over the device heap.
+"""Commit pipeline steps over the device heap.
 
 The begin/read/write/commit scaffolding lives here as policy-agnostic
 steps over an engine:
 
+  * buffered (TL2-style) commits: ``acquire_write_locks`` then
+    ``write_back`` then ``release_locks`` at the new write version;
   * encounter-time (DCTL-style) commits: locks are already held, so the
     pipeline is revalidate + ``release_locks`` at the commit clock;
   * encounter-time aborts: ``rollback_inplace`` restores the undo log and
@@ -15,7 +17,8 @@ steps over an engine:
 Every step is BATCHED at write sets >= ``BULK_MIN``: lock claims are one
 ``ArrayLockTable.try_lock_bulk`` sweep (all-or-nothing), write-back and
 undo-restore one heap ``scatter``, lock release one ``unlock_bulk``
-sweep.  Below the threshold the exact scalar loops run.
+sweep.  Below the threshold the exact scalar loops run.  ``scatter_row``
+is the out-of-place spelling for a row that readers may still hold.
 
 The reference's heap write-back never reached its scatter kernel (its
 heap was a host numpy array); here the heap lives on the device, so the
@@ -33,13 +36,35 @@ ported yet, so ``eng.wal`` is always ``None`` here.
 """
 from __future__ import annotations
 
-from typing import Iterable, Optional
+import contextlib
+from typing import Iterable, List, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.core.engine.validation import BULK_MIN
+from repro_torch.kernels import _lib
+from repro_torch.kernels import scatter_write as SW
 from repro_torch.reliability import faultpoints as FP
+
+
+@contextlib.contextmanager
+def acquire_ascending(locks):
+    """Hold several commit locks at once, released in reverse order.
+
+    The caller passes the locks already sorted by a global total order,
+    so two commits with overlapping footprints can never deadlock.
+    Unwind (a simulated crash included) releases whatever was acquired.
+    """
+    held = []
+    try:
+        for lk in locks:
+            lk.acquire()
+            held.append(lk)
+        yield
+    finally:
+        for lk in reversed(held):
+            lk.release()
 
 
 def addr_lock_indices(eng, addrs: Iterable[int]) -> np.ndarray:
@@ -162,6 +187,49 @@ def heap_scatter(heap, addrs, values, tid: int = -1) -> None:
     sc(addrs, values)
 
 
+def as_value_list(values) -> list:
+    """A write batch's values as host Python values: a tensor (any
+    device) comes back in one copy, anything else is listed as is —
+    what the buffered write maps store."""
+    if isinstance(values, torch.Tensor):
+        return values.reshape(-1).tolist()
+    return list(values)
+
+
+def scatter_row(row: torch.Tensor, addrs, values) -> torch.Tensor:
+    """``row`` with ``values`` scattered at ``addrs``, OUT OF PLACE: a
+    new tensor (seeded by a copy) receives one ``scatter_write`` launch,
+    so a reader still holding ``row`` keeps a whole old row.  Addresses
+    must lie in ``[0, len(row))`` at both ends (``IndexError``); values
+    are exact int64."""
+    a = _lib.host_index(addrs)
+    _lib.check_addr_bounds(a, row.shape[0])
+    out = row.clone()
+    SW.scatter_write(out, a, SW.as_values(values, a.size, row.device))
+    return out
+
+
+def wal_log_prepare(eng, d) -> None:
+    """Buffered PREPARE from the buffered write map (before the claim).
+    Inert until the write-ahead log is ported: ``eng.wal`` is ``None``."""
+    wal = eng.wal
+    if wal is None or not d.write_map:
+        return
+    wm = d.write_map
+    d.wal_lsn = wal.append_prepare(
+        d.tid, np.fromiter(wm.keys(), np.int64, len(wm)),
+        list(wm.values()), clocks=(eng.clock.load(),))
+
+
+def wal_log_decide(eng, d) -> None:
+    """fsync'd DECIDE at the publish_started flip (buffered path).
+    Inert while ``eng.wal`` is ``None``."""
+    wal = eng.wal
+    if wal is None or d.wal_lsn is None:
+        return
+    wal.append_decide(d.wal_lsn)
+
+
 def wal_log_decide_encounter(eng, d) -> None:
     """PREPARE + DECIDE for encounter-time policies at their decide
     point (revalidation passed, locks still held).  Inert until the
@@ -174,6 +242,85 @@ def wal_log_decide_encounter(eng, d) -> None:
     d.wal_lsn = wal.append_prepare(
         d.tid, addrs, vals, clocks=(eng.clock.load(),))
     wal.append_decide(d.wal_lsn)
+
+
+def acquire_write_locks(eng, d,
+                        bulk_min: Optional[int] = None) -> List[int]:
+    """Claim every buffered write's lock (commit-time locking).
+
+    On conflict, aborts the transaction with no locks held: the scalar
+    loop releases whatever it had acquired (versions untouched); the
+    bulk sweep (write sets >= ``bulk_min``) is all-or-nothing.  Returns
+    the locked indices, deduplicated (ascending on the bulk path,
+    acquisition order on the scalar path).
+    """
+    bm = BULK_MIN if bulk_min is None else bulk_min
+    wal_log_prepare(eng, d)
+    if FP.ACTIVE is not None:
+        FP.fire("pre_claim", d.tid)
+    try_bulk = getattr(eng.locks, "try_lock_bulk", None)
+    if try_bulk is not None and len(d.write_map) >= bm:
+        claimed = try_bulk(addr_lock_indices(eng, d.write_map), d.tid)
+        if claimed is None:
+            eng.abort_txn(d)
+        locked = claimed.tolist()
+    else:
+        locked: List[int] = []
+        for addr in d.write_map:
+            idx = eng.locks.index(addr)
+            st = eng.locks.read(idx)
+            if not eng.locks.try_lock(idx, st, d.tid):
+                release_locks(eng, locked)
+                eng.abort_txn(d)
+            if idx not in locked:
+                locked.append(idx)
+    if FP.ACTIVE is not None:
+        try:
+            FP.fire("post_claim", d.tid)
+        except BaseException as e:
+            # an injected recoverable error must not leak the claim the
+            # caller never saw; a simulated crash must leave it held
+            if not FP.is_simulated_crash(e):
+                release_locks(eng, locked)
+            raise
+    return locked
+
+
+def write_back(eng, d, bulk_min: Optional[int] = None) -> None:
+    """Publish buffered writes to the heap (caller holds the locks):
+    one in-place heap scatter at write sets >= ``bulk_min`` (write maps
+    are dict-keyed, so the addresses are unique), the scalar store loop
+    below it."""
+    bm = BULK_MIN if bulk_min is None else bulk_min
+    wm = d.write_map
+    if FP.ACTIVE is not None:
+        FP.fire("pre_scatter", d.tid)
+    if d.wal_lsn is None:
+        wal_log_prepare(eng, d)
+    # commit record: from here the decision is publish
+    wal_log_decide(eng, d)
+    d.publish_started = True
+    if len(wm) >= bm and getattr(eng.heap, "scatter", None) is not None:
+        addrs = np.fromiter(wm.keys(), np.int64, len(wm))
+        heap_scatter(eng.heap, addrs, list(wm.values()), tid=d.tid)
+        if FP.ACTIVE is not None:
+            FP.fire("post_scatter", d.tid)
+        return
+    if FP.ACTIVE is not None and len(wm) > 1:
+        # same partial-lane split as heap_scatter, for the scalar path
+        items = list(wm.items())
+        h = len(items) // 2
+        for addr, value in items[:h]:
+            eng.heap[addr] = value
+        FP.fire("mid_scatter", d.tid)
+        for addr, value in items[h:]:
+            eng.heap[addr] = value
+        FP.fire("post_scatter", d.tid)
+        return
+    for addr, value in wm.items():
+        eng.heap[addr] = value
+    if FP.ACTIVE is not None:
+        FP.fire("post_scatter", d.tid)
 
 
 def release_locks(eng, idxs: Iterable[int],

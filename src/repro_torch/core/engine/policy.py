@@ -11,10 +11,10 @@ exhaustion cleanup); a policy supplies only the algorithm:
         def commit_update(self, eng, d): ...
 
 and becomes a full backend via ``TransactionEngine(MyPolicy(), n)`` (or
-``register_backend`` — see API.md for the worked example).  In the JAX
-package TL2, DCTL, NOrec and TinySTM are such objects
-(``repro/core/baselines.py``, not ported yet); Multiverse adds its
-versioning machinery in ``core/stm.py`` through the same hooks.
+``register_backend`` — see API.md for the worked example).  TL2, DCTL,
+NOrec and TinySTM are exactly such objects in ``core/baselines.py``;
+Multiverse adds its versioning machinery in ``core/stm.py`` through the
+same hooks.
 """
 from __future__ import annotations
 

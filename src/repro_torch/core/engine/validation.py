@@ -17,13 +17,16 @@ once the read set is large enough to amortize it.  On a CPU lock table
 the same call takes the kernel's plain PyTorch version.
 
 NOrec validates VALUES, not versions: ``validate_values`` re-reads each
-``(addr, value)`` pair against the heap.
+``(addr, value)`` pair against the heap — in one heap gather once the
+value log reaches ``BULK_MIN`` entries (on the card a per-word read is
+one blocking copy each).
 """
 from __future__ import annotations
 
 from typing import List, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.kernels import validate as VK
 from repro_torch.kernels.validate import V_EQ, V_LE, V_LT  # noqa: F401
@@ -76,6 +79,14 @@ def revalidate(locks, read_set: List[tuple], r_clock: int, tid: int,
 
 def validate_values(heap, read_vals: List[tuple]) -> bool:
     """NOrec value validation: every read value must still be in place."""
+    gather = getattr(heap, "gather", None)
+    if gather is not None and len(read_vals) >= BULK_MIN:
+        addrs = np.fromiter((p[0] for p in read_vals), np.int64,
+                            len(read_vals))
+        got = gather(addrs)
+        if isinstance(got, torch.Tensor):
+            got = got.tolist()
+        return all(g == p[1] for g, p in zip(got, read_vals))
     for addr, val in read_vals:
         if heap[addr] != val:
             return False

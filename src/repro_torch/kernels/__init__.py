@@ -6,23 +6,29 @@ wrapper launches its kernel for a CUDA tensor and takes the plain
 version only for a CPU tensor — there is no fallback from one to the
 other.
 
-    gather_read     out[i] = row[idx[i]]              (heap, lock words)
+    gather_read     out[i] = row[idx[i]]     (heap, lock words, MVStore rows)
     scatter_write   row[idx[i]] = val[i], in place    (heap, lock words)
     validate        read-set predicate + all-valid flag
     version_select  newest mirror slot below a snapshot
+    commit_fused    group verdict + scatter + release words (group commit,
+                    MVStore publish)
+    snapshot_select newest ring slot at/below a clock, copied (MVStore)
 """
 from typing import Dict
 
 from repro_torch.kernels import (
+    commit_fused,
     gather_read,
     scatter_write,
+    snapshot_select,
     validate,
     version_select,
 )
 
 #: every kernel's launch counter, by kernel name
 COUNTERS = {m.launches.name: m.launches
-            for m in (gather_read, scatter_write, validate, version_select)}
+            for m in (gather_read, scatter_write, validate, version_select,
+                      commit_fused, snapshot_select)}
 
 
 def reset_launch_counts() -> None:

@@ -46,7 +46,9 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("gather_read.cu", "scatter_write.cu", "validate.cu",
-           "version_select.cu")
+           "version_select.cu", "commit_fused.cu", "snapshot_select.cu")
+#: headers the sources include (hashed with them, not compiled alone)
+HEADERS = ("copy_bytes.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -55,10 +57,16 @@ _I = ctypes.c_longlong
 #: argument types of each C entry point (the stream is always last)
 SIGNATURES = {
     "gather_read_i64": (_P, _I, _P, _I, _P, _P),
+    "gather_read_i32": (_P, _I, _P, _I, _P, _P),
     "scatter_write_i64": (_P, _I, _P, _P, _I, _P),
     "validate_readset_i64": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
     "version_select_i64": (_P, _P, _I, _I, _I, _P, _P, _P),
+    "commit_fused_i64": (_P, _P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _I,
+                         _I, _P, _P, _P, _I, _P, _P, _I, _I, _I, _P, _P,
+                         _I, _P),
+    "snapshot_select_rows": (_P, _I, _I, _P, _I, _P, _P, _P),
 }
+SIGNATURES["commit_fused_i32"] = SIGNATURES["commit_fused_i64"]
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
@@ -100,7 +108,7 @@ def _nvcc() -> str:
 def library_path() -> Path:
     """Where the library for the current sources lives (built or not)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in SOURCES:
+    for s in SOURCES + HEADERS:
         h.update(s.encode())
         h.update((CSRC / s).read_bytes())
     return BUILD_DIR / f"librepro_torch_{h.hexdigest()[:16]}.so"
@@ -242,9 +250,11 @@ def to_host(tensors) -> list:
     return out
 
 
-def check_row(row: torch.Tensor) -> None:
-    """The rows the gather/scatter kernels take: 1-D contiguous int64."""
-    if row.dtype != torch.int64 or row.dim() != 1 \
+def check_row(row: torch.Tensor, dtypes=(torch.int64,)) -> None:
+    """The rows the gather/scatter kernels take: 1-D contiguous, of one
+    of ``dtypes`` (int64 unless the kernel has more instantiations)."""
+    if row.dtype not in dtypes or row.dim() != 1 \
             or not row.is_contiguous():
-        raise ValueError("expected a contiguous 1-D int64 row, got "
+        raise ValueError("expected a contiguous 1-D row of "
+                         f"{[str(d) for d in dtypes]}, got "
                          f"{row.dtype} {tuple(row.shape)}")

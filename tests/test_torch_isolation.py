@@ -59,28 +59,35 @@ def test_every_module_imports_without_jax_or_reference():
     assert int(out.stdout.strip()) == len(mods) >= 20
 
 
-def test_entry_points_default_to_the_card():
+@pytest.mark.parametrize("backend", ["multiverse", "tl2", "dctl", "norec",
+                                     "tinystm", "mvstore"])
+def test_entry_points_default_to_the_card(backend):
     from repro_torch.api import make_tm
     from repro_torch.core.engine import ArrayHeap, resolve_device
 
     if torch.cuda.is_available():
         assert resolve_device(None).type == "cuda"
         return
+    kw = {"start_bg": False} if backend in ("multiverse", "mvstore") else {}
     with pytest.raises(RuntimeError, match="CUDA"):
-        make_tm("multiverse")
+        make_tm(backend, 2, array_heap=True, **kw)
     with pytest.raises(RuntimeError, match="CUDA"):
-        make_tm("multiverse", 2, array_heap=True, device="cuda")
+        make_tm(backend, 2, array_heap=True, device="cuda", **kw)
     with pytest.raises(RuntimeError, match="CUDA"):
         ArrayHeap()
-    tm = make_tm("multiverse", 1, device="cpu", start_bg=False)
-    assert tm.raw.locks._words.device.type == "cpu"
+    tm = make_tm(backend, 1, array_heap=True, device="cpu", **kw)
+    if backend == "mvstore":
+        assert tm.state.live["heap"].device.type == "cpu"
+    else:
+        assert tm.raw.locks._words.device.type == "cpu"
+        assert tm.raw.heap.live().device.type == "cpu"
     tm.stop()
 
 
 def test_unported_backends_say_so():
     from repro_torch.api import make_tm
 
-    for name in ("tl2", "dctl", "norec", "tinystm", "mvstore"):
+    for name in ("shardstore",):
         with pytest.raises(ValueError, match="not ported yet"):
             make_tm(name, device="cpu")
     tm = make_tm("multiverse", 1, device="cpu", start_bg=False)

@@ -1,4 +1,4 @@
-"""The port's four kernels, through their CPU (plain PyTorch) route,
+"""The port's six kernels, through their CPU (plain PyTorch) route,
 against the JAX package's Pallas kernels and numpy twins.
 
 Pallas runs as ``tests/test_kernels.py`` runs it: ``interpret=True``,
@@ -15,14 +15,22 @@ import torch
 
 from repro.core.engine import validation as JV
 from repro.core.vlt import np_version_select
+from repro.core.engine import arrayheap as JA
+from repro.kernels import commit_fused as J_CF
 from repro.kernels import gather_read as J_GR
 from repro.kernels import ops
+from repro.kernels import ref as J_REF
 from repro.kernels import scatter_write as J_SW
+from repro.kernels import snapshot_select as J_SS
 from repro.kernels import validate as J_VK
 from repro.kernels import version_select as J_VS
 from repro_torch import kernels as K
+from repro_torch.core.engine import arrayheap as TA
+from repro_torch.core.engine import validation as TV
+from repro_torch.kernels import commit_fused as CF
 from repro_torch.kernels import gather_read as GR
 from repro_torch.kernels import scatter_write as SW
+from repro_torch.kernels import snapshot_select as SS
 from repro_torch.kernels import validate as VK
 from repro_torch.kernels import version_select as VS
 
@@ -210,10 +218,14 @@ def test_plain_route_counts_no_launch_and_refuses_other_devices():
     K.reset_launch_counts()
     row = torch.arange(8, dtype=torch.int64)
     GR.gather_read(row, [1, 2])
+    GR.gather_read(row.to(torch.int32), [1, 2])
     SW.scatter_write(row, [1], [5])
     VK.validate_readset(row[:2], torch.zeros(2, dtype=torch.int32),
                         torch.zeros(2, dtype=torch.int32), [0, 1], 9, 0, 0)
     VS.version_select(row.reshape(2, 4), row.reshape(2, 4), 3)
+    CF.commit_fused(row, [1], [2], [0], [], [], [], [], [], [0], [0], 4, 1)
+    SS.snapshot_select(row.reshape(2, 4), torch.tensor([1, 2],
+                                                       dtype=torch.int32), 3)
     assert K.launch_counts() == {name: 0 for name in K.COUNTERS}
     meta_row = torch.zeros(8, dtype=torch.int64, device="meta")
     with pytest.raises(RuntimeError):
@@ -221,3 +233,219 @@ def test_plain_route_counts_no_launch_and_refuses_other_devices():
     with pytest.raises(TypeError):
         GR.gather_read(row, torch.zeros(1, dtype=torch.int64,
                                         device="meta"))
+
+
+# ---------------------------------------------------------------------------
+# gather_read over int32 rows (the MVStore block)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n", [1, 7, 512])
+def test_gather_int32_row_matches_pallas(n):
+    rng = np.random.default_rng(100 + n)
+    heap = rng.integers(-I32, I32, 2048).astype(np.int32)
+    addrs = rng.integers(0, 2048, n)
+    tile = _tile(n, 512)
+    padded = np.pad(addrs, (0, (-n) % tile))
+    want = np.asarray(J_GR.gather_read_flat(
+        jnp.asarray(heap), jnp.asarray(padded, jnp.int32), tile=tile,
+        interpret=True))[:n]
+    got = GR.gather_read(torch.from_numpy(heap), addrs)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    with pytest.raises(IndexError):
+        GR.gather_read(torch.from_numpy(heap), [2048])
+
+
+# ---------------------------------------------------------------------------
+# commit_fused
+# ---------------------------------------------------------------------------
+
+
+def test_commit_fused_constants_pinned_to_engine():
+    assert (CF.MODE_LT, CF.MODE_LE, CF.MODE_EQ) == \
+        (TV.V_LT, TV.V_LE, TV.V_EQ) == (J_CF.MODE_LT, J_CF.MODE_LE,
+                                        J_CF.MODE_EQ)
+    assert CF.VER_SHIFT == TA._VER_SHIFT == JA._VER_SHIFT
+    assert CF.TID_BIAS == TA._TID_BIAS and CF.TID_MASK == TA._TID_MASK
+    assert CF.UNLOCKED_WORD == TA._UNLOCKED_WORD == JA._UNLOCKED_WORD
+
+
+def _words(ver, own, meta):
+    """Packed lock words from (version, owner tid, meta bit0 locked /
+    bit1 flag) — ArrayLockTable's layout."""
+    own = np.asarray(own, np.int64)
+    meta = np.asarray(meta, np.int64)
+    return ((np.asarray(ver, np.int64) << CF.VER_SHIFT)
+            | (((own + CF.TID_BIAS) & CF.TID_MASK) << 2)
+            | ((meta & 1) << 1) | ((meta >> 1) & 1))
+
+
+def _cf_batch(rng, n_txn, h, vmax=50):
+    w_parts = [rng.choice(h, size=rng.integers(0, 9), replace=False)
+               .astype(np.int64) for _ in range(n_txn)]
+    w_flat, w_seg, _ = CF.pack_segments(w_parts)
+    w_val = rng.integers(-1000, 1000, size=w_flat.size).astype(np.int64)
+    n_l = int(rng.integers(0, 4 * n_txn))
+    n_r = int(rng.integers(0, 4 * n_txn))
+    mk = lambda k: (rng.integers(0, vmax, size=k).astype(np.int64),  # noqa
+                    rng.integers(-1, 5, size=k).astype(np.int32),
+                    rng.integers(0, 4, size=k).astype(np.int32))
+    lf, rf = mk(n_l), mk(n_r)
+    return dict(w_flat=w_flat, w_val=w_val, w_seg=w_seg,
+                l_f=lf, l_seg=rng.integers(0, n_txn, n_l).astype(np.int64),
+                r_f=rf, r_seg=rng.integers(0, n_txn, n_r).astype(np.int64),
+                r_seen=rng.integers(0, vmax, size=n_r).astype(np.int64),
+                tids=np.arange(n_txn, dtype=np.int64),
+                rcs=rng.integers(0, vmax, size=n_txn).astype(np.int64))
+
+
+def _port_commit(heap, b, cv, n_txn, mode, out_of_place=False):
+    return CF.commit_fused(
+        heap, b["w_flat"], b["w_val"], b["w_seg"], _words(*b["l_f"]),
+        b["l_seg"], _words(*b["r_f"]), b["r_seen"], b["r_seg"], b["tids"],
+        b["rcs"], cv, n_txn, mode=mode, out_of_place=out_of_place)
+
+
+@pytest.mark.parametrize("mode", [CF.MODE_LT, CF.MODE_LE, CF.MODE_EQ])
+def test_commit_fused_matches_pallas_and_numpy(mode):
+    """Random groups with passing and failing members, empty read or
+    lock batches, ragged write batches: the port's plain route equals
+    the Pallas kernel in interpret mode (heap, verdict, release
+    versions) and the reference's numpy version, bit for bit, in place
+    and out of place."""
+    rng = np.random.default_rng(31 + mode)
+    h, n_txn, cv = 64, 4, 77
+    for _ in range(4):
+        heap = rng.integers(-100, 100, size=h).astype(np.int32)
+        b = _cf_batch(rng, n_txn, h)
+        (lv, lo, lm), (rv, ro, rm) = b["l_f"], b["r_f"]
+        want_heap, want_ok, want_lver = J_CF.np_commit_fused(
+            heap, b["w_flat"], b["w_val"], b["w_seg"], lv, lo, lm,
+            b["l_seg"], rv, ro, rm, b["r_seen"], b["r_seg"], b["tids"],
+            b["rcs"], cv, n_txn, mode)
+        tile = 8
+        pad = (-b["w_flat"].size) % tile or tile
+        i32 = lambda x: np.asarray(x, np.int32)             # noqa: E731
+
+        def side(x, seg, fill):
+            # the Pallas kernel needs >= 1 entry per side: a pad entry
+            # owned by a dummy always-passing transaction slot
+            return (x, seg) if seg.size else (np.array([fill], x.dtype),
+                                              np.array([n_txn], np.int64))
+        (lv_p, ls_p), (lo_p, _), (lm_p, _) = (
+            side(lv, b["l_seg"], 0), side(lo, b["l_seg"], 0),
+            side(lm, b["l_seg"], 0))
+        (rv_p, rs_p), (ro_p, _), (rm_p, _), (rn_p, _) = (
+            side(rv, b["r_seg"], 0), side(ro, b["r_seg"], 0),
+            side(rm, b["r_seg"], 0), side(b["r_seen"], b["r_seg"], 0))
+        got_heap, got_ok, got_lver = J_CF.commit_fused_flat(
+            heap, i32(np.concatenate([b["w_flat"], np.full(pad, h)])),
+            i32(np.concatenate([b["w_val"], np.zeros(pad)])),
+            i32(np.concatenate([b["w_seg"], np.zeros(pad)])),
+            i32(lv_p), lo_p, lm_p, i32(ls_p), i32(rv_p), ro_p, rm_p,
+            i32(rn_p), i32(rs_p), i32(np.append(b["tids"], 0)),
+            i32(np.append(b["rcs"], 1 << 20)), np.array([cv], np.int32),
+            mode=mode, tile=tile, interpret=True)
+        np.testing.assert_array_equal(np.asarray(got_heap), want_heap)
+        np.testing.assert_array_equal(np.asarray(got_ok)[:n_txn] != 0,
+                                      want_ok)
+        for oop in (False, True):
+            t_heap = torch.from_numpy(heap.copy())
+            new, ok, l_out = _port_commit(t_heap, b, cv, n_txn, mode, oop)
+            assert (new is t_heap) != oop
+            np.testing.assert_array_equal(new.numpy(), want_heap)
+            if oop:
+                np.testing.assert_array_equal(t_heap.numpy(), heap)
+            np.testing.assert_array_equal(ok.numpy() != 0, want_ok)
+            want_words = np.where(
+                want_ok[b["l_seg"]], CF.release_word(cv), _words(*b["l_f"]))
+            np.testing.assert_array_equal(l_out.numpy(), want_words)
+            if b["l_seg"].size:
+                np.testing.assert_array_equal(
+                    np.asarray(got_lver)[:b["l_seg"].size],
+                    want_lver.astype(np.int32))
+
+
+def test_commit_fused_failed_member_and_int64_payloads():
+    """Payloads, versions and the commit version beyond int32 stay
+    exact; a member whose write lock another tid holds fails and leaves
+    its row untouched; its lock entry keeps its own word."""
+    big = (1 << 33) + 5
+    heap = np.array([1, 2, 3, big, 4, 5, 6, 7], np.int64)
+    w_addr = np.array([0, 2, 7], np.int64)
+    w_val = np.array([big + 1, -7, 999], np.int64)
+    w_seg = np.array([0, 0, 1], np.int64)
+    l_words = _words([big, big, 5], [-1, -1, 9], [0, 0, 1])
+    l_seg = np.array([0, 0, 1], np.int64)
+    z = np.zeros((0,), np.int64)
+    cv = big + 9
+    new, ok, l_out = CF.commit_fused(
+        torch.from_numpy(heap.copy()), w_addr, w_val, w_seg, l_words, l_seg,
+        z, z, z, [0, 1], [big, big], cv, 2, mode=CF.MODE_LE)
+    assert ok.tolist() == [1, 0]
+    assert new.tolist() == [big + 1, 2, -7, big, 4, 5, 6, 7]
+    assert l_out.tolist() == [CF.release_word(cv)] * 2 + [int(l_words[2])]
+    # the reference's numpy route gives the same heap and verdict
+    jl = TA.ArrayLockTable.host_fields(l_words)
+    j_heap, j_ok, j_lver = J_CF.np_commit_fused(
+        heap, w_addr, w_val, w_seg, *jl, l_seg, z, z.astype(np.int32),
+        z.astype(np.int32), z, z, np.array([0, 1]), np.array([big, big]),
+        cv, 2, J_CF.MODE_LE)
+    assert j_heap.tolist() == new.tolist() and j_ok.tolist() == [True, False]
+    assert (np.asarray(l_out) >> CF.VER_SHIFT).tolist() == j_lver.tolist()
+
+
+def test_commit_fused_rejects_bad_batches():
+    heap = torch.zeros(8, dtype=torch.int64)
+    z = np.zeros((0,), np.int64)
+    for bad in ([-1], [8]):
+        with pytest.raises(IndexError):
+            CF.commit_fused(heap, bad, [1], [0], z, z, z, z, z, [0], [0],
+                            1, 1)
+    with pytest.raises(ValueError):
+        CF.commit_fused(heap, [1], [1], [1], z, z, z, z, z, [0], [0], 1, 1)
+    assert heap.tolist() == [0] * 8
+
+
+# ---------------------------------------------------------------------------
+# snapshot_select
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("case", ["ties", "no_valid", "no_ts", "mixed"])
+def test_snapshot_select_matches_pallas_and_ref(case):
+    """Newest slot with NO_TS < ts <= clock, first maximum on ties, slot
+    0 with ok False when none qualifies — against the Pallas kernel in
+    interpret mode and ``ref.snapshot_select_ref``."""
+    rng = np.random.default_rng(len(case))
+    R, n = 8, 256
+    ring = rng.integers(-I32, I32, (R, n)).astype(np.int32)
+    ts = {"ties": [3, 7, 7, 2, 7, -1, 5, 1],
+          "no_valid": [9, 10, 11, 12, 13, 14, 15, 16],
+          "no_ts": [-1] * 8,
+          "mixed": [4, -1, 6, 3, -1, 8, 2, 6]}[case]
+    ts = np.array(ts, np.int32)
+    for clock in (0, 4, 6, 7, 20):
+        want, want_ok = J_SS.snapshot_select_flat(
+            jnp.asarray(ring), jnp.asarray(ts), clock, tile=128,
+            interpret=True)
+        ref, ref_ok = J_REF.snapshot_select_ref(jnp.asarray(ring),
+                                                jnp.asarray(ts), clock)
+        got, ok = SS.snapshot_select(torch.from_numpy(ring),
+                                     torch.from_numpy(ts), clock)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+        assert bool(ok) == bool(want_ok) == bool(ref_ok)
+
+
+def test_snapshot_select_copies_and_keeps_block_shape():
+    ring = torch.arange(24, dtype=torch.int32).reshape(3, 2, 4)
+    ts = torch.tensor([1, 2, -1], dtype=torch.int32)
+    got, ok = SS.snapshot_select(ring, ts, 5)
+    assert got.shape == (2, 4) and bool(ok)
+    assert got.flatten().tolist() == list(range(8, 16))
+    ring[1] = 0                                  # a later ring refresh
+    assert got.flatten().tolist() == list(range(8, 16))
+    with pytest.raises(ValueError):
+        SS.snapshot_select(ring, ts.to(torch.int64), 5)

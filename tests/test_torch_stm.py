@@ -179,6 +179,69 @@ def test_mode_u_bulk_read_accepts_unversioned_bucket_mates_in_bulk():
     assert got[0] == got[1] == [3] * 256
 
 
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_bulk_lock_freeze_matches_scalar_route(seed):
+    """The port's Mode-U bulk lock-freeze against the reference's scalar
+    route on one seeded schedule.  Forced Mode U, a 16-word lock table
+    (many bucket-mates per word), versioned readers whose snapshots
+    predate seeded writes to addresses of the scanned range: the port's
+    ``read_bulk`` accepts the never-written bucket-mates in bulk, the
+    reference sends each through ``_mode_u_versioned_read``.  Values,
+    abort outcomes and the final state must be identical, and both
+    routes must really have been taken."""
+    region, chunk = 128, 32
+    traces, routes = [], []
+    for pkg in (J, T):
+        tm = _make(pkg, "U", lock_bits=4)
+        base = tm.alloc(region, 3)
+        rng = random.Random(seed)
+        pol = tm.raw.policy
+        hits = []
+        if pkg is T:
+            real = pol._bulk_lock_freeze
+
+            def spy(addrs, idxs, ok, frozen, _real=real):
+                before = int(ok.sum())
+                out = _real(addrs, idxs, ok, frozen)
+                hits.append(int(out.sum()) - before)
+                return out
+            pol._bulk_lock_freeze = spy
+        else:
+            real = pol._mode_u_versioned_read
+            pol._mode_u_versioned_read = \
+                lambda e, d, a, _real=real: hits.append(1) or _real(e, d, a)
+        trace = []
+        for _ in range(6):
+            tm.clock.increment()
+            tm.begin_operation(0)
+            tx = tm.begin(0)
+            tx._ctx.versioned = True
+            try:
+                for off in range(0, region, chunk):
+                    for _ in range(rng.randrange(4)):
+                        a = base + rng.randrange(region)
+                        v = rng.randrange(1000)
+                        pkg.run(tm, lambda t: t.write(a, v), tid=1)
+                        trace.append(("write", a - base, v))
+                    vals = tx.read_bulk(range(base + off,
+                                              base + off + chunk))
+                    trace.append(("chunk", [int(v) for v in vals]))
+                tm.commit(tx)
+                trace.append(("commit",))
+            except pkg.AbortTx:
+                tm.abort(tx)
+                trace.append(("abort",))
+        traces.append((trace, _state(tm)))
+        routes.append(sum(hits))
+        tm.stop()
+    (jt, js), (tt, ts) = traces
+    assert tt == jt
+    for k in js:
+        np.testing.assert_array_equal(np.asarray(ts[k]), np.asarray(js[k]),
+                                      err_msg=k)
+    assert routes[0] > 0 and routes[1] > 0      # both routes were taken
+
+
 def test_computes_from_loaded_reference_state():
     """The reference's state, carried over with ``load_numpy_state``,
     gives the port the same reads, verdicts and final state."""
