@@ -8,17 +8,23 @@ imports nothing of JAX or of the JAX package.  Phases, in order — any
 failure exits non-zero and no result line is printed:
 
   1. the card's name and power limit (``nvidia-smi``), then the build of
-     the six kernels from ``src/repro_torch/csrc`` (timed);
-  2. each kernel against its plain PyTorch version on the card, bit for
-     bit (all six are integer kernels: the tolerance is zero), at the
-     listed shapes, then timed with CUDA events beside the plain version,
-     the library call where one exists, and the memory-rate bound, and
-     traced with ``torch.profiler`` for the kernels' own device time;
+     the seven kernels from ``src/repro_torch/csrc`` (timed);
+  2. each kernel against its plain PyTorch version on the card at the
+     listed shapes — the six integer kernels bit for bit, ``flash_attention``
+     within 2e-2 at bfloat16 and 2e-4 at float32 (rtol = atol, the JAX
+     package's ``tests/test_kernels.py`` tolerances) — then timed with
+     CUDA events beside the plain version, the library call where one
+     exists, and the bound, and traced with ``torch.profiler`` for the
+     kernels' own device time;
   3. end to end: the same seeded two-thread schedule through
      ``make_tm(b, array_heap=True)`` for b in multiverse, tl2, dctl,
      norec, tinystm and mvstore, on the card and on the CPU, must leave
      identical heaps (blocks and rings), lock words, clocks, mirrors and
-     counters;
+     counters; and qwen2.5-3b at full width and a depth of 2 layers, the
+     same seeded weights on the card and on the CPU, must give prefill
+     and 4 decode steps' float32 logits within 2e-4 and the same greedy
+     tokens, and bfloat16 logits no further from the float32 ones than
+     twice the CPU's bfloat16 logits are;
   4. the main path: ``make_tm(b, n, array_heap=True)`` on the card drives
      the longread (scan4096 on every backend, scan1M on multiverse) and
      rwmix (w1024, every backend) traffic in threads; TL2 and DCTL
@@ -30,14 +36,25 @@ failure exits non-zero and no result line is printed:
      0``), every trial must make progress (for the unversioned baselines
      under a long scan: in updates), and every kernel's launch counter —
      set to 0 before each trial and read after it — must have risen;
-  5. the card's idle share: four of the trials run again for a 3 s window
-     under a profiler trace of their GPU activity.
+     then the model server: ``repro_torch.launch.serve.Server`` serves
+     qwen2.5-3b at full width and depth from MVStore snapshots (8 seeded
+     requests of 512 prompt tokens and 32 new tokens through 4 slots;
+     every prefill attention through ``flash_attention``), and a writer
+     commits a new version (``lm_head`` negated) while 4 requests
+     decode: in Mode U no request aborts and the tokens are those of a
+     run without the commit (``snapshot_select`` serves the pinned
+     version from the ring); in Mode Q every in-flight request aborts
+     and restarts, and all complete;
+  5. the card's idle share: four of the trials and the server run again
+     for a 3 s window under a profiler trace of their GPU activity.
 
 The last two lines are the kernels summary and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import os
 import random
@@ -53,6 +70,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data-sheet memory rate
+#: H100 SXM data-sheet peaks (dense): bf16 tensor cores; f32 off them
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 SEED = 0
 INITIAL = 100                  # per-word prefill (eval/workloads.py)
 AMOUNT = 5
@@ -72,6 +91,9 @@ KERNELS = {
     "snapshot_select": ("src/repro_torch/csrc/snapshot_select.cu",
                         "src/repro/kernels/snapshot_select.py:49",
                         1_000_000),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:92",
+                        "qwen_prefill_512"),
 }
 BACKENDS = ("multiverse", "tl2", "dctl", "norec", "tinystm", "mvstore")
 #: each kernel's __global__ functions, as named in a profiler trace
@@ -82,6 +104,7 @@ DEVICE_KERNELS = {
     "version_select": ("version_select_kernel",),
     "commit_fused": ("decide_kernel", "publish_kernel"),
     "snapshot_select": ("snapshot_select_kernel",),
+    "flash_attention": ("flash_attention_kernel",),
 }
 GPU_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 TRACE_DIR = os.path.join(HERE, "build", "traces")
@@ -306,6 +329,7 @@ def kernel_checks(torch, dev, rng):
                 bound_ms=bound((2 * 8 * 4 + 12) * n))
     rows.update(commit_fused_checks(torch, dev, rng, bound))
     rows.update(snapshot_select_checks(torch, dev, rng, bound))
+    rows.update(flash_checks(torch, dev))
     return rows
 
 
@@ -563,6 +587,80 @@ def snapshot_select_checks(torch, dev, rng, bound):
         library_ms=time_ms(torch, lambda: ring[slot].clone()),
         library="ring[slot].clone()",
         bound_ms=bound(2 * 4 * n + 4 * R + 4))}}
+
+
+#: flash_attention cases: name -> (B, Sq, Sk, H, KV, D, causal, dtype);
+#: the first is qwen2.5-3b's prefill in the serving trial
+FLASH_CASES = {
+    "qwen_prefill_512": (1, 512, 512, 16, 2, 128, True, "bfloat16"),
+    "qwen_prefill_2048": (1, 2048, 2048, 16, 2, 128, True, "bfloat16"),
+    "noncausal_f32": (2, 512, 512, 16, 2, 128, False, "float32"),
+    "ragged_causal_bf16": (1, 300, 300, 16, 2, 128, True, "bfloat16"),
+    "ragged_noncausal_f32": (2, 100, 77, 4, 1, 40, False, "float32"),
+}
+TOLERANCE = {"bfloat16": 2e-2, "float32": 2e-4}   # rtol = atol
+
+
+def max_abs_err(torch, got, want, dtype):
+    """Largest |got - want|; fails unless every element is finite and
+    within ``TOLERANCE[dtype]`` (rtol = atol, as numpy's allclose)."""
+    tol = TOLERANCE[dtype]
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    check(bool(torch.isfinite(g).all()), "non-finite values")
+    check(bool((err <= tol + tol * w.abs()).all()),
+          f"beyond {tol}: max abs error {float(err.max())}")
+    return float(err.max())
+
+
+def flash_checks(torch, dev):
+    """flash_attention against its plain version on the card at every
+    case of ``FLASH_CASES``, each then timed: CUDA events, the profiler's
+    kernel time, the plain version and ``scaled_dot_product_attention``
+    (the library yardstick; the port never calls it) on the same inputs.
+    The bound is the larger of the operations (4 B H D per reachable
+    (query, key) pair) over the dtype's peak and the bytes of q, k, v and
+    the output over the memory rate."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from repro_torch.kernels import flash_attention as FA
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rows = {}
+    for name, (B, Sq, Sk, H, KV, D, causal, dt) in FLASH_CASES.items():
+        dtype = getattr(torch, dt)
+        q = torch.randn(B, Sq, H, D, generator=gen, device=dev).to(dtype)
+        k = torch.randn(B, Sk, KV, D, generator=gen, device=dev).to(dtype)
+        v = torch.randn(B, Sk, KV, D, generator=gen, device=dev).to(dtype)
+        got = FA.flash_attention(q, k, v, causal=causal)
+        want = FA.flash_attention_plain(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        try:
+            err = max_abs_err(torch, got, want, dt)
+        except Failed as e:
+            raise Failed(f"flash_attention != plain ({name}): {e}")
+        pairs = Sq * (Sq + 1) // 2 if causal else Sq * Sk
+        ops = 4 * B * H * D * pairs
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        t_ops = ops / PEAK_OPS_PER_S[dt] * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        rows[name] = kernel_row(
+            torch, "flash_attention",
+            lambda: FA.flash_attention(q, k, v, causal=causal),
+            shape=f"B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} D={D} "
+                  f"{'causal' if causal else 'non-causal'} {dt}",
+            max_abs_err=err, tolerance=TOLERANCE[dt],
+            plain_ms=time_ms(torch, lambda: FA.flash_attention_plain(
+                q, k, v, causal=causal), iters=50, warm=5),
+            library_ms=time_ms(torch, lambda: sdpa(
+                qt, kt, vt, is_causal=causal, enable_gqa=True)),
+            library="scaled_dot_product_attention(enable_gqa=True)",
+            bound_ms=max(t_ops, t_bytes),
+            bound_by="operations" if t_ops >= t_bytes else "bytes")
+    emit({"kernel_check": "flash_attention", "cases": len(FLASH_CASES),
+          "max_abs_err": {n: r["max_abs_err"] for n, r in rows.items()}})
+    return {"flash_attention": rows}
 
 
 # ---------------------------------------------------------------------------
@@ -1112,17 +1210,304 @@ def mvstore_trial(torch, name, duration_s=6.0, warmup_s=1.0, probe=None):
     return row
 
 
+# ---------------------------------------------------------------------------
+# the model server: qwen2.5-3b from MVStore snapshots
+# ---------------------------------------------------------------------------
+
+ARCH = "qwen2.5-3b"
+BATCH, PROMPT, GEN, REQUESTS = 4, 512, 32, 8
+
+
+def free_card(torch):
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def _grow(torch, cache, extra):
+    """A prefill cache with ``extra`` zeroed positions appended."""
+    return {sub: {n: torch.cat([t, t.new_zeros(t.shape[:2] + (extra,)
+                                               + t.shape[3:])], dim=2)
+                  for n, t in kv.items()} for sub, kv in cache.items()}
+
+
+def model_check(torch, dev):
+    """qwen2.5-3b at full width and a depth of 2 layers: one set of
+    seeded bf16 weights (``materialize`` on the CPU), run as bf16 and,
+    upcast, as float32, on the card and on the CPU: prefill of 2 x 64
+    tokens and 4 decode steps, every run fed the CPU float32 run's greedy
+    tokens.  float32: the card's logits within 2e-4 of the CPU's and the
+    same greedy tokens (TF32 off).  bfloat16: an element-wise tolerance
+    does not survive two layers at this width (two CPU bf16 routes that
+    differ only in the order of their float32 sums differ by more than
+    2e-2), so each bf16 run is held against the float32 logits of the
+    same weights: the card's mean and max error must stay within twice
+    the CPU's.  A fault on the path (mask, scale, head mapping, cache
+    write) moves logits by 0.1-1; bf16 rounding by ~0.01."""
+    from repro_torch import kernels as K
+    from repro_torch.configs import ParallelConfig, get_config
+    from repro_torch.launch.sharding import tree_map
+    from repro_torch.models import model_zoo as zoo
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pcfg = ParallelConfig(remat="none", attn_block_q=64, attn_block_k=64)
+    cfg16 = dataclasses.replace(get_config(ARCH), n_layers=2)
+    cfg32 = dataclasses.replace(cfg16, dtype="float32")
+    p16 = zoo.init_params(cfg16, torch.Generator().manual_seed(SEED))
+    p32 = tree_map(lambda t: t.float(), p16)
+    toks = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg16.vocab_size, (2, 64)).astype(np.int32))
+    runs = {}
+    K.reset_launch_counts()
+    for name, p, cfg, d in (("cpu32", p32, cfg32, "cpu"),
+                            ("cpu16", p16, cfg16, "cpu"),
+                            ("card32", p32, cfg32, dev),
+                            ("card16", p16, cfg16, dev)):
+        p = tree_map(lambda t: t.to(d), p)
+        logits, cache, clen = zoo.prefill_fn(
+            p, {"tokens": toks.to(d)}, cfg, pcfg)
+        runs[name] = [logits, _grow(torch, cache, 4), clen, p, cfg, d]
+    check(K.launch_counts()["flash_attention"] == 4,
+          "the card's prefills did not run flash_attention per layer")
+    steps = []
+    for step in range(5):
+        lg = {n: r[0].float().cpu() for n, r in runs.items()}
+        ref = lg["cpu32"]
+        tok = torch.argmax(ref, dim=-1).to(torch.int32)
+        try:
+            err32 = max_abs_err(torch, lg["card32"], ref, "float32")
+        except Failed as e:
+            raise Failed(f"card != CPU at float32, step {step}: {e}")
+        check(torch.equal(torch.argmax(lg["card32"], dim=-1)
+                          .to(torch.int32), tok),
+              f"card and CPU greedy tokens differ at float32, step {step}")
+        e_card = (lg["card16"] - ref).abs()
+        e_cpu = (lg["cpu16"] - ref).abs()
+        row = {"step": step, "f32_max_abs_err": err32,
+               "bf16_card_vs_cpu_max_abs_err":
+                   float((lg["card16"] - lg["cpu16"]).abs().max()),
+               "bf16_vs_f32_mean_err": {"card": float(e_card.mean()),
+                                        "cpu": float(e_cpu.mean())},
+               "bf16_vs_f32_max_err": {"card": float(e_card.max()),
+                                       "cpu": float(e_cpu.max())}}
+        steps.append(row)
+        check(row["bf16_vs_f32_mean_err"]["card"]
+              <= 2 * row["bf16_vs_f32_mean_err"]["cpu"]
+              and row["bf16_vs_f32_max_err"]["card"]
+              <= 2 * row["bf16_vs_f32_max_err"]["cpu"],
+              f"the card's bf16 logits are off the float32 reference by "
+              f"more than twice the CPU's bf16 logits, step {step}: {row}")
+        if step == 4:
+            break
+        for r in runs.values():
+            r[0], r[1], r[2] = zoo.decode_fn(r[3], r[1], r[2],
+                                             tok.to(r[5]), r[4], pcfg)
+    out = {"model_check": ARCH, "layers": 2, "prompt": [2, 64],
+           "decode_steps": 4, "f32_tolerance": TOLERANCE["float32"],
+           "f32_greedy_tokens_equal": True, "steps": steps}
+    emit(out)
+    del runs, p16, p32
+    free_card(torch)
+    return out
+
+
+def _prompts():
+    from repro_torch.configs import get_config
+
+    return np.random.default_rng(SEED).integers(
+        0, get_config(ARCH).vocab_size, (REQUESTS, PROMPT)).astype(np.int32)
+
+
+def _server(mode):
+    """The server on the card, its parameters drawn from ``SEED``; Mode U
+    versions every block in a 2-slot ring."""
+    from repro_torch.configs import MVStoreConfig, get_config
+    from repro_torch.launch.serve import Server
+
+    return Server(get_config(ARCH), batch=BATCH, prompt_len=PROMPT,
+                  max_len=PROMPT + GEN, seed=SEED,
+                  mvcfg=MVStoreConfig(mode=mode, ring_slots=2))
+
+
+def _fresh_metrics(server):
+    """Forget the warm-up request's telemetry."""
+    from repro_torch.serve.metrics import ServeMetrics
+
+    server.metrics = server.scheduler.metrics = ServeMetrics(seed=SEED)
+
+
+def serving_trial(torch, launches):
+    """``Server`` over qwen2.5-3b at full width and depth, Mode Q: one
+    warm-up request, then 8 seeded requests through 4 slots.  Launch
+    counters are set to 0 just before the 8 and read just after; every
+    prefill must have run ``flash_attention`` once per layer."""
+    from repro_torch import kernels as K
+
+    t0 = time.perf_counter()
+    server = _server("Q")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = _prompts()
+    server.serve_batch(prompts[:1], 2)                  # warm-up
+    _fresh_metrics(server)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    reqs = [server.submit(p, GEN) for p in prompts]
+    while any(r.outcome is r.outcome.PENDING for r in reqs):
+        server.pump()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = K.launch_counts()
+    for k, v in counts.items():
+        launches[k] += v
+    m = server.metrics
+    toks = np.array([r.tokens for r in reqs])
+    per_token = [(r.t_done - r.t_first_token) / (len(r.tokens) - 1)
+                 for r in reqs]
+    row = {"trial": "serve_qwen2.5-3b", "mode": "Q", "batch": BATCH,
+           "prompt_len": PROMPT, "gen": GEN, "requests": REQUESTS,
+           "init_s": init_s, "seconds": dt,
+           "tokens_per_s": toks.size / dt,
+           "ttft_ms_p50": m.ttft.percentile(50) * 1e3,
+           "ttft_ms_p99": m.ttft.percentile(99) * 1e3,
+           "per_token_ms_p50": float(np.percentile(per_token, 50)) * 1e3,
+           "per_token_ms_p99": float(np.percentile(per_token, 99)) * 1e3,
+           "occupancy": m.occupancy, "aborts": server.aborts,
+           "completed": m.completed,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "launches": counts}
+    emit(row)
+    check(m.completed == REQUESTS and toks.shape == (REQUESTS, GEN),
+          "serving: not every request completed")
+    check(bool(((toks >= 0) & (toks < server.cfg.padded_vocab())).all()),
+          "serving: a token outside the padded vocab")
+    check(counts["flash_attention"] >= 36 * REQUESTS,
+          f"serving: {counts['flash_attention']} flash_attention launches "
+          f"for {REQUESTS} prefills of 36 layers")
+    del server
+    free_card(torch)
+    return row, toks
+
+
+def snapshot_checks(torch, launches, served):
+    """A writer commits a new version (``lm_head`` negated) with
+    ``mv_commit`` while all 4 slots decode.  Mode U (every block
+    versioned, 2 ring slots): no abort, the tokens of the run without
+    the commit, which are also the serving trial's first 4 requests'
+    (Mode Q reads the live blocks; Mode U copies them out of the ring
+    through ``snapshot_select``).  Mode Q: every in-flight request
+    aborts once and restarts at the new clock; all complete."""
+    from repro_torch import kernels as K
+    from repro_torch.configs import MVStoreConfig
+    from repro_torch.core import mvstore
+
+    prompts = _prompts()[:BATCH]
+    rows = {}
+    for mode in ("U", "Q"):
+        mvcfg = MVStoreConfig(mode=mode, ring_slots=2)
+        server = _server(mode)
+        baseline = None
+        if mode == "U":
+            baseline = server.serve_batch(prompts, GEN)
+            _fresh_metrics(server)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        reqs = [server.submit(p, GEN) for p in prompts]
+        server.pump()
+        pinned = [r.pinned_clock for r in reqs]
+        check(all(len(r.tokens) == 2 for r in reqs),
+              f"Mode {mode}: the slots were not all decoding")
+        new = dict(server.mv_state.live)
+        new["lm_head"] = -new["lm_head"]
+        server.mv_state = mvstore.mv_commit(server.mv_state, new,
+                                            local_mode=mode, cfg=mvcfg)
+        while any(r.outcome is r.outcome.PENDING for r in reqs):
+            server.pump()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = K.launch_counts()
+        for k, v in counts.items():
+            launches[k] += v
+        toks = np.array([r.tokens for r in reqs])
+        row = {"trial": f"snapshot_commit_{mode}", "mode": mode,
+               "ring_slots": 2 if mode == "U" else 0, "seconds": dt,
+               "pinned_clocks": pinned, "aborts": server.aborts,
+               "completed": server.metrics.completed,
+               "served_clocks": sorted({c for r in reqs
+                                        for c in r.served_clocks}),
+               "max_memory_allocated": torch.cuda.max_memory_allocated(),
+               "launches": counts}
+        if mode == "U":
+            row["tokens_equal_no_commit"] = bool(
+                np.array_equal(toks, baseline))
+            row["tokens_equal_serving_trial"] = bool(
+                np.array_equal(toks, served[:BATCH]))
+        emit(row)
+        check(server.metrics.completed == BATCH,
+              f"Mode {mode}: not every request completed")
+        if mode == "U":
+            check(server.aborts == 0, "Mode U: a pinned reader aborted")
+            check(row["tokens_equal_no_commit"],
+                  "Mode U: the commit changed the pinned requests' tokens")
+            check(row["tokens_equal_serving_trial"],
+                  "Mode U tokens differ from the Mode Q serving trial's")
+            check(row["served_clocks"] == [0],
+                  "Mode U: a request was served a newer version")
+            check(counts["snapshot_select"] > 0,
+                  "Mode U: snapshot_select was never launched")
+        else:
+            check(server.aborts >= BATCH, f"Mode Q: {server.aborts} aborts "
+                                          f"for {BATCH} in-flight requests")
+            check(all(r.pinned_clock == 1 for r in reqs),
+                  "Mode Q: a request did not restart at the new clock")
+        rows[mode] = row
+        del server, new
+        free_card(torch)
+    return rows
+
+
+def serving_idle_window(torch, window_s=3.0):
+    """A 3 s window of the Mode-Q server under load (the queue kept at
+    8 requests) under a profiler trace of its GPU activity."""
+    from torch.profiler import ProfilerActivity
+
+    server = _server("Q")
+    prompts = _prompts()
+    server.serve_batch(prompts[:1], 2)                  # warm-up
+    prof = torch.profiler.profile(activities=[ProfilerActivity.CUDA])
+    pending, i, done = [], 0, 0
+    prof.start()
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < window_s:
+        while len(pending) < REQUESTS:
+            pending.append(server.submit(prompts[i % REQUESTS], GEN))
+            i += 1
+        server.pump()
+        done += sum(r.outcome is not r.outcome.PENDING for r in pending)
+        pending = [r for r in pending if r.outcome is r.outcome.PENDING]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    prof.stop()
+    del server
+    free_card(torch)
+    return dt, prof, done
+
+
 def main_path(torch):
     from repro_torch import kernels as K
 
     trials = [
         lambda: longread_trial(torch, "longread_scan4096", 4096, 12,
                                duration_s=6.0, warmup_s=1.0),
-        # one scan of 1M words under two updaters took 27-48 s on the
-        # card, and none finished inside 60 s in one run: the window runs
-        # until 3 scans complete, capped at 240 s
+        # one scan of 1M words under two updaters took 25-76 s on the
+        # card: the window runs until 3 scans complete, capped at 150 s
+        # (240 s until the model server joined the run)
         lambda: longread_trial(torch, "longread_scan1M", 1_000_000, 16,
-                               duration_s=240.0, warmup_s=0.0, min_scans=3),
+                               duration_s=150.0, warmup_s=0.0, min_scans=3),
         lambda: rwmix_trial(torch, "rwmix_w1024", 1024, duration_s=6.0,
                             warmup_s=1.0),
     ]
@@ -1167,15 +1552,12 @@ def main_path(torch):
         one(lambda: longread_trial(torch, "longread_scan4096_forcedU", 4096,
                                    12, duration_s=6.0, warmup_s=1.0,
                                    forced_mode="U"))
-    for k in KERNELS:
-        check(totals[k] > 0, f"kernel {k} was never launched on the main "
-                             "path")
-    return dict(totals)
+    return totals
 
 
 def idle_shares(torch):
-    """The card's idle share in four trials, each run again for a 3 s
-    window under a ``torch.profiler`` trace of its GPU activity (kernels,
+    """The card's idle share in four trials and the model server, each
+    run again for a 3 s window under a ``torch.profiler`` trace of its GPU activity (kernels,
     copies, memsets): idle share = 1 - busy time / window.  Kept apart
     from the main path, whose numbers stay untraced; its launches are not
     counted."""
@@ -1203,6 +1585,14 @@ def idle_shares(torch):
               "device_busy_ms": busy_us / 1e3 if n else None,
               "device_idle_share": 1 - busy_us / 1e3 / window_ms if n
               else None})
+    dt, prof, done = serving_idle_window(torch)
+    n, busy_us, fa_us = gpu_activity(prof, DEVICE_KERNELS["flash_attention"])
+    emit({"trace": "serve_qwen2.5-3b", "window_s": dt, "gpu_events": n,
+          "requests_completed": done,
+          "device_busy_ms": busy_us / 1e3 if n else None,
+          "flash_attention_ms": fa_us / 1e3 if n else None,
+          "device_idle_share": 1 - busy_us / 1e3 / (dt * 1e3) if n
+          else None})
     K.reset_launch_counts()
 
 
@@ -1240,13 +1630,20 @@ def main() -> int:
     timings = kernel_checks(torch, dev, rng)
     for name, by_n in timings.items():
         for n, row in by_n.items():
-            emit({"kernel": name, "n": n, **row, "bound_by": "bytes",
+            emit({"kernel": name, "n": n, "bound_by": "bytes", **row,
                   "hbm_bytes_per_s": HBM_BYTES_PER_S})
     emit({"kernel_checks_seconds": time.perf_counter() - t0,
-          "bit_identical": True})
+          "integer_kernels_bit_identical": True,
+          "flash_attention_within_tolerance": True})
 
     schedule_check(torch)
+    model_check(torch, dev)
     launches = main_path(torch)
+    served, toks = serving_trial(torch, launches)
+    snapshot_checks(torch, launches, toks)
+    for k in KERNELS:
+        check(launches[k] > 0, f"kernel {k} was never launched on the main "
+                               "path")
     idle_shares(torch)
 
     summary = []
@@ -1255,11 +1652,14 @@ def main() -> int:
         summary.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches[name],
-            "max_abs_err": 0, "n": n, "shape": row.get("shape"),
+            "max_abs_err": row.get("max_abs_err", 0),
+            "tolerance": row.get("tolerance", 0), "n": n,
+            "shape": row.get("shape"),
             "ms": row["ms"], "kernel_device_ms": row["kernel_device_ms"],
             "device_busy_ms": row["device_busy_ms"],
             "plain_ms": row["plain_ms"],
-            "bound_ms": row["bound_ms"], "bound_by": "bytes",
+            "bound_ms": row["bound_ms"],
+            "bound_by": row.get("bound_by", "bytes"),
             "library_ms": row["library_ms"]})
     print(smi[0], flush=True)
     emit({"kernels": summary})

@@ -13,11 +13,14 @@ other.
     commit_fused    group verdict + scatter + release words (group commit,
                     MVStore publish)
     snapshot_select newest ring slot at/below a clock, copied (MVStore)
+    flash_attention causal/non-causal attention forward, grouped-query
+                    heads (every prefill attention layer)
 """
 from typing import Dict
 
 from repro_torch.kernels import (
     commit_fused,
+    flash_attention,
     gather_read,
     scatter_write,
     snapshot_select,
@@ -28,7 +31,7 @@ from repro_torch.kernels import (
 #: every kernel's launch counter, by kernel name
 COUNTERS = {m.launches.name: m.launches
             for m in (gather_read, scatter_write, validate, version_select,
-                      commit_fused, snapshot_select)}
+                      commit_fused, snapshot_select, flash_attention)}
 
 
 def reset_launch_counts() -> None:

@@ -7,6 +7,7 @@ repository root.  The library's file name carries a hash of the sources
 and flags, so an edited source rebuilds at its next first use and a
 stale library is never loaded.  It is loaded with ``ctypes``: pointers
 and the stream go in as ``c_void_p``, int64 scalars as ``c_longlong``,
+floats as ``c_double``,
 and every C entry point returns ``cudaGetLastError()`` — non-zero raises.
 The library is loaded as a ``PyDLL``, so a launch keeps the interpreter
 lock: an enqueue takes microseconds, and releasing the lock around it
@@ -46,7 +47,8 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("gather_read.cu", "scatter_write.cu", "validate.cu",
-           "version_select.cu", "commit_fused.cu", "snapshot_select.cu")
+           "version_select.cu", "commit_fused.cu", "snapshot_select.cu",
+           "flash_attention.cu")
 #: headers the sources include (hashed with them, not compiled alone)
 HEADERS = ("copy_bytes.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -54,6 +56,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_longlong
+_D = ctypes.c_double
 #: argument types of each C entry point (the stream is always last)
 SIGNATURES = {
     "gather_read_i64": (_P, _I, _P, _I, _P, _P),
@@ -65,7 +68,10 @@ SIGNATURES = {
                          _I, _P, _P, _P, _I, _P, _P, _I, _I, _I, _P, _P,
                          _I, _P),
     "snapshot_select_rows": (_P, _I, _I, _P, _I, _P, _P, _P),
+    "flash_attention_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _D,
+                            _I, _P),
 }
+SIGNATURES["flash_attention_bf16"] = SIGNATURES["flash_attention_f32"]
 SIGNATURES["commit_fused_i32"] = SIGNATURES["commit_fused_i64"]
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,0 +1,96 @@
+"""Abstract parameters: one ``ParamMeta`` per weight, the single source of
+its shape, logical axes, init rule and dtype.
+
+The port's counterpart of the reference's ``launch/sharding.py`` for one
+device: ``ParamMeta``, ``stack_meta`` and ``materialize``.  A model one
+card holds whole needs no mesh, so the rule tables, ``shard_act`` and the
+abstract (sharded) parameter trees are not here; ``axes`` is kept so
+a meta tree reads the same in both packages.  Trees are nested dicts;
+``leaves_with_path`` walks them in ``jax.tree_util`` order (sorted keys)
+and spells each path as ``keystr`` does (``"['layers']['sub0']"``).
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Any, Callable, Iterator, Optional, Tuple
+
+import torch
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+          "float16": torch.float16}
+
+
+def torch_dtype(name) -> torch.dtype:
+    """A dtype named as the configs name it (``"bfloat16"``), or a torch
+    dtype passed through."""
+    return name if isinstance(name, torch.dtype) else DTYPES[str(name)]
+
+
+@dataclass(frozen=True)
+class ParamMeta:
+    shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]      # logical axes, len == len(shape)
+    init: str = "normal"                 # normal | zeros | ones | embed
+    scale: float = 1.0
+    dtype: str = "bfloat16"
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.axes), (self.shape, self.axes)
+
+
+def tree_map(fn: Callable[[Any], Any], tree):
+    """``fn`` on every leaf of a nested dict (dict order kept)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def leaves_with_path(tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:
+    """``(path, leaf)`` in ``jax.tree_util.tree_flatten_with_path`` order
+    (sorted keys), paths spelled as ``keystr`` spells them."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from leaves_with_path(tree[k], f"{prefix}[{k!r}]")
+    else:
+        yield prefix, tree
+
+
+def materialize(meta_tree, generator: torch.Generator,
+                device=None, dtype_override: Optional[str] = None):
+    """A tree of ``ParamMeta`` as initialized tensors on ``device`` (the
+    generator's device by default), drawn from ``generator`` leaf by leaf
+    in path order: normal leaves are N(0, 1) in float32 scaled by
+    ``scale / sqrt(fan_in)`` (fan_in = the second-last dim, else the
+    last), then cast — the reference's rule; the values differ from the
+    reference's, whose generator is JAX's."""
+    device = torch.device(device if device is not None
+                          else generator.device)
+    out = {}
+    for path, m in leaves_with_path(meta_tree):
+        dt = torch_dtype(dtype_override or m.dtype)
+        if m.init == "zeros":
+            a = torch.zeros(m.shape, dtype=dt, device=device)
+        elif m.init == "ones":
+            a = torch.ones(m.shape, dtype=dt, device=device)
+        else:
+            fan_in = m.shape[-2] if len(m.shape) >= 2 else m.shape[-1]
+            std = m.scale / max(fan_in, 1) ** 0.5
+            a = torch.randn(m.shape, generator=generator,
+                            dtype=torch.float32, device=device)
+            a = a.mul_(std).to(dt)
+        out[path] = a
+    return _rebuild(meta_tree, out)
+
+
+def _rebuild(tree, leaves: dict, prefix: str = ""):
+    if isinstance(tree, dict):
+        return {k: _rebuild(v, leaves, f"{prefix}[{k!r}]")
+                for k, v in tree.items()}
+    return leaves[prefix]
+
+
+def stack_meta(meta_tree, n: int, axis_name: Optional[str] = None):
+    """Prepend a stacking dim (layers) to every ParamMeta in a tree."""
+    return tree_map(lambda m: dataclasses.replace(
+        m, shape=(n,) + m.shape, axes=(axis_name,) + m.axes), meta_tree)

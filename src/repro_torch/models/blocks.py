@@ -1,0 +1,148 @@
+"""Decoder sub-layers: the attention mixer + dense FFN, pre-norm.
+
+The ``("attn", "dense")`` kind of the reference's ``models/blocks.py``.
+The mamba and moe kinds are not ported yet and raise.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig, ParallelConfig
+from repro_torch.launch.sharding import ParamMeta
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import ffn as ffn_mod
+from repro_torch.models.common import apply_rope, rmsnorm, rmsnorm_meta
+
+
+def _not_ported(kind) -> NotImplementedError:
+    return NotImplementedError(
+        f"sub-layer kind {kind} is not ported yet (only ('attn', 'dense'))")
+
+
+# ---------------------------------------------------------------------------
+# Attention sub-layer
+# ---------------------------------------------------------------------------
+
+
+def attn_meta(cfg: ModelConfig) -> dict:
+    d, h, kv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
+    dh = cfg.resolved_head_dim
+    m = {
+        "w_q": ParamMeta((d, h * dh), ("fsdp", "tp"), dtype=cfg.dtype),
+        "w_k": ParamMeta((d, kv * dh), ("fsdp", "kv_flat"), dtype=cfg.dtype),
+        "w_v": ParamMeta((d, kv * dh), ("fsdp", "kv_flat"), dtype=cfg.dtype),
+        "w_o": ParamMeta((h * dh, d), ("tp", "fsdp"), dtype=cfg.dtype),
+    }
+    if cfg.qkv_bias:
+        m["b_q"] = ParamMeta((h * dh,), ("tp",), init="zeros",
+                             dtype=cfg.dtype)
+        m["b_k"] = ParamMeta((kv * dh,), ("kv_flat",), init="zeros",
+                             dtype=cfg.dtype)
+        m["b_v"] = ParamMeta((kv * dh,), ("kv_flat",), init="zeros",
+                             dtype=cfg.dtype)
+    return m
+
+
+def _qkv(p, x):
+    q = x @ p["w_q"]
+    k = x @ p["w_k"]
+    v = x @ p["w_v"]
+    if "b_q" in p:
+        q, k, v = q + p["b_q"], k + p["b_k"], v + p["b_v"]
+    return q, k, v
+
+
+def attn_apply(p, x, cfg: ModelConfig, pcfg: ParallelConfig, *,
+               positions, causal: bool = True, want_cache: bool = False):
+    """Full-sequence self-attention (prefill).  x: [B, S, d].
+    Returns y or (y, (k_flat, v_flat)) when ``want_cache``.  (The
+    reference's cross-attention comes with the encoder-decoder family.)
+    """
+    B, S, _ = x.shape
+    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    q, k, v = _qkv(p, x)
+    qh = apply_rope(q.reshape(B, S, h, dh), positions, cfg.rope_theta)
+    kh = apply_rope(k.reshape(B, S, kv, dh), positions, cfg.rope_theta)
+    vh = v.reshape(B, S, kv, dh)
+    o = attn_mod.attention(qh, kh, vh, causal=causal, impl=pcfg.attn_impl,
+                           block_q=pcfg.attn_block_q,
+                           block_k=pcfg.attn_block_k)
+    y = o.reshape(B, S, h * dh) @ p["w_o"]
+    if want_cache:
+        return y, (kh.reshape(B, -1, kv * dh), vh.reshape(B, -1, kv * dh))
+    return y
+
+
+def attn_decode(p, x, cfg: ModelConfig, pcfg: ParallelConfig, *,
+                cache_k, cache_v, cache_len):
+    """One-token decode.  x: [B, 1, d]; cache_*: [B, Smax, kv*dh];
+    cache_len: [B] valid positions.  Writes this token's k/v into the
+    cache IN PLACE (row b, position ``cache_len[b]``); a position past
+    the cache is dropped, as the reference's scatter drops it.  Returns
+    (y, cache_k, cache_v), the caches being the tensors passed in."""
+    B = x.shape[0]
+    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    q, k, v = _qkv(p, x)
+    pos = cache_len[:, None]
+    qh = apply_rope(q.reshape(B, 1, h, dh), pos, cfg.rope_theta)
+    kh = apply_rope(k.reshape(B, 1, kv, dh), pos, cfg.rope_theta)
+    S = cache_k.shape[1]
+    bidx = torch.arange(B, device=x.device)
+    keep = (cache_len < S)[:, None]
+    at = torch.clamp(cache_len, max=S - 1).long()
+    for cache, new in ((cache_k, kh), (cache_v, v)):
+        new = new.reshape(B, kv * dh).to(cache.dtype)
+        cache.index_put_((bidx, at), torch.where(keep, new, cache[bidx, at]))
+    kc = cache_k.reshape(B, S, kv, dh)
+    vc = cache_v.reshape(B, S, kv, dh)
+    o = attn_mod.decode_attention(qh[:, 0], kc, vc, cache_len + 1,
+                                  chunk=pcfg.decode_attn_chunk)
+    y = o.reshape(B, 1, h * dh) @ p["w_o"]
+    return y, cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# Unified sub-layer (mixer + optional FFN)
+# ---------------------------------------------------------------------------
+
+
+def sublayer_meta(cfg: ModelConfig, kind: Tuple[str, str]) -> dict:
+    if tuple(kind) != ("attn", "dense"):
+        raise _not_ported(kind)
+    d = cfg.d_model
+    return {"norm_mixer": rmsnorm_meta(d), "attn": attn_meta(cfg),
+            "ffn": ffn_mod.ffn_meta(d, cfg.d_ff, cfg.dtype),
+            "norm_ffn": rmsnorm_meta(d)}
+
+
+def sublayer_apply(p, x, kind, cfg: ModelConfig, pcfg: ParallelConfig, *,
+                   positions, cache=None, cache_len=None,
+                   want_cache: bool = False):
+    """Apply one (mixer, ffn) sub-layer.
+
+    Sequence mode: cache is None (no cache wanted, or prefill with
+    ``want_cache``).  Decode mode: cache is this sub-layer's ``{"k", "v"}``
+    and is updated in place.  Returns (y, new_cache_or_None, aux_loss).
+    """
+    if tuple(kind) != ("attn", "dense"):
+        raise _not_ported(kind)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    new_cache = None
+    h = rmsnorm(x, p["norm_mixer"], cfg.rms_eps)
+    if cache is not None and x.shape[1] == 1:
+        y, ck, cv = attn_decode(p["attn"], h, cfg, pcfg,
+                                cache_k=cache["k"], cache_v=cache["v"],
+                                cache_len=cache_len)
+        new_cache = {"k": ck, "v": cv}
+    elif want_cache:
+        y, (ck, cv) = attn_apply(p["attn"], h, cfg, pcfg,
+                                 positions=positions, want_cache=True)
+        new_cache = {"k": ck, "v": cv}
+    else:
+        y = attn_apply(p["attn"], h, cfg, pcfg, positions=positions)
+    x = x + y
+    h = rmsnorm(x, p["norm_ffn"], cfg.rms_eps)
+    x = x + ffn_mod.ffn_apply(p["ffn"], h)
+    return x, new_cache, aux

@@ -1,0 +1,97 @@
+"""Unified model interface: meta / init / prefill / decode / cache, and
+``params_from_numpy``, which carries a parameter tree across from numpy.
+
+The decoder-only family only; encoder-decoder configs raise "not ported
+yet".
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig, ParallelConfig
+from repro_torch.launch.sharding import (leaves_with_path, materialize,
+                                         tree_map)
+from repro_torch.models import transformer
+
+
+def _decoder_only(cfg: ModelConfig) -> None:
+    if cfg.is_encdec:
+        raise NotImplementedError(
+            f"{cfg.name}: the encoder-decoder family is not ported yet")
+
+
+def model_meta(cfg: ModelConfig) -> dict:
+    _decoder_only(cfg)
+    return transformer.lm_meta(cfg)
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator, device=None):
+    """Random parameters drawn from ``generator`` (on ``device``, the
+    generator's by default)."""
+    return materialize(model_meta(cfg), generator, device)
+
+
+def prefill_fn(params, batch, cfg: ModelConfig, pcfg: ParallelConfig):
+    _decoder_only(cfg)
+    return transformer.lm_prefill(params, batch["tokens"], cfg, pcfg)
+
+
+def decode_fn(params, cache, cache_len, token, cfg: ModelConfig,
+              pcfg: ParallelConfig):
+    _decoder_only(cfg)
+    return transformer.lm_decode_step(params, cache, cache_len, token, cfg,
+                                      pcfg)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+               device=None):
+    _decoder_only(cfg)
+    return transformer.init_cache(cfg, batch, max_len, dtype, device)
+
+
+def param_counts(cfg: ModelConfig) -> Dict[str, int]:
+    """total / active / embed-only parameter counts from the meta tree
+    (the reference's accounting: embedding gathers are not active unless
+    tied; routed experts count at k/E)."""
+    total = active = embed = 0
+    k, e = cfg.moe.experts_per_token, cfg.moe.num_experts
+    for path, m in leaves_with_path(model_meta(cfg)):
+        n = int(np.prod(m.shape))
+        total += n
+        if "embed" in path:
+            embed += n
+            if cfg.tie_embeddings:
+                active += n
+            continue
+        if "moe" in path and "shared" not in path and "router" not in path:
+            n = int(n * (k / max(e, 1)))
+        active += n
+    return {"total": total, "active": active, "embed": embed}
+
+
+def params_from_numpy(tree, device=None):
+    """A nested dict of numpy arrays (the JAX package's parameter tree,
+    e.g. through ``np.asarray`` per leaf) as the same nesting of tensors
+    on ``device`` (the CPU by default).
+
+    A bfloat16 leaf (an ``ml_dtypes`` array, which ``torch.from_numpy``
+    refuses) is recognised by its dtype's name and carried bit for bit
+    through a uint16 view.  Paths and nesting are kept, so
+    ``core/mvstore`` keys the blocks as the reference does."""
+    def one(a):
+        a = np.ascontiguousarray(a)
+        if not a.flags.writeable:
+            a = a.copy()
+        if a.dtype.name == "bfloat16":
+            t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+        else:
+            t = torch.from_numpy(a)
+        return t if device is None else t.to(device)
+    return tree_map(one, tree)
+
+
+__all__ = ["decode_fn", "init_cache", "init_params", "model_meta",
+           "param_counts", "params_from_numpy", "prefill_fn"]

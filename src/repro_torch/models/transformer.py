@@ -1,0 +1,187 @@
+"""Decoder-only LM: stacked layer groups, prefill and decode.
+
+Layers are stacked in *groups* of one interleave period, as in the
+reference (period 1 for a uniform dense arch: group g is layer g), so a
+parameter tree and a cache tree read the same in both packages: every
+leaf under ``layers`` leads with the group axis.  The reference scans the
+groups (``lax.scan``); here a Python loop indexes them.  Inference only:
+no remat, no loss (training comes with its own slice).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig, ParallelConfig
+from repro_torch.launch.sharding import (ParamMeta, stack_meta, torch_dtype,
+                                         tree_map)
+from repro_torch.models import blocks
+from repro_torch.models.common import rmsnorm, rmsnorm_meta
+
+VOCAB_PAD_MULTIPLE = 256
+
+
+def layer_period(cfg: ModelConfig) -> int:
+    if cfg.family == "ssm":
+        return 1
+    p = 1
+    if cfg.attn_layer_period:
+        p = cfg.attn_layer_period
+    if cfg.moe.num_experts:
+        p = math.lcm(p, cfg.moe.every_n_layers)
+    return p
+
+
+def layer_kinds(cfg: ModelConfig):
+    """[(mixer, ffn)] for each sub-layer of one period."""
+    kinds = []
+    for i in range(layer_period(cfg)):
+        mixer = "attn" if cfg.is_attn_layer(i) else "mamba"
+        if cfg.is_moe_layer(i):
+            ffn = "moe"
+        elif cfg.d_ff:
+            ffn = "dense"
+        else:
+            ffn = "none"
+        kinds.append((mixer, ffn))
+    return kinds
+
+
+def n_groups(cfg: ModelConfig) -> int:
+    p = layer_period(cfg)
+    assert cfg.n_layers % p == 0, (cfg.n_layers, p)
+    return cfg.n_layers // p
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+
+def lm_meta(cfg: ModelConfig) -> dict:
+    vpad = cfg.padded_vocab(VOCAB_PAD_MULTIPLE)
+    group = {f"sub{j}": blocks.sublayer_meta(cfg, kind)
+             for j, kind in enumerate(layer_kinds(cfg))}
+    meta = {
+        "embed": ParamMeta((vpad, cfg.d_model), ("fsdp", "tp"),
+                           init="embed", dtype=cfg.dtype),
+        "layers": stack_meta(group, n_groups(cfg)),
+        "final_norm": rmsnorm_meta(cfg.d_model),
+    }
+    if not cfg.tie_embeddings:
+        meta["lm_head"] = ParamMeta((cfg.d_model, vpad), ("fsdp", "vocab"),
+                                    dtype=cfg.dtype)
+    return meta
+
+
+def embed_lookup(table, tokens, pcfg: ParallelConfig):
+    if pcfg.gather_mode == "onehot":
+        return F.one_hot(tokens.long(), table.shape[0]).to(table.dtype) \
+            @ table
+    return table[tokens.long()]
+
+
+def lm_logits(params, h, cfg: ModelConfig):
+    if cfg.tie_embeddings:
+        return h @ params["embed"].T
+    return h @ params["lm_head"]
+
+
+def _group(tree, g: int):
+    """Group ``g``'s slice of a stacked tree (views, no copy)."""
+    return tree_map(lambda t: t[g], tree)
+
+
+# ---------------------------------------------------------------------------
+# Sequence forward (prefill)
+# ---------------------------------------------------------------------------
+
+
+def lm_forward(params, tokens, cfg: ModelConfig, pcfg: ParallelConfig, *,
+               want_cache: bool = False):
+    """tokens: [B, S].  Returns (hidden [B, S, d], cache, aux); the
+    cache's leaves are [groups, B, S, kv*dh].  (The reference's prefix
+    embeddings come with the vision and audio frontends.)"""
+    kinds = layer_kinds(cfg)
+    h = embed_lookup(params["embed"], tokens, pcfg)
+    S = h.shape[1]
+    positions = torch.arange(S, device=h.device)[None, :]
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    caches = []
+    for g in range(n_groups(cfg)):
+        gp = _group(params["layers"], g)
+        gc = {}
+        for j, kind in enumerate(kinds):
+            h, c, a = blocks.sublayer_apply(
+                gp[f"sub{j}"], h, kind, cfg, pcfg, positions=positions,
+                want_cache=want_cache)
+            aux = aux + a
+            gc[f"sub{j}"] = c
+        caches.append(gc)
+    cache = None
+    if want_cache:
+        cache = {f"sub{j}": {n: torch.stack([c[f"sub{j}"][n]
+                                             for c in caches])
+                             for n in ("k", "v")}
+                 for j in range(len(kinds))}
+    h = rmsnorm(h, params["final_norm"], cfg.rms_eps)
+    return h, cache, aux
+
+
+# ---------------------------------------------------------------------------
+# KV caches
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+               device=None):
+    """Zeroed decode cache (leaves lead with groups)."""
+    kv, dh = cfg.n_kv_heads, cfg.resolved_head_dim
+    g = n_groups(cfg)
+    cache = {}
+    for j, kind in enumerate(layer_kinds(cfg)):
+        if kind[0] != "attn":
+            raise blocks._not_ported(kind)
+        cache[f"sub{j}"] = {
+            n: torch.zeros((g, batch, max_len, kv * dh),
+                           dtype=torch_dtype(dtype), device=device)
+            for n in ("k", "v")}
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# Prefill / decode
+# ---------------------------------------------------------------------------
+
+
+def lm_prefill(params, tokens, cfg: ModelConfig, pcfg: ParallelConfig):
+    """Returns (last-position logits [B, V], cache, cache_len [B])."""
+    h, cache, _ = lm_forward(params, tokens, cfg, pcfg, want_cache=True)
+    logits = lm_logits(params, h[:, -1:], cfg)[:, 0]
+    B, S = h.shape[0], h.shape[1]
+    return logits, cache, torch.full((B,), S, dtype=torch.int32,
+                                     device=h.device)
+
+
+def lm_decode_step(params, cache, cache_len, token, cfg: ModelConfig,
+                   pcfg: ParallelConfig):
+    """One decode step.  token: [B] int32; cache_len: [B] valid positions.
+
+    The cache is updated IN PLACE (the reference threads it through the
+    scan carry, which XLA aliases in place too).  Returns (logits [B, V],
+    cache, cache_len + 1).
+    """
+    kinds = layer_kinds(cfg)
+    h = embed_lookup(params["embed"], token[:, None], pcfg)
+    for g in range(n_groups(cfg)):
+        gp = _group(params["layers"], g)
+        gc = _group(cache, g)
+        for j, kind in enumerate(kinds):
+            h, _, _ = blocks.sublayer_apply(
+                gp[f"sub{j}"], h, kind, cfg, pcfg, positions=None,
+                cache=gc[f"sub{j}"], cache_len=cache_len)
+    h = rmsnorm(h, params["final_norm"], cfg.rms_eps)
+    logits = lm_logits(params, h, cfg)[:, 0]
+    return logits, cache, cache_len + 1

@@ -1,7 +1,8 @@
 """The port stands alone: no module of ``src/repro_torch`` and not
 ``chip_smoke.py`` imports JAX or the JAX package, every port module
-imports with both made unimportable, and the entry point refuses to fall
-back to the CPU when no card is there."""
+imports with both made unimportable, and the entry points (``make_tm``,
+the model server and its command line) refuse to fall back to the CPU
+when no card is there."""
 import ast
 import os
 import pkgutil
@@ -82,6 +83,26 @@ def test_entry_points_default_to_the_card(backend):
         assert tm.raw.locks._words.device.type == "cpu"
         assert tm.raw.heap.live().device.type == "cpu"
     tm.stop()
+
+
+@pytest.mark.parametrize("entry", ["Server", "main"])
+def test_the_model_server_defaults_to_the_card(entry):
+    """``launch/serve.Server`` and ``python -m repro_torch.launch.serve``
+    run on the card unless told otherwise; without one they raise."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch import serve
+
+    if torch.cuda.is_available():
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        if entry == "Server":
+            serve.Server(smoke_config("qwen2.5-3b"), batch=1, prompt_len=4,
+                         max_len=8)
+        else:
+            serve.main(["--smoke", "--requests", "1", "--gen", "2"])
+    server = serve.Server(smoke_config("qwen2.5-3b"), batch=1, prompt_len=4,
+                          max_len=8, device="cpu")
+    assert server.mv_state.live["embed"].device.type == "cpu"
 
 
 def test_unported_backends_say_so():

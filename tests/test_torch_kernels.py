@@ -1,11 +1,12 @@
-"""The port's six kernels, through their CPU (plain PyTorch) route,
+"""The port's seven kernels, through their CPU (plain PyTorch) route,
 against the JAX package's Pallas kernels and numpy twins.
 
 Pallas runs as ``tests/test_kernels.py`` runs it: ``interpret=True``,
 int32-range inputs, ragged and tile-multiple N (ragged batches padded the
 way ``kernels/ops.py`` pads them).  The beyond-int32 cases go against the
-numpy twins and ``ops`` wrappers.  Everything is integer: every
-comparison is exact.  The CUDA kernels themselves run only on a card
+numpy twins and ``ops`` wrappers.  Every integer comparison is exact;
+``flash_attention`` is held within ``tests/test_kernels.py``'s tolerances
+(2e-4 at float32, 2e-2 at bfloat16).  The CUDA kernels themselves run only on a card
 (``chip_smoke.py`` holds each against the same plain versions there).
 """
 import jax.numpy as jnp
@@ -28,6 +29,7 @@ from repro_torch import kernels as K
 from repro_torch.core.engine import arrayheap as TA
 from repro_torch.core.engine import validation as TV
 from repro_torch.kernels import commit_fused as CF
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import gather_read as GR
 from repro_torch.kernels import scatter_write as SW
 from repro_torch.kernels import snapshot_select as SS
@@ -226,6 +228,8 @@ def test_plain_route_counts_no_launch_and_refuses_other_devices():
     CF.commit_fused(row, [1], [2], [0], [], [], [], [], [], [0], [0], 4, 1)
     SS.snapshot_select(row.reshape(2, 4), torch.tensor([1, 2],
                                                        dtype=torch.int32), 3)
+    qkv = torch.ones(1, 4, 2, 8)
+    FA.flash_attention(qkv, qkv, qkv, causal=True)
     assert K.launch_counts() == {name: 0 for name in K.COUNTERS}
     meta_row = torch.zeros(8, dtype=torch.int64, device="meta")
     with pytest.raises(RuntimeError):
@@ -449,3 +453,85 @@ def test_snapshot_select_copies_and_keeps_block_shape():
     assert got.flatten().tolist() == list(range(8, 16))
     with pytest.raises(ValueError):
         SS.snapshot_select(ring, ts.to(torch.int64), 5)
+
+
+# ---------------------------------------------------------------------------
+# flash_attention (float: held within the reference's tolerances)
+# ---------------------------------------------------------------------------
+
+FA_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
+
+
+def _fa_inputs(seed, B, Sq, Sk, H, KV, D, dtype):
+    """q, k, v from numpy as (jax, torch) pairs of ``dtype``."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for shape in ((B, Sq, H, D), (B, Sk, KV, D), (B, Sk, KV, D)):
+        j = jnp.asarray(rng.normal(0, 1, shape), jnp.float32).astype(dtype)
+        t = torch.from_numpy(np.array(j.astype(jnp.float32))).to(
+            getattr(torch, dtype))
+        out.append((j, t))
+    return out
+
+
+def _fa_close(got, want, dtype):
+    assert got.dtype == getattr(torch, dtype)
+    np.testing.assert_allclose(
+        got.float().numpy(), np.asarray(want.astype(jnp.float32)),
+        rtol=FA_TOL[dtype], atol=FA_TOL[dtype])
+
+
+@pytest.mark.parametrize("B,S,H,KV,D", [
+    (1, 128, 2, 2, 32),      # MHA
+    (2, 256, 4, 2, 64),      # GQA 2:1
+    (1, 512, 8, 1, 64),      # MQA
+    (2, 128, 4, 4, 128),     # the largest head dim
+])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_matches_pallas(B, S, H, KV, D, causal, dtype):
+    """The shape grid of ``tests/test_kernels.py``: the port's plain route
+    against ``ops.flash_attention`` (Pallas, interpret mode, K and V
+    repeated per group); the port indexes the kv head instead."""
+    (jq, tq), (jk, tk), (jv, tv) = _fa_inputs(S + H, B, S, S, H, KV, D,
+                                              dtype)
+    want = ops.flash_attention(jq, jk, jv, causal=causal, block_q=64,
+                               block_k=64)
+    _fa_close(FA.flash_attention(tq, tk, tv, causal=causal), want, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_gqa_eight_to_one(dtype):
+    """qwen2.5-3b's grouping, 16 query heads over 2 kv heads (G = 8)."""
+    (jq, tq), (jk, tk), (jv, tv) = _fa_inputs(8, 1, 128, 128, 16, 2, 32,
+                                              dtype)
+    want = ops.flash_attention(jq, jk, jv, causal=True, block_q=64,
+                               block_k=64)
+    _fa_close(FA.flash_attention(tq, tk, tv, causal=True), want, dtype)
+
+
+@pytest.mark.parametrize("causal,Sq,Sk", [(True, 100, 100),
+                                          (False, 100, 77)])
+def test_flash_attention_ragged_tiles_match_the_oracle(causal, Sq, Sk):
+    """Lengths that the kernel's 64-row tiles do not divide, and Sq != Sk
+    without the mask, against ``ref.flash_attention_ref`` (the full
+    matrix); the plain version walks a ragged last kv block."""
+    (jq, tq), (jk, tk), (jv, tv) = _fa_inputs(9, 2, Sq, Sk, 4, 2, 40,
+                                              "float32")
+    def heads(a, g):                     # [B, S, h, D] -> [B*h*g, S, D]
+        a = jnp.repeat(a.transpose(0, 2, 1, 3), g, 1)
+        return a.reshape(-1, a.shape[2], 40)
+
+    want = J_REF.flash_attention_ref(heads(jq, 1), heads(jk, 2),
+                                     heads(jv, 2), causal=causal)
+    want = want.reshape(2, 4, Sq, 40).transpose(0, 2, 1, 3)
+    _fa_close(FA.flash_attention(tq, tk, tv, causal=causal), want,
+              "float32")
+
+
+def test_flash_attention_refuses_mismatched_heads():
+    q = torch.zeros(1, 8, 6, 16)
+    with pytest.raises(ValueError):
+        FA.flash_attention(q, q[:, :, :4], q[:, :, :4], causal=True)
+    with pytest.raises(ValueError):
+        FA.flash_attention(q, q[..., :8], q[..., :8], causal=False)
