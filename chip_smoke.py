@@ -8,14 +8,18 @@ imports nothing of JAX or of the JAX package.  Phases, in order — any
 failure exits non-zero and no result line is printed:
 
   1. the card's name and power limit (``nvidia-smi``), then the build of
-     the seven kernels from ``src/repro_torch/csrc`` (timed);
+     the eight kernels from ``src/repro_torch/csrc`` (timed);
   2. each kernel against its plain PyTorch version on the card at the
      listed shapes — the six integer kernels bit for bit, ``flash_attention``
-     within 2e-2 at bfloat16 and 2e-4 at float32 (rtol = atol, the JAX
-     package's ``tests/test_kernels.py`` tolerances) — then timed with
-     CUDA events beside the plain version, the library call where one
-     exists, and the bound, and traced with ``torch.profiler`` for the
-     kernels' own device time;
+     within 2e-2 at bfloat16 and 2e-4 at float32, ``fused_adamw``'s
+     parameters and ring within 2e-2 at bfloat16 and 1e-5 at float32 and
+     its moments within 1e-5 (rtol = atol, the JAX package's
+     ``tests/test_kernels.py`` tolerances) — then timed with CUDA events
+     beside the plain version, the library call where one exists, and
+     the bound, and traced with ``torch.profiler`` for the kernels' own
+     device time; and the attention gradient (``FlashAttentionFn``: the
+     kernel forward, the plain backward) against autograd through
+     ``naive_attention`` on the card;
   3. end to end: the same seeded two-thread schedule through
      ``make_tm(b, array_heap=True)`` for b in multiverse, tl2, dctl,
      norec, tinystm and mvstore, on the card and on the CPU, must leave
@@ -24,7 +28,12 @@ failure exits non-zero and no result line is printed:
      same seeded weights on the card and on the CPU, must give prefill
      and 4 decode steps' float32 logits within 2e-4 and the same greedy
      tokens, and bfloat16 logits no further from the float32 ones than
-     twice the CPU's bfloat16 logits are;
+     twice the CPU's bfloat16 logits are; and the trainer at the same
+     width and depth, float32, 2 x 64 tokens, 2 steps in Mode Q, Mode U
+     and Mode U fused on the card and on the CPU from the same weights:
+     losses, parameters and moments within 1e-4, the fused run within
+     2e-3 of the unfused one (the JAX package's ``tests/test_train_e2e
+     .py`` tolerance);
   4. the main path: ``make_tm(b, n, array_heap=True)`` on the card drives
      the longread (scan4096 on every backend, scan1M on multiverse) and
      rwmix (w1024, every backend) traffic in threads; TL2 and DCTL
@@ -44,9 +53,19 @@ failure exits non-zero and no result line is printed:
      decode: in Mode U no request aborts and the tokens are those of a
      run without the commit (``snapshot_select`` serves the pinned
      version from the ring); in Mode Q every in-flight request aborts
-     and restarts, and all complete;
-  5. the card's idle share: four of the trials and the server run again
-     for a 3 s window under a profiler trace of their GPU activity.
+     and restarts, and all complete; then the trainer:
+     ``repro_torch.launch.train.Trainer`` trains qwen2.5-3b at full width
+     and depth (bfloat16, random weights from seed 0, 4 x 512 tokens a
+     step) for 20 steps under ``TrainSupervisor.run`` in Mode U with the
+     fused commit — every leaf of every step through ``fused_adamw`` —
+     while a reader one step behind must get ``ok`` snapshots equal, leaf
+     checksum for leaf checksum, to the previous step's live parameters;
+     the losses must be finite and fall; and a supervisor drill at the
+     reduced config (a failure injected at step 3, checkpoints every 2
+     steps) must finish with the losses of an uninterrupted run;
+  5. the card's idle share: four of the trials, the server and the
+     trainer run again for a 3 s window under a profiler trace of their
+     GPU activity (the trainer's while it is still up after phase 4).
 
 The last two lines are the kernels summary and
 ``{"ok": true, "device": {...}}``.
@@ -58,6 +77,7 @@ import gc
 import json
 import os
 import random
+import shutil
 import subprocess
 import sys
 import threading
@@ -94,6 +114,8 @@ KERNELS = {
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:92",
                         "qwen_prefill_512"),
+    "fused_adamw": ("src/repro_torch/csrc/fused_adamw.cu",
+                    "src/repro/kernels/fused_adamw.py:70", "ffn_leaf"),
 }
 BACKENDS = ("multiverse", "tl2", "dctl", "norec", "tinystm", "mvstore")
 #: each kernel's __global__ functions, as named in a profiler trace
@@ -105,6 +127,7 @@ DEVICE_KERNELS = {
     "commit_fused": ("decide_kernel", "publish_kernel"),
     "snapshot_select": ("snapshot_select_kernel",),
     "flash_attention": ("flash_attention_kernel",),
+    "fused_adamw": ("fused_adamw_kernel",),
 }
 GPU_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 TRACE_DIR = os.path.join(HERE, "build", "traces")
@@ -185,12 +208,13 @@ def device_times(torch, fn, kernels, iters=50, warm=5):
             "device_busy_ms": busy / iters / 1e3}
 
 
-def kernel_row(torch, name, fn, **rest):
+def kernel_row(torch, name, fn, iters=200, **rest):
     """A timing row for kernel ``name``'s wrapper call ``fn``: ``ms`` from
-    CUDA events (host launch path included) and the device times from a
-    profiler trace, beside the ``rest`` of the row."""
-    return dict(ms=time_ms(torch, fn),
-                **device_times(torch, fn, DEVICE_KERNELS[name]), **rest)
+    CUDA events over ``iters`` calls (host launch path included) and the
+    device times from a profiler trace, beside the ``rest`` of the row."""
+    return dict(ms=time_ms(torch, fn, iters=iters, warm=max(1, iters // 10)),
+                **device_times(torch, fn, DEVICE_KERNELS[name],
+                               iters=min(50, iters)), **rest)
 
 
 def equal(torch, a, b):
@@ -330,6 +354,8 @@ def kernel_checks(torch, dev, rng):
     rows.update(commit_fused_checks(torch, dev, rng, bound))
     rows.update(snapshot_select_checks(torch, dev, rng, bound))
     rows.update(flash_checks(torch, dev))
+    rows.update(adamw_checks(torch, dev))
+    attention_grad_checks(torch, dev)
     return rows
 
 
@@ -601,11 +627,12 @@ FLASH_CASES = {
 TOLERANCE = {"bfloat16": 2e-2, "float32": 2e-4}   # rtol = atol
 
 
-def max_abs_err(torch, got, want, dtype):
+def max_abs_err(torch, got, want, dtype, tol=None):
     """Largest |got - want|; fails unless every element is finite and
-    within ``TOLERANCE[dtype]`` (rtol = atol, as numpy's allclose)."""
-    tol = TOLERANCE[dtype]
-    g, w = got.float(), want.float()
+    within ``tol`` (``TOLERANCE[dtype]`` by default; rtol = atol, as
+    numpy's allclose)."""
+    tol = TOLERANCE[dtype] if tol is None else tol
+    g, w = got.detach().float(), want.detach().float()
     err = (g - w).abs()
     check(bool(torch.isfinite(g).all()), "non-finite values")
     check(bool((err <= tol + tol * w.abs()).all()),
@@ -661,6 +688,173 @@ def flash_checks(torch, dev):
     emit({"kernel_check": "flash_attention", "cases": len(FLASH_CASES),
           "max_abs_err": {n: r["max_abs_err"] for n, r in rows.items()}})
     return {"flash_attention": rows}
+
+
+#: fused_adamw cases: name -> (shape, p dtype, g dtype, ring slots); the
+#: reference's sweep (``tests/test_kernels.py::test_fused_adamw_sweep``),
+#: a ragged n, n = 0, a bf16 gradient and qwen2.5-3b's largest leaf (the
+#: stacked FFN weight, 811,597,824 elements), timed
+ADAMW_CASES = {
+    **{f"sweep_{'x'.join(map(str, shape))}_{'ring' if r else 'noring'}_"
+       f"{dt}": (shape, dt, "float32", 3 if r else 0)
+       for shape in ((64,), (24, 16), (3, 5, 8)) for r in (True, False)
+       for dt in ("float32", "bfloat16")},
+    "ragged_bf16": ((1_000_003,), "bfloat16", "float32", 2),
+    "empty": ((0,), "float32", "float32", 2),
+    "bf16_grad": ((4096, 300), "bfloat16", "bfloat16", 2),
+    "ffn_leaf": ((36, 2048, 11008), "bfloat16", "bfloat16", 2),
+}
+#: p and ring by p's dtype; the moments 1e-5 (tests/test_kernels.py)
+ADAMW_TOL = {"bfloat16": 2e-2, "float32": 1e-5}
+ADAMW_KW = dict(b1=0.9, b2=0.95, eps=1e-8)
+
+
+def adamw_bytes(p, g) -> int:
+    """Bytes one fused_adamw pass must move: read p, g, m, v; write p',
+    m', v' and the ring row (24 per element at bf16)."""
+    return p.numel() * (3 * p.element_size() + g.element_size() + 16)
+
+
+def adamw_checks(torch, dev):
+    """fused_adamw against its plain version on the card at every case of
+    ``ADAMW_CASES`` (slot 2 of 3 or 1 of 2; lr 3e-3, scale 0.7, step 3;
+    weight decay 0.1 on leaves of 2 or more dims); the FFN leaf then
+    timed: CUDA events, the profiler's kernel time, the plain version and
+    ``torch._fused_adamw_`` (the library yardstick, never called by the
+    port: it writes no ring and takes one dtype per group, so its
+    moments are bf16 here).  The bound is bytes."""
+    from repro_torch.kernels import fused_adamw as FA
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    errs, bitwise, rows = {}, {}, {}
+    scalars = torch.tensor([3e-3, 0.7, 1 - 0.9 ** 3, 1 - 0.95 ** 3],
+                           dtype=torch.float32, device=dev)
+    for name, (shape, pdt, gdt, slots) in ADAMW_CASES.items():
+        def randn(scale=1.0):
+            return torch.randn(shape, generator=gen, device=dev) * scale
+        p = randn().to(getattr(torch, pdt))
+        g = randn().to(getattr(torch, gdt))
+        m, v = randn(0.1), randn().abs_() * 0.01
+        ring = (torch.zeros((slots,) + shape, dtype=p.dtype, device=dev)
+                if slots else None)
+        slot = slots - 1 if slots else 0
+        kw = dict(ADAMW_KW, wd=0.1 if len(shape) >= 2 else 0.0)
+        outs = {}
+        for route in ("kernel", "plain"):
+            mm, vv = m.clone(), v.clone()
+            rr = ring.clone() if ring is not None else None
+            fn = FA.fused_adamw if route == "kernel" else FA.fused_adamw_plain
+            outs[route] = (fn(p, g, mm, vv, rr, slot, scalars, **kw), mm, vv,
+                           rr)
+        torch.cuda.synchronize()
+        (pk, mk, vk, rk), (pp, mp, vp, rp) = outs["kernel"], outs["plain"]
+        err = {}
+        try:
+            check(pk.dtype == p.dtype and pk.shape == p.shape,
+                  "p' has the wrong dtype or shape")
+            if p.numel():
+                err = {"p": max_abs_err(torch, pk, pp, pdt, ADAMW_TOL[pdt]),
+                       "m": max_abs_err(torch, mk, mp, "float32", 1e-5),
+                       "v": max_abs_err(torch, vk, vp, "float32", 1e-5)}
+            if ring is not None and p.numel():
+                err["ring"] = max_abs_err(torch, rk, rp, pdt,
+                                          ADAMW_TOL[pdt])
+                check(bool((rk[:slot] == 0).all()),
+                      "a ring slot other than the chosen one was written")
+        except Failed as e:
+            raise Failed(f"fused_adamw != plain ({name}): {e}")
+        errs[name] = max(err.values(), default=0.0)
+        bitwise[name] = all(
+            equal(torch, a, b) for a, b in zip((pk, mk, vk, rk),
+                                               (pp, mp, vp, rp))
+            if a is not None)
+        if name == KERNELS["fused_adamw"][2]:
+            del outs, pk, mk, vk, rk, pp, mp, vp, rp
+            mm, vv, rr = m.clone(), v.clone(), ring.clone()
+            lib = [p.clone()], [g], [m.to(p.dtype)], [v.to(p.dtype)]
+            steps = [torch.tensor(3.0, device=dev)]
+            t_bytes = adamw_bytes(p, g) / HBM_BYTES_PER_S * 1e3
+            rows[name] = kernel_row(
+                torch, "fused_adamw",
+                lambda: FA.fused_adamw(p, g, mm, vv, rr, slot, scalars, **kw),
+                iters=20, shape=f"{'x'.join(map(str, shape))} {pdt} p, "
+                                f"{gdt} g, f32 m/v, ring R={slots}",
+                max_abs_err=errs[name], tolerance=ADAMW_TOL[pdt],
+                bit_identical=bitwise[name],
+                plain_ms=time_ms(torch, lambda: FA.fused_adamw_plain(
+                    p, g, mm, vv, rr, slot, scalars, **kw), iters=3, warm=1),
+                library_ms=time_ms(torch, lambda: torch._fused_adamw_(
+                    *lib, [], steps, lr=3e-3, beta1=0.9, beta2=0.95,
+                    weight_decay=0.1, eps=1e-8, amsgrad=False,
+                    maximize=False), iters=20, warm=2),
+                library="torch._fused_adamw_ (bf16 moments, no ring)",
+                bound_ms=t_bytes, bound_by="bytes")
+            del lib, mm, vv, rr
+        del p, g, m, v, ring
+        free_card(torch)
+    emit({"kernel_check": "fused_adamw", "cases": len(ADAMW_CASES),
+          "max_abs_err": errs, "bit_identical": bitwise})
+    return {"fused_adamw": rows}
+
+
+#: attention gradient cases: name -> (B, S, H, KV, D, causal, dtype)
+ATTN_GRAD_CASES = {
+    "qwen_s512_bf16": (1, 512, 16, 2, 128, True, "bfloat16"),
+    "qwen_s512_f32": (1, 512, 16, 2, 128, True, "float32"),
+    "ragged_gqa_f32": (2, 100, 6, 2, 40, True, "float32"),
+}
+
+
+def attention_grad_checks(torch, dev):
+    """``models.attention.attention`` on inputs that require grad goes
+    through ``FlashAttentionFn`` (one ``flash_attention`` launch, then
+    the plain backward); its output and dq, dk, dv for a seeded output
+    gradient against autograd through ``naive_attention`` on the card,
+    within ``TOLERANCE``.  The bare CUDA wrapper must refuse the same
+    inputs rather than return an output without a graph."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import attention as ATT
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    errs = {}
+    for name, (B, S, H, KV, D, causal, dt) in ATTN_GRAD_CASES.items():
+        dtype = getattr(torch, dt)
+        q = torch.randn(B, S, H, D, generator=gen, device=dev).to(dtype)
+        k = torch.randn(B, S, KV, D, generator=gen, device=dev).to(dtype)
+        v = torch.randn(B, S, KV, D, generator=gen, device=dev).to(dtype)
+        w = torch.randn(B, S, H, D, generator=gen, device=dev)
+        runs = {}
+        for route in ("function", "naive"):
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            before = FA.launches.value
+            if route == "function":
+                o = ATT.attention(*leaves, causal=causal)
+                check(FA.launches.value == before + 1 and
+                      type(o.grad_fn).__name__ == "FlashAttentionFnBackward",
+                      f"{name}: attention did not run FlashAttentionFn")
+            else:
+                o = ATT.naive_attention(*leaves, causal=causal)
+            grads = torch.autograd.grad((o.float() * w).sum(), leaves)
+            runs[route] = (o,) + tuple(grads)
+        try:
+            errs[name] = {n: max_abs_err(torch, a, b, dt)
+                          for n, a, b in zip(("o", "dq", "dk", "dv"),
+                                             runs["function"],
+                                             runs["naive"])}
+        except Failed as e:
+            raise Failed(f"attention gradient != naive autograd ({name}): "
+                         f"{e}")
+        refused = False
+        try:
+            FA.flash_attention(q.clone().requires_grad_(), k, v,
+                               causal=causal)
+        except RuntimeError as e:
+            refused = "requires grad" in str(e)
+        check(refused, f"{name}: the bare CUDA flash_attention wrapper "
+                       "accepted an input that requires grad")
+    emit({"attention_grad_check": "FlashAttentionFn vs naive autograd",
+          "cases": len(ATTN_GRAD_CASES), "max_abs_err": errs,
+          "bare_wrapper_refuses_grad": True})
 
 
 # ---------------------------------------------------------------------------
@@ -1497,6 +1691,307 @@ def serving_idle_window(torch, window_s=3.0):
     return dt, prof, done
 
 
+# ---------------------------------------------------------------------------
+# the trainer: qwen2.5-3b trained into the MVStore
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH = 20, 512, 4
+TRAIN_TOL = 1e-4            # card vs CPU, float32, rtol = atol
+FUSED_TOL = 2e-3            # fused vs unfused (tests/test_train_e2e.py)
+
+
+def _state_leaves(state):
+    """Live blocks and moments of a train state, by path."""
+    from repro_torch.core import mvstore
+
+    return {f"{k}{p}": t for k, tree in
+            (("live", state.mv.live), ("mu", state.opt.mu),
+             ("nu", state.opt.nu)) for p, t in mvstore._flatten(tree)}
+
+
+def _tree_err(torch, got, want, tol, dev):
+    """Largest |got - want| over the leaves of two ``_state_leaves``,
+    compared on the card (a CPU leaf is copied over); fails past ``tol``
+    (rtol = atol) or on a non-finite value."""
+    check(sorted(got) == sorted(want), "the two states hold other leaves")
+    return max(max_abs_err(torch, got[k].to(dev), want[k].to(dev),
+                           "float32", tol) for k in want)
+
+
+def train_check(torch, dev):
+    """The trainer on the card against the trainer on the CPU: qwen2.5-3b
+    at full width and a depth of 2 layers, float32 (TF32 off), one set of
+    seeded weights, 2 steps of 2 x 64 tokens in Mode Q (adamw.apply +
+    mv_commit, no ring), Mode U (the same with a 2-slot ring) and Mode U
+    fused (``fused_adamw`` per leaf).  Losses, live blocks and moments
+    within 1e-4; the card's fused run within 2e-3 of its unfused one.
+    The card's runs must launch ``flash_attention`` for each layer's
+    forward and recompute, and the fused run ``fused_adamw`` once per
+    leaf and step."""
+    from repro_torch import kernels as K
+    from repro_torch.configs import MVStoreConfig, ShapeConfig, get_config
+    from repro_torch.launch.sharding import tree_map
+    from repro_torch.launch.train import Trainer
+    from repro_torch.models import model_zoo as zoo
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=2, dtype="float32")
+    shape = ShapeConfig("train_check", 64, 2, "train")
+    init = tree_map(lambda t: t.numpy(), zoo.init_params(
+        cfg, torch.Generator().manual_seed(SEED)))
+    modes = {"Q": MVStoreConfig(mode="Q"), "U": MVStoreConfig(mode="U"),
+             "U_fused": MVStoreConfig(mode="U", fused_commit=True)}
+    rows, card = {}, {}
+    for name, mvcfg in modes.items():
+        res, secs = {}, {}
+        for where in ("cpu", dev):
+            t0 = time.perf_counter()
+            K.reset_launch_counts()
+            tr = Trainer(cfg, shape, mvcfg=mvcfg, params=init, device=where)
+            state, tr.state = tr.state, None
+            losses = []
+            for step in range(2):
+                state, metrics = tr.train_step(state, tr.batch_at(step))
+                losses.append(float(metrics["loss"]))
+            tr.controller.stop()
+            res[str(where)] = (losses, _state_leaves(state),
+                               K.launch_counts())
+            del tr, state
+            secs[str(where)] = time.perf_counter() - t0
+        (lc, tc, _), (lg, tg, counts) = res["cpu"], res[str(dev)]
+        t0 = time.perf_counter()
+        try:
+            row = {"mode": name,
+                   "loss_max_abs_err": max_abs_err(
+                       torch, torch.tensor(lg), torch.tensor(lc), "float32",
+                       TRAIN_TOL),
+                   "state_max_abs_err": _tree_err(torch, tg, tc, TRAIN_TOL,
+                                                  dev),
+                   "losses_card": lg, "losses_cpu": lc,
+                   "launches": {k: counts[k] for k in ("flash_attention",
+                                                       "fused_adamw")}}
+        except Failed as e:
+            raise Failed(f"train check, Mode {name}: card != CPU: {e}")
+        secs["compare"] = time.perf_counter() - t0
+        row["seconds"] = secs
+        check(counts["flash_attention"] == 2 * 2 * 2,
+              f"train check, Mode {name}: {counts['flash_attention']} "
+              "flash_attention launches for 2 layers x (forward + "
+              "recompute) x 2 steps")
+        want_fa = 2 * len(tg) // 3 if name == "U_fused" else 0
+        check(counts["fused_adamw"] == want_fa,
+              f"train check, Mode {name}: {counts['fused_adamw']} "
+              f"fused_adamw launches, expected {want_fa}")
+        rows[name] = row
+        if name in ("U", "U_fused"):
+            card[name] = (lg, tg)
+        del res, tc, tg
+    try:
+        fused_err = max(
+            max_abs_err(torch, torch.tensor(card["U_fused"][0]),
+                        torch.tensor(card["U"][0]), "float32", FUSED_TOL),
+            _tree_err(torch, card["U_fused"][1], card["U"][1], FUSED_TOL,
+                      dev))
+    except Failed as e:
+        raise Failed(f"train check: fused != unfused on the card: {e}")
+    out = {"train_check": ARCH, "layers": 2, "tokens": [2, 64], "steps": 2,
+           "tolerance": TRAIN_TOL, "fused_vs_unfused_max_abs_err": fused_err,
+           "fused_tolerance": FUSED_TOL, "modes": rows}
+    emit(out)
+    del card, init
+    free_card(torch)
+    return out
+
+
+def _checksums(torch, tree):
+    """Per leaf: (sum, sum of squares) of its raw bit patterns as int64,
+    taken 2**26 elements at a time — equal for bit-identical leaves."""
+    from repro_torch.core import mvstore
+
+    out = {}
+    view = {1: torch.uint8, 2: torch.int16, 4: torch.int32}
+    for path, t in mvstore._flatten(tree):
+        s1 = s2 = 0
+        for c in t.reshape(-1).split(1 << 26):
+            w = c.view(view[t.element_size()]).to(torch.int64)
+            s1 = s1 + w.sum()
+            s2 = s2 + (w * w).sum()
+        out[path] = (s1, s2)
+    return {p: (int(a), int(b)) for p, (a, b) in out.items()}
+
+
+def train_trial(torch, launches):
+    """``Trainer`` over qwen2.5-3b at full width and depth (bfloat16,
+    random weights from ``SEED``, 4 x 512 tokens a step) for 20 steps
+    under ``TrainSupervisor.run`` (checkpoints beyond the last step: one
+    would be 40 GB of ``.npy``), Mode U with the fused commit.  Launch
+    counters are set to 0 just before the run and read just after;
+    every step must launch ``fused_adamw`` once per leaf and
+    ``flash_attention`` at least twice per layer (forward and
+    recompute).  After each step a reader one step behind must get an
+    ``ok`` snapshot whose leaf checksums are the previous step's live
+    ones.  Then a 3 s window of further steps under a profiler trace
+    (idle share, ``fused_adamw``'s device time per step)."""
+    from torch.profiler import ProfilerActivity
+
+    from repro_torch import kernels as K
+    from repro_torch.configs import MVStoreConfig, ShapeConfig, get_config
+    from repro_torch.core import mvstore
+    from repro_torch.launch.train import Trainer
+    from repro_torch.runtime.fault_tolerance import TrainSupervisor
+
+    cfg = get_config(ARCH)
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, ShapeConfig("train_chip", TRAIN_SEQ, TRAIN_BATCH,
+                                       "train"),
+                      mvcfg=MVStoreConfig(mode="U", fused_commit=True),
+                      seed=SEED)
+    state, trainer.state = trainer.state, None
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for _, t in mvstore._flatten(state.mv.live))
+    n_leaves = len(mvstore._flatten(state.mv.live))
+    bound_ms = sum(t.numel() * (4 * t.element_size() + 16)
+                   for _, t in mvstore._flatten(state.mv.live)) \
+        / HBM_BYTES_PER_S * 1e3
+    prev = [_checksums(torch, state.mv.live)]
+    losses, step_s, snaps = [], [], []
+    mark = [0.0]
+
+    def on_step(step, st, metrics):
+        step_s.append(time.perf_counter() - mark[0])
+        losses.append(float(metrics["loss"]))
+        view, ok = mvstore.mv_snapshot(st.mv, st.mv.clock - 1)
+        snaps.append(bool(ok) and _checksums(torch, view) == prev[0])
+        del view
+        prev[0] = _checksums(torch, st.mv.live)
+        mark[0] = time.perf_counter()
+
+    ckpt_dir = os.path.join(HERE, "build", "train_ckpt")
+    sup = TrainSupervisor(ckpt_dir=ckpt_dir, ckpt_every=TRAIN_STEPS + 1,
+                          reader=trainer.snapshot_reader())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    alloc0 = torch.cuda.memory_stats()
+    K.reset_launch_counts()
+    mark[0] = t0 = time.perf_counter()
+    try:
+        step, state = sup.run(state=state, train_step=trainer.train_step,
+                              batch_at=trainer.batch_at,
+                              n_steps=TRAIN_STEPS, on_step=on_step)
+    finally:
+        sup.manager.close()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    alloc = {k: torch.cuda.memory_stats()[k] - alloc0[k]
+             for k in ("num_alloc_retries", "num_device_alloc",
+                       "num_device_free")}
+    for k, v in counts.items():
+        launches[k] += v
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    row = {"trial": "train_qwen2.5-3b", "mode": "U", "fused_commit": True,
+           "ring_slots": 2, "seq": TRAIN_SEQ, "batch": TRAIN_BATCH,
+           "steps": step, "params": n_params, "leaves": n_leaves,
+           "init_s": init_s, "seconds": dt, "losses": losses,
+           "first_step_s": step_s[0],
+           "step_s_p50": float(np.percentile(step_s[1:], 50)),
+           "step_s_p99": float(np.percentile(step_s[1:], 99)),
+           "tokens_per_s": tokens * len(step_s[1:]) / sum(step_s[1:]),
+           "snapshots_ok": sum(snaps), "restarts": sup.restarts,
+           "max_memory_allocated": peak, "allocator": alloc,
+           "fused_adamw_bound_ms_per_step": bound_ms, "launches": counts}
+    check(step == TRAIN_STEPS and sup.restarts == 0,
+          f"train: {step} steps, {sup.restarts} restarts: {sup.events}")
+    check(all(np.isfinite(losses)), f"train: a loss is not finite: {losses}")
+    check(np.mean(losses[-5:]) < np.mean(losses[:5]),
+          f"train: the loss did not fall: {losses}")
+    check(all(snaps), "train: a one-behind snapshot was not ok or not the "
+                      f"previous step's parameters: {snaps}")
+    check(counts["fused_adamw"] == n_leaves * TRAIN_STEPS,
+          f"train: {counts['fused_adamw']} fused_adamw launches for "
+          f"{n_leaves} leaves x {TRAIN_STEPS} steps")
+    check(counts["flash_attention"] >= 2 * cfg.n_layers * TRAIN_STEPS,
+          f"train: {counts['flash_attention']} flash_attention launches")
+    check(counts["snapshot_select"] > 0, "train: no snapshot_select launch")
+
+    # phase 5's window, taken while the trainer is up
+    prof = torch.profiler.profile(activities=[ProfilerActivity.CUDA])
+    prof.start()
+    t0, n, enqueue = time.perf_counter(), 0, 0.0
+    while time.perf_counter() - t0 < 3.0:
+        t1 = time.perf_counter()
+        state, metrics = trainer.train_step(state, trainer.batch_at(step + n))
+        enqueue += time.perf_counter() - t1
+        float(metrics["loss"])
+        n += 1
+    torch.cuda.synchronize()
+    window = time.perf_counter() - t0
+    prof.stop()
+    trainer.controller.stop()
+    del state, trainer, sup
+    free_card(torch)
+    ev, busy_us, fa_us = gpu_activity(prof, DEVICE_KERNELS["fused_adamw"])
+    row.update({"trace_window_s": window, "trace_steps": n,
+                "host_enqueue_s_per_step": enqueue / n,
+                "device_busy_ms": busy_us / 1e3 if ev else None,
+                "device_idle_share": 1 - busy_us / 1e3 / (window * 1e3)
+                if ev else None,
+                "fused_adamw_device_ms_per_step": fa_us / 1e3 / n
+                if ev else None})
+    emit(row)
+    K.reset_launch_counts()
+    return row
+
+
+def supervisor_drill(torch):
+    """``TrainSupervisor`` on the card at the reduced config (Mode U fused,
+    2 x 32 tokens, checkpoints every 2 steps): a failure injected at step
+    3 restores step 2 and replays, and every step's loss equals the
+    uninterrupted run's."""
+    from repro_torch.configs import MVStoreConfig, ShapeConfig, smoke_config
+    from repro_torch.launch.train import Trainer
+    from repro_torch.runtime.fault_tolerance import FaultPlan, \
+        TrainSupervisor
+
+    runs = {}
+    for name, fault in (("uninterrupted", None),
+                        ("failure_at_3", FaultPlan(fail_at_steps=(3,)))):
+        tr = Trainer(smoke_config(ARCH), ShapeConfig("drill", 32, 2, "train"),
+                     mvcfg=MVStoreConfig(mode="U", fused_commit=True),
+                     seed=SEED)
+        ckpt = os.path.join(HERE, "build", "drill_ckpt", name)
+        shutil.rmtree(ckpt, ignore_errors=True)
+        sup = TrainSupervisor(ckpt_dir=ckpt, ckpt_every=2,
+                              reader=tr.snapshot_reader())
+        losses = {}
+        try:
+            step, _ = sup.run(state=tr.state, train_step=tr.train_step,
+                              batch_at=tr.batch_at, n_steps=6,
+                              fault_plan=fault,
+                              on_step=lambda s, st, m: losses.__setitem__(
+                                  s, float(m["loss"])))
+        finally:
+            tr.controller.stop()
+            sup.manager.close()
+        runs[name] = (step, sup.restarts, sup.events, losses,
+                      sup.manager.stats())
+    (s0, r0, _, l0, _), (s1, r1, ev1, l1, st1) = runs.values()
+    row = {"drill": "supervisor_restart", "steps": s1, "restarts": r1,
+           "restored_at": [e[1] for e in ev1 if e[0] == "restored"],
+           "losses_equal": l0 == l1, "losses": l1}
+    emit(row)
+    check(s0 == s1 == 6 and r0 == 0 and r1 == 1 and
+          row["restored_at"] == [2] and st1["errors"] == 0,
+          f"supervisor drill: {runs['failure_at_3'][:3]}")
+    check(l0 == l1, f"supervisor drill: replayed losses {l1} differ from "
+                    f"the uninterrupted run's {l0}")
+    shutil.rmtree(os.path.join(HERE, "build", "drill_ckpt"),
+                  ignore_errors=True)
+    return row
+
+
 def main_path(torch):
     from repro_torch import kernels as K
 
@@ -1504,10 +1999,11 @@ def main_path(torch):
         lambda: longread_trial(torch, "longread_scan4096", 4096, 12,
                                duration_s=6.0, warmup_s=1.0),
         # one scan of 1M words under two updaters took 25-76 s on the
-        # card: the window runs until 3 scans complete, capped at 150 s
-        # (240 s until the model server joined the run)
+        # card: the window runs until the first scan completes, capped at
+        # 120 s (until 3 scans or 150 s before the trainer joined the
+        # run, 240 s before the model server did)
         lambda: longread_trial(torch, "longread_scan1M", 1_000_000, 16,
-                               duration_s=150.0, warmup_s=0.0, min_scans=3),
+                               duration_s=120.0, warmup_s=0.0, min_scans=1),
         lambda: rwmix_trial(torch, "rwmix_w1024", 1024, duration_s=6.0,
                             warmup_s=1.0),
     ]
@@ -1634,13 +2130,18 @@ def main() -> int:
                   "hbm_bytes_per_s": HBM_BYTES_PER_S})
     emit({"kernel_checks_seconds": time.perf_counter() - t0,
           "integer_kernels_bit_identical": True,
-          "flash_attention_within_tolerance": True})
+          "flash_attention_within_tolerance": True,
+          "fused_adamw_within_tolerance": True})
 
     schedule_check(torch)
     model_check(torch, dev)
+    train_check(torch, dev)
     launches = main_path(torch)
     served, toks = serving_trial(torch, launches)
     snapshot_checks(torch, launches, toks)
+    free_card(torch)
+    train_trial(torch, launches)
+    supervisor_drill(torch)
     for k in KERNELS:
         check(launches[k] > 0, f"kernel {k} was never launched on the main "
                                "path")

@@ -14,13 +14,17 @@ other.
                     MVStore publish)
     snapshot_select newest ring slot at/below a clock, copied (MVStore)
     flash_attention causal/non-causal attention forward, grouped-query
-                    heads (every prefill attention layer)
+                    heads (every prefill attention layer and every
+                    training forward and recompute)
+    fused_adamw     AdamW step + versioned ring write (every leaf of a
+                    fused Mode-U train step)
 """
 from typing import Dict
 
 from repro_torch.kernels import (
     commit_fused,
     flash_attention,
+    fused_adamw,
     gather_read,
     scatter_write,
     snapshot_select,
@@ -31,7 +35,8 @@ from repro_torch.kernels import (
 #: every kernel's launch counter, by kernel name
 COUNTERS = {m.launches.name: m.launches
             for m in (gather_read, scatter_write, validate, version_select,
-                      commit_fused, snapshot_select, flash_attention)}
+                      commit_fused, snapshot_select, flash_attention,
+                      fused_adamw)}
 
 
 def reset_launch_counts() -> None:

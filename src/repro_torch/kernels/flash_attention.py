@@ -104,12 +104,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     A CUDA tensor launches the kernel (f32 or bf16, D <= 128, unit-stride
     head dim; anything else raises); a CPU tensor takes the plain
-    version.  Nothing is read back to the host."""
+    version.  Nothing is read back to the host.
+
+    The kernel has no backward: on the card, an input that requires grad
+    while grad mode is on raises (the kernel's output would carry no
+    graph); ``models.attention.FlashAttentionFn`` is the differentiable
+    route."""
     _check(q, k, v)
     if scale is None:
         scale = q.shape[3] ** -0.5
     if _lib.device_kind(q) == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, scale=scale)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention: an input requires grad and the CUDA kernel "
+            "has no backward; go through models.attention.FlashAttentionFn")
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     if q.dtype not in _KERNELS:

@@ -39,11 +39,18 @@ class ParamMeta:
         assert len(self.shape) == len(self.axes), (self.shape, self.axes)
 
 
-def tree_map(fn: Callable[[Any], Any], tree):
-    """``fn`` on every leaf of a nested dict (dict order kept)."""
+def tree_map(fn: Callable[..., Any], tree, *rest):
+    """``fn`` on every leaf of a nested dict (dict order kept); given more
+    trees of the same structure, on their leaves side by side."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves in ``jax.tree.leaves`` order (sorted keys)."""
+    return [x for _, x in leaves_with_path(tree)]
 
 
 def leaves_with_path(tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:

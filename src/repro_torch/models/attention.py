@@ -9,6 +9,16 @@ online softmax over kv blocks.  ``"naive"`` is the plain full-matrix
 version on any device.  ``decode_attention`` (one query token against a
 KV cache) is plain torch, as it is plain XLA in the reference.
 
+Gradients.  The kernel has no backward (the reference has no attention
+backward kernel either: its trainer differentiates the blockwise XLA
+lowering), so wherever autograd needs one, ``attention`` goes through
+``FlashAttentionFn``: its forward is the kernel wrapper as it stands
+(the CUDA kernel on the card, the plain version on the CPU), its
+backward the standard attention gradient in plain torch products
+(``attention_backward``).  The bare CUDA wrapper refuses an input that
+requires grad while grad mode is on, so no caller can get an output
+that has silently lost its graph.
+
 Products of bf16 inputs are taken in f32 (the reference's
 ``preferred_element_type=float32``); softmax weights are cast to v's
 dtype before ``p . v``, which sums in f32.
@@ -31,7 +41,8 @@ def blockwise_attention(q, k, v, *, causal: bool, block_q: int = 1024,
     H must be a multiple of KV (GQA).  Block sizes are clamped to the
     sequence lengths; causal requires Sq == Sk and equal blocks, and the
     blocks must tile the sequences, as in the reference (the kernel's
-    own tiles are fixed and mask the ragged edge).
+    own tiles are fixed and mask the ragged edge).  Where autograd
+    needs a gradient it goes through ``FlashAttentionFn``.
     """
     Sq, Sk = q.shape[1], k.shape[1]
     bq = min(block_q, Sq)
@@ -40,6 +51,8 @@ def blockwise_attention(q, k, v, *, causal: bool, block_q: int = 1024,
         assert Sq == Sk, "causal blockwise attention needs Sq == Sk"
         bq = bk = min(bq, bk)
     assert Sq % bq == 0 and Sk % bk == 0, (Sq, bq, Sk, bk)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttentionFn.apply(q, k, v, causal, scale)
     return FA.flash_attention(q, k, v, causal=causal, scale=scale)
 
 
@@ -58,6 +71,62 @@ def naive_attention(q, k, v, *, causal: bool, scale: Optional[float] = None):
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgtu,bukd->btkgd", p.to(v.dtype).float(), v.float())
     return o.reshape(B, Sq, H, D).to(q.dtype)
+
+
+def attention_backward(q, k, v, o, do, *, causal: bool, scale: float):
+    """``(dq, dk, dv)`` of ``o = attention(q, k, v)`` for the output
+    gradient ``do``, in f32 products, cast to the inputs' dtypes.
+
+    Recomputes ``S = q . k^T * scale`` under the forward's mask, then
+    ``P = softmax(S)``, ``dV = P^T . dO``, ``dP = dO . V^T``,
+    ``dS = P * (dP - rowsum(dO * O))``, ``dQ = dS . K * scale`` and
+    ``dK = dS^T . Q * scale``; dK and dV are summed over the G query
+    heads of each kv head."""
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+
+    def heads(t):                                # [B, KV, G, Sq, D]
+        return t.float().reshape(B, Sq, KV, G, D).permute(0, 2, 3, 1, 4)
+
+    qf, of, dof = heads(q), heads(o), heads(do)
+    kf = k.float().permute(0, 2, 1, 3)[:, :, None]     # [B, KV, 1, Sk, D]
+    vf = v.float().permute(0, 2, 1, 3)[:, :, None]
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    if causal:
+        rows = torch.arange(Sq, device=q.device)[:, None]
+        cols = torch.arange(Sk, device=q.device)[None, :]
+        s = torch.where(rows >= cols, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    dv = torch.matmul(p.transpose(-1, -2), dof).sum(dim=2)
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    ds = p * (dp - (dof * of).sum(dim=-1, keepdim=True))
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf).sum(dim=2) * scale
+    dq = dq.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
+    return (dq, dk.permute(0, 2, 1, 3).to(k.dtype),
+            dv.permute(0, 2, 1, 3).to(v.dtype))
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """``flash_attention`` with a gradient: the kernel wrapper forward
+    (grad mode is off inside ``forward``), ``attention_backward``
+    backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: Optional[float]):
+        scale = q.shape[3] ** -0.5 if scale is None else scale
+        o = FA.flash_attention(q, k, v, causal=causal, scale=scale)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = attention_backward(q, k, v, o, do, causal=ctx.causal,
+                                        scale=ctx.scale)
+        return dq, dk, dv, None, None
 
 
 def attention(q, k, v, *, causal: bool, impl: str = "blockwise",

@@ -1,5 +1,6 @@
-"""Unified model interface: meta / init / prefill / decode / cache, and
-``params_from_numpy``, which carries a parameter tree across from numpy.
+"""Unified model interface: meta / init / loss / prefill / decode / cache,
+and ``params_from_numpy``, which carries a parameter tree across from
+numpy.
 
 The decoder-only family only; encoder-decoder configs raise "not ported
 yet".
@@ -32,6 +33,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None):
     """Random parameters drawn from ``generator`` (on ``device``, the
     generator's by default)."""
     return materialize(model_meta(cfg), generator, device)
+
+
+def loss_fn(params, batch, cfg: ModelConfig, pcfg: ParallelConfig):
+    _decoder_only(cfg)
+    return transformer.lm_loss(params, batch, cfg, pcfg)
 
 
 def prefill_fn(params, batch, cfg: ModelConfig, pcfg: ParallelConfig):
@@ -93,5 +99,5 @@ def params_from_numpy(tree, device=None):
     return tree_map(one, tree)
 
 
-__all__ = ["decode_fn", "init_cache", "init_params", "model_meta",
+__all__ = ["decode_fn", "init_cache", "init_params", "loss_fn", "model_meta",
            "param_counts", "params_from_numpy", "prefill_fn"]

@@ -4,8 +4,10 @@ Layers are stacked in *groups* of one interleave period, as in the
 reference (period 1 for a uniform dense arch: group g is layer g), so a
 parameter tree and a cache tree read the same in both packages: every
 leaf under ``layers`` leads with the group axis.  The reference scans the
-groups (``lax.scan``); here a Python loop indexes them.  Inference only:
-no remat, no loss (training comes with its own slice).
+groups (``lax.scan``); here a Python loop walks them.  Training
+(``lm_loss``) recomputes each group in its backward when ``pcfg.remat``
+is ``"block"`` (the reference's ``jax.checkpoint`` of the group body),
+through ``torch.utils.checkpoint``.
 """
 from __future__ import annotations
 
@@ -13,12 +15,13 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.launch.sharding import (ParamMeta, stack_meta, torch_dtype,
                                          tree_map)
 from repro_torch.models import blocks
-from repro_torch.models.common import rmsnorm, rmsnorm_meta
+from repro_torch.models.common import rmsnorm, rmsnorm_meta, softmax_xent
 
 VOCAB_PAD_MULTIPLE = 256
 
@@ -94,6 +97,17 @@ def _group(tree, g: int):
     return tree_map(lambda t: t[g], tree)
 
 
+def _groups(tree, n: int) -> list:
+    """Every group's slice of a stacked tree: ONE ``torch.unbind`` per
+    leaf (views, no copy).  Under autograd its backward stacks the n
+    group gradients once; n ``t[g]`` selects would each make a zero
+    tensor the size of the whole stacked leaf in the backward."""
+    if isinstance(tree, dict):
+        per_key = {k: _groups(v, n) for k, v in tree.items()}
+        return [{k: per_key[k][g] for k in tree} for g in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
 # ---------------------------------------------------------------------------
 # Sequence forward (prefill)
 # ---------------------------------------------------------------------------
@@ -102,16 +116,21 @@ def _group(tree, g: int):
 def lm_forward(params, tokens, cfg: ModelConfig, pcfg: ParallelConfig, *,
                want_cache: bool = False):
     """tokens: [B, S].  Returns (hidden [B, S, d], cache, aux); the
-    cache's leaves are [groups, B, S, kv*dh].  (The reference's prefix
-    embeddings come with the vision and audio frontends.)"""
+    cache's leaves are [groups, B, S, kv*dh].  With ``pcfg.remat ==
+    "block"`` and no cache wanted, a forward that autograd records keeps
+    only each group's input and recomputes the group in the backward.
+    (The reference's prefix embeddings come with the vision and audio
+    frontends.)"""
     kinds = layer_kinds(cfg)
+    remat_on = pcfg.remat != "none" and not want_cache
+    if remat_on and pcfg.remat != "block":
+        raise NotImplementedError(
+            f"remat {pcfg.remat!r} is not ported yet (only 'block')")
     h = embed_lookup(params["embed"], tokens, pcfg)
     S = h.shape[1]
     positions = torch.arange(S, device=h.device)[None, :]
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    caches = []
-    for g in range(n_groups(cfg)):
-        gp = _group(params["layers"], g)
+
+    def group_body(h, aux, gp):
         gc = {}
         for j, kind in enumerate(kinds):
             h, c, a = blocks.sublayer_apply(
@@ -119,6 +138,17 @@ def lm_forward(params, tokens, cfg: ModelConfig, pcfg: ParallelConfig, *,
                 want_cache=want_cache)
             aux = aux + a
             gc[f"sub{j}"] = c
+        return h, aux, gc
+
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    caches = []
+    for gp in _groups(params["layers"], n_groups(cfg)):
+        if remat_on and torch.is_grad_enabled():
+            h, aux, gc = checkpoint(group_body, h, aux, gp,
+                                    use_reentrant=False,
+                                    preserve_rng_state=False)
+        else:
+            h, aux, gc = group_body(h, aux, gp)
         caches.append(gc)
     cache = None
     if want_cache:
@@ -128,6 +158,16 @@ def lm_forward(params, tokens, cfg: ModelConfig, pcfg: ParallelConfig, *,
                  for j in range(len(kinds))}
     h = rmsnorm(h, params["final_norm"], cfg.rms_eps)
     return h, cache, aux
+
+
+def lm_loss(params, batch, cfg: ModelConfig, pcfg: ParallelConfig):
+    """batch: tokens [B, S], labels [B, S].  Returns the scalar loss."""
+    if batch.get("patch_embeds") is not None:
+        raise NotImplementedError(
+            "prefix embeddings (the vision frontend) are not ported yet")
+    h, _, aux = lm_forward(params, batch["tokens"], cfg, pcfg)
+    logits = lm_logits(params, h, cfg)
+    return softmax_xent(logits, batch["labels"], cfg.vocab_size) + aux
 
 
 # ---------------------------------------------------------------------------

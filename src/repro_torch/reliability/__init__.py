@@ -1,8 +1,10 @@
-"""Fault injection for the commit pipelines (``faultpoints``).
+"""Fault injection for the commit pipelines (``faultpoints``) and the
+training restore path (``recovery.replay_from_checkpoint``).
 
 The port keeps its own copy of the JAX package's stdlib-only
 ``faultpoints`` module, so the engine's hooks are the same named points.
-Recovery and the write-ahead log are not ported yet.
+The rest of ``recovery`` and the write-ahead log are not ported yet;
+``recovery`` is imported where it is used, as the reference does.
 """
 from repro_torch.reliability.faultpoints import (  # noqa: F401
     FAULT_POINTS,

@@ -1,8 +1,8 @@
 """The port stands alone: no module of ``src/repro_torch`` and not
 ``chip_smoke.py`` imports JAX or the JAX package, every port module
 imports with both made unimportable, and the entry points (``make_tm``,
-the model server and its command line) refuse to fall back to the CPU
-when no card is there."""
+the model server, the trainer and their command lines) refuse to fall
+back to the CPU when no card is there."""
 import ast
 import os
 import pkgutil
@@ -103,6 +103,30 @@ def test_the_model_server_defaults_to_the_card(entry):
     server = serve.Server(smoke_config("qwen2.5-3b"), batch=1, prompt_len=4,
                           max_len=8, device="cpu")
     assert server.mv_state.live["embed"].device.type == "cpu"
+
+
+@pytest.mark.parametrize("entry", ["Trainer", "main"])
+def test_the_trainer_defaults_to_the_card(entry, tmp_path):
+    """``launch/train.Trainer`` and ``python -m repro_torch.launch.train``
+    run on the card unless told otherwise; without one they raise before
+    any state is built."""
+    from repro_torch.configs import ShapeConfig, smoke_config
+    from repro_torch.launch import train
+
+    if torch.cuda.is_available():
+        return
+    shape = ShapeConfig("t", 8, 1, "train")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        if entry == "Trainer":
+            train.Trainer(smoke_config("qwen2.5-3b"), shape)
+        else:
+            train.main(["--smoke", "--steps", "1", "--ckpt-dir",
+                        str(tmp_path)])
+    trainer = train.Trainer(smoke_config("qwen2.5-3b"), shape,
+                            device="cpu")
+    trainer.controller.stop()
+    assert trainer.state.mv.live["embed"].device.type == "cpu"
+    assert trainer.state.opt.count.device.type == "cpu"
 
 
 def test_unported_backends_say_so():
