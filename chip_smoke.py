@@ -1881,6 +1881,7 @@ def train_trial(torch, launches):
                               n_steps=TRAIN_STEPS, on_step=on_step)
     finally:
         sup.manager.close()
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = K.launch_counts()
