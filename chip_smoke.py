@@ -8,13 +8,15 @@ imports nothing of JAX or of the JAX package.  Phases, in order — any
 failure exits non-zero and no result line is printed:
 
   1. the card's name and power limit (``nvidia-smi``), then the build of
-     the eight kernels from ``src/repro_torch/csrc`` (timed);
+     the nine kernels from ``src/repro_torch/csrc`` (timed);
   2. each kernel against its plain PyTorch version on the card at the
      listed shapes — the six integer kernels bit for bit, ``flash_attention``
      within 2e-2 at bfloat16 and 2e-4 at float32, ``fused_adamw``'s
      parameters and ring within 2e-2 at bfloat16 and 1e-5 at float32 and
-     its moments within 1e-5 (rtol = atol, the JAX package's
-     ``tests/test_kernels.py`` tolerances) — then timed with CUDA events
+     its moments within 1e-5, ``ssd_scan``'s output within 2e-3 at
+     float32 and 5e-2 at bfloat16 and its final state within 2e-3 (rtol
+     = atol, the JAX package's ``tests/test_kernels.py`` tolerances) —
+     then timed with CUDA events
      beside the plain version, the library call where one exists, and
      the bound, and traced with ``torch.profiler`` for the kernels' own
      device time; and the attention gradient (``FlashAttentionFn``: the
@@ -28,7 +30,9 @@ failure exits non-zero and no result line is printed:
      same seeded weights on the card and on the CPU, must give prefill
      and 4 decode steps' float32 logits within 2e-4 and the same greedy
      tokens, and bfloat16 logits no further from the float32 ones than
-     twice the CPU's bfloat16 logits are; and the trainer at the same
+     twice the CPU's bfloat16 logits are; the same for mamba2-780m at
+     full width and a depth of 2 (a prefill of 2 x 512 tokens through
+     ``ssd_scan``); and the trainer at the same
      width and depth, float32, 2 x 64 tokens, 2 steps in Mode Q, Mode U
      and Mode U fused on the card and on the CPU from the same weights:
      losses, parameters and moments within 1e-4, the fused run within
@@ -53,7 +57,11 @@ failure exits non-zero and no result line is printed:
      decode: in Mode U no request aborts and the tokens are those of a
      run without the commit (``snapshot_select`` serves the pinned
      version from the ring); in Mode Q every in-flight request aborts
-     and restarts, and all complete; then the trainer:
+     and restarts, and all complete; then the same server over
+     mamba2-780m at full width and depth (8 requests of 512 prompt and
+     32 new tokens; every Mamba layer of every prefill through
+     ``ssd_scan``) and its Mode U commit check (``final_norm`` negated);
+     then the trainer:
      ``repro_torch.launch.train.Trainer`` trains qwen2.5-3b at full width
      and depth (bfloat16, random weights from seed 0, 4 x 512 tokens a
      step) for 20 steps under ``TrainSupervisor.run`` in Mode U with the
@@ -63,7 +71,7 @@ failure exits non-zero and no result line is printed:
      the losses must be finite and fall; and a supervisor drill at the
      reduced config (a failure injected at step 3, checkpoints every 2
      steps) must finish with the losses of an uninterrupted run;
-  5. the card's idle share: four of the trials, the server and the
+  5. the card's idle share: four of the trials, the two servers and the
      trainer run again for a 3 s window under a profiler trace of their
      GPU activity (the trainer's while it is still up after phase 4).
 
@@ -116,6 +124,8 @@ KERNELS = {
                         "qwen_prefill_512"),
     "fused_adamw": ("src/repro_torch/csrc/fused_adamw.cu",
                     "src/repro/kernels/fused_adamw.py:70", "ffn_leaf"),
+    "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan.py:77", "mamba_prefill_512"),
 }
 BACKENDS = ("multiverse", "tl2", "dctl", "norec", "tinystm", "mvstore")
 #: each kernel's __global__ functions, as named in a profiler trace
@@ -128,6 +138,7 @@ DEVICE_KERNELS = {
     "snapshot_select": ("snapshot_select_kernel",),
     "flash_attention": ("flash_attention_kernel",),
     "fused_adamw": ("fused_adamw_kernel",),
+    "ssd_scan": ("ssd_scan_kernel",),
 }
 GPU_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 TRACE_DIR = os.path.join(HERE, "build", "traces")
@@ -355,6 +366,8 @@ def kernel_checks(torch, dev, rng):
     rows.update(snapshot_select_checks(torch, dev, rng, bound))
     rows.update(flash_checks(torch, dev))
     rows.update(adamw_checks(torch, dev))
+    rows.update(ssd_checks(torch, dev))
+    mamba_train_refusal_check(torch, dev)
     attention_grad_checks(torch, dev)
     return rows
 
@@ -688,6 +701,148 @@ def flash_checks(torch, dev):
     emit({"kernel_check": "flash_attention", "cases": len(FLASH_CASES),
           "max_abs_err": {n: r["max_abs_err"] for n, r in rows.items()}})
     return {"flash_attention": rows}
+
+
+#: ssd_scan cases: name -> (B, S, H, P, N, chunk, dtype, init_state); the
+#: reference's sweep (``tests/test_kernels.py::test_ssd_scan_sweep``) at
+#: float32 and bfloat16, then mamba2-780m's prefill in the serving trial
+#: (one 512-token prompt: 2 chunks of 256, 48 heads of 64, d_state 128),
+#: from the zero state the model passes (timed) and from a random one
+SSD_CASES = {
+    **{f"sweep_{B}x{S}x{H}x{P}x{N}_q{q}_{dt}": (B, S, H, P, N, q, dt, False)
+       for B, S, H, P, N, q in ((1, 64, 2, 8, 4, 16), (2, 128, 4, 16, 8, 32),
+                                (1, 256, 2, 32, 16, 64))
+       for dt in ("float32", "bfloat16")},
+    "mamba_prefill_512": (1, 512, 48, 64, 128, 256, "bfloat16", "zeros"),
+    "mamba_prefill_512_init": (1, 512, 48, 64, 128, 256, "bfloat16",
+                               "random"),
+    "mamba_prefill_512_f32": (1, 512, 48, 64, 128, 256, "float32",
+                              "random"),
+}
+#: the reference's SSD tolerances (rtol = atol): y in its dtype; the final
+#: state is float32 in both
+SSD_TOL = {"float32": 2e-3, "bfloat16": 5e-2}
+
+
+def ssd_macs(S, H, P, N, Q) -> int:
+    """Multiply-adds the chunked scan needs: per chunk C.B^T and the
+    weighted product over the Q(Q+1)/2 (i, j <= i) pairs, and per head
+    the carried state's term and the state update (Q N P each)."""
+    pairs = Q * (Q + 1) // 2
+    return S // Q * (pairs * N + H * (pairs * P + 2 * Q * N * P))
+
+
+def ssd_checks(torch, dev):
+    """ssd_scan against its plain version on the card at every case of
+    ``SSD_CASES``: y within ``SSD_TOL`` and the final state within 2e-3.
+    The prefill case is timed: CUDA events, the profiler's kernel time,
+    the plain version (no single PyTorch call computes the scan: no
+    library time).  The bound is the larger of ``ssd_macs`` at the f32
+    peak (the arithmetic is f32) and the bytes of x, dt, A, B, C, y and
+    the two states over the memory rate, for one batch row."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ssd_scan as SS
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rows, errs = {}, {}
+    for name, (B, S, H, P, N, q, dt, init) in SSD_CASES.items():
+        dtype = getattr(torch, dt)
+        xh = (torch.randn(B, S, H, P, generator=gen, device=dev) * 0.5
+              ).to(dtype)
+        dts = F.softplus(torch.randn(B, S, H, generator=gen, device=dev))
+        A = -torch.exp(torch.randn(H, generator=gen, device=dev) * 0.3)
+        Bm = (torch.randn(B, S, N, generator=gen, device=dev) * 0.5
+              ).to(dtype)
+        Cm = (torch.randn(B, S, N, generator=gen, device=dev) * 0.5
+              ).to(dtype)
+        st0 = None
+        if init:
+            st0 = torch.zeros(B, H, N, P, device=dev) if init == "zeros" \
+                else torch.randn(B, H, N, P, generator=gen, device=dev)
+        args = (xh, dts, A, Bm, Cm)
+        y, st = SS.ssd_scan(*args, chunk=q, init_state=st0)
+        yw, stw = SS.ssd_scan_plain(*args, chunk=q, init_state=st0)
+        torch.cuda.synchronize()
+        try:
+            err = max_abs_err(torch, y, yw, dt, SSD_TOL[dt])
+            serr = max_abs_err(torch, st, stw, "float32", 2e-3)
+        except Failed as e:
+            raise Failed(f"ssd_scan != plain ({name}): {e}")
+        check(y.dtype == dtype and st.dtype == torch.float32,
+              f"ssd_scan ({name}): output dtypes {y.dtype}, {st.dtype}")
+        errs[name] = {"y": err, "final_state": serr}
+        if name != KERNELS["ssd_scan"][2]:
+            continue
+        Q = min(q, S)
+        t_ops = 2 * B * ssd_macs(S, H, P, N, Q) / PEAK_OPS_PER_S[
+            "float32"] * 1e3
+        nbytes = (2 * xh.numel() * xh.element_size()
+                  + 4 * (dts.numel() + A.numel() + 2 * st.numel())
+                  + 2 * Bm.numel() * Bm.element_size())
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        rows[name] = kernel_row(
+            torch, "ssd_scan",
+            lambda: SS.ssd_scan(*args, chunk=q, init_state=st0),
+            shape=f"B={B} S={S} H={H} P={P} N={N} Q={Q} {dt}, "
+                  f"{init} init_state, final state out",
+            max_abs_err=err, final_state_max_abs_err=serr,
+            tolerance=SSD_TOL[dt],
+            plain_ms=time_ms(torch, lambda: SS.ssd_scan_plain(
+                *args, chunk=q, init_state=st0), iters=20, warm=3),
+            library_ms=None, library="none (no one call)",
+            macs=B * ssd_macs(S, H, P, N, Q), bytes=nbytes,
+            bound_ms=max(t_ops, t_bytes),
+            bound_by="operations" if t_ops >= t_bytes else "bytes")
+    emit({"kernel_check": "ssd_scan", "cases": len(SSD_CASES),
+          "max_abs_err": errs})
+    return {"ssd_scan": rows}
+
+
+def mamba_train_refusal_check(torch, dev):
+    """The scan kernel has no backward yet: on the card the bare
+    ``ssd_scan`` wrapper refuses an input that requires grad, and
+    ``lm_loss`` and ``Trainer`` for a Mamba config raise
+    NotImplementedError instead of training without the gradient (the
+    ``cuda``-marked tests of ``tests/test_torch_{ssd,mamba}.py``, which
+    import JAX, here without it)."""
+    from repro_torch.configs import ParallelConfig, ShapeConfig, smoke_config
+    from repro_torch.kernels import ssd_scan as SS
+    from repro_torch.launch.sharding import tree_map
+    from repro_torch.launch.train import Trainer
+    from repro_torch.models import mamba
+    from repro_torch.models import model_zoo as zoo
+
+    x = torch.zeros(1, 32, 2, 8, device=dev, requires_grad=True)
+    dt = torch.ones(1, 32, 2, device=dev)
+    bc = torch.zeros(1, 32, 4, device=dev)
+    try:
+        SS.ssd_scan(x, dt, -dt[0, 0], bc, bc, chunk=16)
+        raise Failed("ssd_scan ran a CUDA input that requires grad")
+    except RuntimeError as e:
+        check("requires grad" in str(e), f"ssd_scan refused with: {e}")
+    cfg = smoke_config(MAMBA)
+    params = tree_map(lambda t: t.requires_grad_(), zoo.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(SEED)))
+    tok = torch.zeros((2, 32), dtype=torch.int32, device=dev)
+    batch = {"tokens": tok, "labels": tok}
+    for what, call in (
+            ("lm_loss", lambda: zoo.loss_fn(params, batch, cfg,
+                                            ParallelConfig())),
+            ("Trainer", lambda: Trainer(cfg, ShapeConfig("s", 32, 2,
+                                                         "train"),
+                                        device=dev))):
+        try:
+            call()
+            raise Failed(f"{what} trained a Mamba config on the card")
+        except NotImplementedError as e:
+            check(mamba.TRAIN_ON_CARD in str(e),
+                  f"{what} refused with: {e}")
+    with torch.no_grad():
+        check(bool(torch.isfinite(zoo.loss_fn(params, batch, cfg,
+                                              ParallelConfig()))),
+              "the Mamba loss without grad is not finite on the card")
+    emit({"mamba_train_refusal_check": True})
 
 
 #: fused_adamw cases: name -> (shape, p dtype, g dtype, ring slots); the
@@ -1409,7 +1564,10 @@ def mvstore_trial(torch, name, duration_s=6.0, warmup_s=1.0, probe=None):
 # ---------------------------------------------------------------------------
 
 ARCH = "qwen2.5-3b"
+MAMBA = "mamba2-780m"
 BATCH, PROMPT, GEN, REQUESTS = 4, 512, 32, 8
+#: each served model: its prefill kernel, launched once per layer
+PREFILL_KERNEL = {ARCH: "flash_attention", MAMBA: "ssd_scan"}
 
 
 def free_card(torch):
@@ -1419,25 +1577,31 @@ def free_card(torch):
 
 
 def _grow(torch, cache, extra):
-    """A prefill cache with ``extra`` zeroed positions appended."""
+    """A prefill cache with ``extra`` zeroed positions appended to its
+    k/v leaves (a Mamba state has no sequence axis)."""
     return {sub: {n: torch.cat([t, t.new_zeros(t.shape[:2] + (extra,)
                                                + t.shape[3:])], dim=2)
+                  if n in ("k", "v") else t
                   for n, t in kv.items()} for sub, kv in cache.items()}
 
 
-def model_check(torch, dev):
-    """qwen2.5-3b at full width and a depth of 2 layers: one set of
+def model_check(torch, dev, arch=ARCH, prompt=(2, 64)):
+    """``arch`` at full width and a depth of 2 layers: one set of
     seeded bf16 weights (``materialize`` on the CPU), run as bf16 and,
-    upcast, as float32, on the card and on the CPU: prefill of 2 x 64
-    tokens and 4 decode steps, every run fed the CPU float32 run's greedy
-    tokens.  float32: the card's logits within 2e-4 of the CPU's and the
-    same greedy tokens (TF32 off).  bfloat16: an element-wise tolerance
-    does not survive two layers at this width (two CPU bf16 routes that
-    differ only in the order of their float32 sums differ by more than
-    2e-2), so each bf16 run is held against the float32 logits of the
-    same weights: the card's mean and max error must stay within twice
-    the CPU's.  A fault on the path (mask, scale, head mapping, cache
-    write) moves logits by 0.1-1; bf16 rounding by ~0.01."""
+    upcast, as float32, on the card and on the CPU: prefill of
+    ``prompt`` tokens and 4 decode steps, every run fed the CPU float32
+    run's greedy tokens; each card prefill must launch the arch's
+    prefill kernel once per layer.  float32: the card's logits within
+    2e-4 of the CPU's and the same greedy tokens (TF32 off).  bfloat16:
+    an element-wise tolerance does not survive two layers at this width
+    (two CPU bf16 routes that differ only in the order of their float32
+    sums differ by more than 2e-2), so each bf16 run is held against the
+    float32 logits of the same weights: the card's mean and max error
+    must stay within twice the CPU's.  A fault on the path (mask, scale,
+    head mapping, cache write, decay, state carry) moves logits by 0.1-1;
+    bf16 rounding by ~0.01.  qwen2.5-3b runs 2 x 64 tokens; mamba2-780m
+    2 x 512, two chunks of 256, so the scan's state also crosses a chunk
+    inside the kernel before decode takes it over."""
     from repro_torch import kernels as K
     from repro_torch.configs import ParallelConfig, get_config
     from repro_torch.launch.sharding import tree_map
@@ -1445,12 +1609,12 @@ def model_check(torch, dev):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     pcfg = ParallelConfig(remat="none", attn_block_q=64, attn_block_k=64)
-    cfg16 = dataclasses.replace(get_config(ARCH), n_layers=2)
+    cfg16 = dataclasses.replace(get_config(arch), n_layers=2)
     cfg32 = dataclasses.replace(cfg16, dtype="float32")
     p16 = zoo.init_params(cfg16, torch.Generator().manual_seed(SEED))
     p32 = tree_map(lambda t: t.float(), p16)
     toks = torch.from_numpy(np.random.default_rng(SEED).integers(
-        0, cfg16.vocab_size, (2, 64)).astype(np.int32))
+        0, cfg16.vocab_size, prompt).astype(np.int32))
     runs = {}
     K.reset_launch_counts()
     for name, p, cfg, d in (("cpu32", p32, cfg32, "cpu"),
@@ -1461,8 +1625,9 @@ def model_check(torch, dev):
         logits, cache, clen = zoo.prefill_fn(
             p, {"tokens": toks.to(d)}, cfg, pcfg)
         runs[name] = [logits, _grow(torch, cache, 4), clen, p, cfg, d]
-    check(K.launch_counts()["flash_attention"] == 4,
-          "the card's prefills did not run flash_attention per layer")
+    kernel = PREFILL_KERNEL[arch]
+    check(K.launch_counts()[kernel] == 4,
+          f"the card's prefills did not run {kernel} once per layer")
     steps = []
     for step in range(5):
         lg = {n: r[0].float().cpu() for n, r in runs.items()}
@@ -1496,7 +1661,7 @@ def model_check(torch, dev):
         for r in runs.values():
             r[0], r[1], r[2] = zoo.decode_fn(r[3], r[1], r[2],
                                              tok.to(r[5]), r[4], pcfg)
-    out = {"model_check": ARCH, "layers": 2, "prompt": [2, 64],
+    out = {"model_check": arch, "layers": 2, "prompt": list(prompt),
            "decode_steps": 4, "f32_tolerance": TOLERANCE["float32"],
            "f32_greedy_tokens_equal": True, "steps": steps}
     emit(out)
@@ -1505,20 +1670,20 @@ def model_check(torch, dev):
     return out
 
 
-def _prompts():
+def _prompts(arch=ARCH):
     from repro_torch.configs import get_config
 
     return np.random.default_rng(SEED).integers(
-        0, get_config(ARCH).vocab_size, (REQUESTS, PROMPT)).astype(np.int32)
+        0, get_config(arch).vocab_size, (REQUESTS, PROMPT)).astype(np.int32)
 
 
-def _server(mode):
+def _server(mode, arch=ARCH):
     """The server on the card, its parameters drawn from ``SEED``; Mode U
     versions every block in a 2-slot ring."""
     from repro_torch.configs import MVStoreConfig, get_config
     from repro_torch.launch.serve import Server
 
-    return Server(get_config(ARCH), batch=BATCH, prompt_len=PROMPT,
+    return Server(get_config(arch), batch=BATCH, prompt_len=PROMPT,
                   max_len=PROMPT + GEN, seed=SEED,
                   mvcfg=MVStoreConfig(mode=mode, ring_slots=2))
 
@@ -1530,18 +1695,19 @@ def _fresh_metrics(server):
     server.metrics = server.scheduler.metrics = ServeMetrics(seed=SEED)
 
 
-def serving_trial(torch, launches):
-    """``Server`` over qwen2.5-3b at full width and depth, Mode Q: one
+def serving_trial(torch, launches, arch=ARCH):
+    """``Server`` over ``arch`` at full width and depth, Mode Q: one
     warm-up request, then 8 seeded requests through 4 slots.  Launch
     counters are set to 0 just before the 8 and read just after; every
-    prefill must have run ``flash_attention`` once per layer."""
+    prefill must have run the arch's prefill kernel (``flash_attention``
+    for qwen2.5-3b, ``ssd_scan`` for mamba2-780m) once per layer."""
     from repro_torch import kernels as K
 
     t0 = time.perf_counter()
-    server = _server("Q")
+    server = _server("Q", arch)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    prompts = _prompts()
+    prompts = _prompts(arch)
     server.serve_batch(prompts[:1], 2)                  # warm-up
     _fresh_metrics(server)
     torch.cuda.synchronize()
@@ -1560,7 +1726,7 @@ def serving_trial(torch, launches):
     toks = np.array([r.tokens for r in reqs])
     per_token = [(r.t_done - r.t_first_token) / (len(r.tokens) - 1)
                  for r in reqs]
-    row = {"trial": "serve_qwen2.5-3b", "mode": "Q", "batch": BATCH,
+    row = {"trial": f"serve_{arch}", "mode": "Q", "batch": BATCH,
            "prompt_len": PROMPT, "gen": GEN, "requests": REQUESTS,
            "init_s": init_s, "seconds": dt,
            "tokens_per_s": toks.size / dt,
@@ -1577,16 +1743,18 @@ def serving_trial(torch, launches):
           "serving: not every request completed")
     check(bool(((toks >= 0) & (toks < server.cfg.padded_vocab())).all()),
           "serving: a token outside the padded vocab")
-    check(counts["flash_attention"] >= 36 * REQUESTS,
-          f"serving: {counts['flash_attention']} flash_attention launches "
-          f"for {REQUESTS} prefills of 36 layers")
+    kernel, layers = PREFILL_KERNEL[arch], server.cfg.n_layers
+    check(counts[kernel] >= layers * REQUESTS,
+          f"serving {arch}: {counts[kernel]} {kernel} launches for "
+          f"{REQUESTS} prefills of {layers} layers")
     del server
     free_card(torch)
     return row, toks
 
 
-def snapshot_checks(torch, launches, served):
-    """A writer commits a new version (``lm_head`` negated) with
+def snapshot_checks(torch, launches, served, arch=ARCH, modes=("U", "Q")):
+    """A writer commits a new version (``lm_head`` negated; for a model
+    with tied embeddings, mamba2-780m, ``final_norm``) with
     ``mv_commit`` while all 4 slots decode.  Mode U (every block
     versioned, 2 ring slots): no abort, the tokens of the run without
     the commit, which are also the serving trial's first 4 requests'
@@ -1597,11 +1765,11 @@ def snapshot_checks(torch, launches, served):
     from repro_torch.configs import MVStoreConfig
     from repro_torch.core import mvstore
 
-    prompts = _prompts()[:BATCH]
+    prompts = _prompts(arch)[:BATCH]
     rows = {}
-    for mode in ("U", "Q"):
+    for mode in modes:
         mvcfg = MVStoreConfig(mode=mode, ring_slots=2)
-        server = _server(mode)
+        server = _server(mode, arch)
         baseline = None
         if mode == "U":
             baseline = server.serve_batch(prompts, GEN)
@@ -1616,7 +1784,8 @@ def snapshot_checks(torch, launches, served):
         check(all(len(r.tokens) == 2 for r in reqs),
               f"Mode {mode}: the slots were not all decoding")
         new = dict(server.mv_state.live)
-        new["lm_head"] = -new["lm_head"]
+        key = "lm_head" if "lm_head" in new else "final_norm"
+        new[key] = -new[key]
         server.mv_state = mvstore.mv_commit(server.mv_state, new,
                                             local_mode=mode, cfg=mvcfg)
         while any(r.outcome is r.outcome.PENDING for r in reqs):
@@ -1627,7 +1796,9 @@ def snapshot_checks(torch, launches, served):
         for k, v in counts.items():
             launches[k] += v
         toks = np.array([r.tokens for r in reqs])
-        row = {"trial": f"snapshot_commit_{mode}", "mode": mode,
+        row = {"trial": f"snapshot_commit_{mode}"
+                        + ("" if arch == ARCH else f"_{arch}"),
+               "negated": key, "mode": mode,
                "ring_slots": 2 if mode == "U" else 0, "seconds": dt,
                "pinned_clocks": pinned, "aborts": server.aborts,
                "completed": server.metrics.completed,
@@ -1664,13 +1835,13 @@ def snapshot_checks(torch, launches, served):
     return rows
 
 
-def serving_idle_window(torch, window_s=3.0):
+def serving_idle_window(torch, window_s=3.0, arch=ARCH):
     """A 3 s window of the Mode-Q server under load (the queue kept at
     8 requests) under a profiler trace of its GPU activity."""
     from torch.profiler import ProfilerActivity
 
-    server = _server("Q")
-    prompts = _prompts()
+    server = _server("Q", arch)
+    prompts = _prompts(arch)
     server.serve_batch(prompts[:1], 2)                  # warm-up
     prof = torch.profiler.profile(activities=[ProfilerActivity.CUDA])
     pending, i, done = [], 0, 0
@@ -2053,9 +2224,10 @@ def main_path(torch):
 
 
 def idle_shares(torch):
-    """The card's idle share in four trials and the model server, each
-    run again for a 3 s window under a ``torch.profiler`` trace of its GPU activity (kernels,
-    copies, memsets): idle share = 1 - busy time / window.  Kept apart
+    """The card's idle share in four trials and the two model servers,
+    each run again for a 3 s window under a ``torch.profiler`` trace of
+    its GPU activity (kernels, copies, memsets): idle share = 1 - busy
+    time / window.  Kept apart
     from the main path, whose numbers stay untraced; its launches are not
     counted."""
     from torch.profiler import ProfilerActivity
@@ -2082,14 +2254,15 @@ def idle_shares(torch):
               "device_busy_ms": busy_us / 1e3 if n else None,
               "device_idle_share": 1 - busy_us / 1e3 / window_ms if n
               else None})
-    dt, prof, done = serving_idle_window(torch)
-    n, busy_us, fa_us = gpu_activity(prof, DEVICE_KERNELS["flash_attention"])
-    emit({"trace": "serve_qwen2.5-3b", "window_s": dt, "gpu_events": n,
-          "requests_completed": done,
-          "device_busy_ms": busy_us / 1e3 if n else None,
-          "flash_attention_ms": fa_us / 1e3 if n else None,
-          "device_idle_share": 1 - busy_us / 1e3 / (dt * 1e3) if n
-          else None})
+    for arch, kernel in PREFILL_KERNEL.items():
+        dt, prof, done = serving_idle_window(torch, arch=arch)
+        n, busy_us, k_us = gpu_activity(prof, DEVICE_KERNELS[kernel])
+        emit({"trace": f"serve_{arch}", "window_s": dt, "gpu_events": n,
+              "requests_completed": done,
+              "device_busy_ms": busy_us / 1e3 if n else None,
+              f"{kernel}_ms": k_us / 1e3 if n else None,
+              "device_idle_share": 1 - busy_us / 1e3 / (dt * 1e3) if n
+              else None})
     K.reset_launch_counts()
 
 
@@ -2132,14 +2305,19 @@ def main() -> int:
     emit({"kernel_checks_seconds": time.perf_counter() - t0,
           "integer_kernels_bit_identical": True,
           "flash_attention_within_tolerance": True,
-          "fused_adamw_within_tolerance": True})
+          "fused_adamw_within_tolerance": True,
+          "ssd_scan_within_tolerance": True})
 
     schedule_check(torch)
     model_check(torch, dev)
+    model_check(torch, dev, arch=MAMBA, prompt=(2, 512))
     train_check(torch, dev)
     launches = main_path(torch)
     served, toks = serving_trial(torch, launches)
     snapshot_checks(torch, launches, toks)
+    free_card(torch)
+    _, toks = serving_trial(torch, launches, arch=MAMBA)
+    snapshot_checks(torch, launches, toks, arch=MAMBA, modes=("U",))
     free_card(torch)
     train_trial(torch, launches)
     supervisor_drill(torch)

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs import qwen2_5_3b
+from repro_torch.configs import mamba2_780m, qwen2_5_3b
 from repro_torch.configs.base import (
     SHAPES,
     MambaConfig,
@@ -24,14 +24,14 @@ from repro_torch.configs.base import (
 )
 
 REGISTRY: dict[str, ModelConfig] = {
-    m.CONFIG.name: m.CONFIG for m in (qwen2_5_3b,)}
+    m.CONFIG.name: m.CONFIG for m in (mamba2_780m, qwen2_5_3b)}
 
 ARCH_IDS = sorted(REGISTRY)
 
 #: the JAX package's architectures that the port does not serve yet
 NOT_PORTED = ("deepseek-7b", "jamba-v0.1-52b", "llama4-scout-17b-a16e",
-              "mamba2-780m", "minitron-4b", "mistral-large-123b",
-              "moonshot-v1-16b-a3b", "paligemma-3b", "seamless-m4t-medium")
+              "minitron-4b", "mistral-large-123b", "moonshot-v1-16b-a3b",
+              "paligemma-3b", "seamless-m4t-medium")
 
 
 def get_config(name: str) -> ModelConfig:

@@ -18,6 +18,8 @@ other.
                     training forward and recompute)
     fused_adamw     AdamW step + versioned ring write (every leaf of a
                     fused Mode-U train step)
+    ssd_scan        Mamba-2 SSD chunked scan, final state carried out
+                    (every Mamba layer of every prefill)
 """
 from typing import Dict
 
@@ -28,6 +30,7 @@ from repro_torch.kernels import (
     gather_read,
     scatter_write,
     snapshot_select,
+    ssd_scan,
     validate,
     version_select,
 )
@@ -36,7 +39,7 @@ from repro_torch.kernels import (
 COUNTERS = {m.launches.name: m.launches
             for m in (gather_read, scatter_write, validate, version_select,
                       commit_fused, snapshot_select, flash_attention,
-                      fused_adamw)}
+                      fused_adamw, ssd_scan)}
 
 
 def reset_launch_counts() -> None:

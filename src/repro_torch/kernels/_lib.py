@@ -48,7 +48,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("gather_read.cu", "scatter_write.cu", "validate.cu",
            "version_select.cu", "commit_fused.cu", "snapshot_select.cu",
-           "flash_attention.cu", "fused_adamw.cu")
+           "flash_attention.cu", "fused_adamw.cu", "ssd_scan.cu")
 #: headers the sources include (hashed with them, not compiled alone)
 HEADERS = ("copy_bytes.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -77,6 +77,9 @@ for _name in ("fused_adamw_f32_f32", "fused_adamw_f32_bf16",
     SIGNATURES[_name] = (_P, _P, _P, _P, _P, _P, _P, _P, _I, _D, _D, _D, _D,
                          _P)
 SIGNATURES["commit_fused_i32"] = SIGNATURES["commit_fused_i64"]
+SIGNATURES["ssd_scan_f32"] = (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                              _I, _I, _P)
+SIGNATURES["ssd_scan_bf16"] = SIGNATURES["ssd_scan_f32"]
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()

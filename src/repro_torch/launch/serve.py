@@ -7,9 +7,10 @@ commits new parameter versions without ever reading a torn update.
 Requests enter a ``RequestQueue``; the ``ContinuousBatchingScheduler``
 keeps a fixed slot pool full (a freed slot is re-prefilled at once, the
 batch never drains to empty); ``ModelSlotExecutor`` maps slots onto the
-prefill/decode step functions.  Each prefill's attention runs the
-``flash_attention`` kernel on the card; in Mode U every versioned block
-of every step goes through ``snapshot_select``.
+prefill/decode step functions.  On the card each prefill's attention
+runs the ``flash_attention`` kernel and each Mamba layer's prefill the
+``ssd_scan`` kernel; in Mode U every versioned block of every step goes
+through ``snapshot_select``.
 
 One parameter resolution per batched decode step, at the OLDEST active
 pinned clock: every step reads one consistent snapshot, and a request
@@ -28,6 +29,8 @@ cache instead of being zero-padded to ``max_len`` (decode masks by
 
     python -m repro_torch.launch.serve --arch qwen2.5-3b \
         --requests 8 --prompt-len 512 --gen 32
+    python -m repro_torch.launch.serve --arch mamba2-780m \
+        --prompt-len 512 --gen 32
     python -m repro_torch.launch.serve --smoke --device cpu
 """
 from __future__ import annotations
@@ -77,11 +80,14 @@ class _ReaderMetrics(ServeMetrics):
 class ModelSlotExecutor:
     """SlotExecutor over the prefill/decode step functions.
 
-    Owns the batched decode cache ([group, n_slots, max_len, kv*dh]
-    leaves, allocated at the first prefill in the prefill's dtype), the
+    Owns the batched decode cache (``[group, n_slots, ...]`` leaves:
+    attention's k/v up to ``max_len`` positions, a Mamba layer's states;
+    allocated at the first prefill in the prefill's dtypes), the
     per-slot cache lengths and last tokens.  A B=1 prefill's cache is
     written into its slot's row — the continuous-batching primitive: one
     slot changes occupant, the other slots' decode stream never pauses.
+    Decode steps every slot's cache, a freed slot's too (as the
+    reference does); the slot's next insertion overwrites it.
     """
 
     def __init__(self, cfg, pcfg, mvcfg, state_fn, *, n_slots: int,
@@ -105,20 +111,31 @@ class ModelSlotExecutor:
         return int(self.state_fn().clock)
 
     def _insert(self, one, slot: int) -> None:
-        """Write a B=1 prefilled cache into batch row ``slot``.  Positions
-        past its length keep the row's earlier contents, which decode
-        never attends (it masks by ``cache_len``)."""
-        for sub, kv in one.items():
-            for name, src in kv.items():
-                if self.cache is None:
-                    self.cache = zoo.init_cache(self.cfg, self.n_slots,
-                                                self.max_len, src.dtype,
-                                                self.device)
-                S = src.shape[2]
-                if S > self.max_len:
-                    raise ValueError(f"prompt of {S} tokens does not fit "
-                                     f"max_len={self.max_len}")
-                self.cache[sub][name][:, slot, :S].copy_(src[:, 0])
+        """Write a B=1 prefilled cache into batch row ``slot``, as the
+        reference's ``_insert_fn``: a leaf the prefill left short of the
+        full one's (the k/v sequence axis at the prompt's length) fills
+        its prefix, and positions past it keep the row's earlier
+        contents, which decode never attends (it masks by
+        ``cache_len``); a leaf of full size (a Mamba layer's SSM and conv
+        states) is overwritten whole.  The cache is allocated at the
+        first insertion, each leaf in the prefill's dtype for it."""
+        if self.cache is None:
+            blank = zoo.init_cache(self.cfg, self.n_slots, self.max_len,
+                                   torch.float32, device="meta")
+            self.cache = tree_map(
+                lambda z, o: torch.zeros(z.shape, dtype=o.dtype,
+                                         device=self.device), blank, one)
+
+        def put(full, src):
+            src = src[:, 0]
+            target = full.shape[:1] + full.shape[2:]
+            if any(s > t for s, t in zip(src.shape, target)):
+                raise ValueError(
+                    f"a prefilled cache leaf {tuple(src.shape)} does not "
+                    f"fit {tuple(target)} (max_len={self.max_len})")
+            full[:, slot][tuple(slice(0, s) for s in src.shape)].copy_(src)
+
+        tree_map(put, self.cache, one)
 
     # -- SlotExecutor ----------------------------------------------------
     def prefill(self, slot: int, req: Request, clock: int) -> StepResult:

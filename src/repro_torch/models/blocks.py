@@ -1,7 +1,8 @@
-"""Decoder sub-layers: the attention mixer + dense FFN, pre-norm.
+"""Decoder sub-layers: attention / mamba mixers + dense FFN, pre-norm.
 
-The ``("attn", "dense")`` kind of the reference's ``models/blocks.py``.
-The mamba and moe kinds are not ported yet and raise.
+The ``("attn", "dense")``, ``("mamba", "none")`` and ``("mamba",
+"dense")`` kinds of the reference's ``models/blocks.py``.  The moe FFN is
+not ported yet and raises.
 """
 from __future__ import annotations
 
@@ -13,12 +14,16 @@ from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.launch.sharding import ParamMeta
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ffn as ffn_mod
+from repro_torch.models import mamba as mamba_mod
 from repro_torch.models.common import apply_rope, rmsnorm, rmsnorm_meta
 
 
-def _not_ported(kind) -> NotImplementedError:
-    return NotImplementedError(
-        f"sub-layer kind {kind} is not ported yet (only ('attn', 'dense'))")
+def _check_kind(kind) -> None:
+    mixer, ffn = kind
+    if mixer not in ("attn", "mamba") or ffn not in ("dense", "none"):
+        raise NotImplementedError(
+            f"sub-layer kind {kind} is not ported yet (mixers attn and "
+            "mamba, FFN dense or none)")
 
 
 # ---------------------------------------------------------------------------
@@ -109,12 +114,18 @@ def attn_decode(p, x, cfg: ModelConfig, pcfg: ParallelConfig, *,
 
 
 def sublayer_meta(cfg: ModelConfig, kind: Tuple[str, str]) -> dict:
-    if tuple(kind) != ("attn", "dense"):
-        raise _not_ported(kind)
+    _check_kind(kind)
+    mixer, ffn = kind
     d = cfg.d_model
-    return {"norm_mixer": rmsnorm_meta(d), "attn": attn_meta(cfg),
-            "ffn": ffn_mod.ffn_meta(d, cfg.d_ff, cfg.dtype),
-            "norm_ffn": rmsnorm_meta(d)}
+    m = {"norm_mixer": rmsnorm_meta(d)}
+    if mixer == "attn":
+        m["attn"] = attn_meta(cfg)
+    else:
+        m["mamba"] = mamba_mod.mamba_meta(d, cfg.mamba, cfg.dtype)
+    if ffn == "dense":
+        m["ffn"] = ffn_mod.ffn_meta(d, cfg.d_ff, cfg.dtype)
+        m["norm_ffn"] = rmsnorm_meta(d)
+    return m
 
 
 def sublayer_apply(p, x, kind, cfg: ModelConfig, pcfg: ParallelConfig, *,
@@ -124,25 +135,43 @@ def sublayer_apply(p, x, kind, cfg: ModelConfig, pcfg: ParallelConfig, *,
 
     Sequence mode: cache is None (no cache wanted, or prefill with
     ``want_cache``).  Decode mode: cache is this sub-layer's ``{"k", "v"}``
-    and is updated in place.  Returns (y, new_cache_or_None, aux_loss).
+    or Mamba state ``{"ssm", "conv_x", "conv_B", "conv_C"}`` and is
+    updated in place.  Returns (y, new_cache_or_None, aux_loss).
     """
-    if tuple(kind) != ("attn", "dense"):
-        raise _not_ported(kind)
+    _check_kind(kind)
+    mixer, ffn = kind
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache = None
     h = rmsnorm(x, p["norm_mixer"], cfg.rms_eps)
-    if cache is not None and x.shape[1] == 1:
-        y, ck, cv = attn_decode(p["attn"], h, cfg, pcfg,
-                                cache_k=cache["k"], cache_v=cache["v"],
-                                cache_len=cache_len)
-        new_cache = {"k": ck, "v": cv}
-    elif want_cache:
-        y, (ck, cv) = attn_apply(p["attn"], h, cfg, pcfg,
-                                 positions=positions, want_cache=True)
-        new_cache = {"k": ck, "v": cv}
+    decode = cache is not None and x.shape[1] == 1
+    if mixer == "attn":
+        if decode:
+            y, ck, cv = attn_decode(p["attn"], h, cfg, pcfg,
+                                    cache_k=cache["k"], cache_v=cache["v"],
+                                    cache_len=cache_len)
+            new_cache = {"k": ck, "v": cv}
+        elif want_cache:
+            y, (ck, cv) = attn_apply(p["attn"], h, cfg, pcfg,
+                                     positions=positions, want_cache=True)
+            new_cache = {"k": ck, "v": cv}
+        else:
+            y = attn_apply(p["attn"], h, cfg, pcfg, positions=positions)
+    elif decode or want_cache:
+        mstate = (mamba_mod.MambaState(**cache) if cache is not None
+                  else mamba_mod.mamba_init_state(
+                      x.shape[0], cfg.d_model, cfg.mamba, x.dtype, x.device))
+        y, mnew = mamba_mod.mamba_apply(p["mamba"], h, cfg.mamba,
+                                        rms_eps=cfg.rms_eps, state=mstate)
+        new_cache = dict(mnew._asdict())
+        if cache is not None:
+            for n, t in new_cache.items():
+                cache[n].copy_(t)
+            new_cache = cache
     else:
-        y = attn_apply(p["attn"], h, cfg, pcfg, positions=positions)
+        y = mamba_mod.mamba_apply(p["mamba"], h, cfg.mamba,
+                                  rms_eps=cfg.rms_eps)
     x = x + y
-    h = rmsnorm(x, p["norm_ffn"], cfg.rms_eps)
-    x = x + ffn_mod.ffn_apply(p["ffn"], h)
+    if ffn == "dense":
+        h = rmsnorm(x, p["norm_ffn"], cfg.rms_eps)
+        x = x + ffn_mod.ffn_apply(p["ffn"], h)
     return x, new_cache, aux

@@ -2,8 +2,9 @@
 and ``params_from_numpy``, which carries a parameter tree across from
 numpy.
 
-The decoder-only family only; encoder-decoder configs raise "not ported
-yet".
+The decoder-only stack with attention or Mamba-2 mixers; encoder-decoder
+configs raise "not ported yet", and so does a MoE FFN
+(``models/blocks``).
 """
 from __future__ import annotations
 

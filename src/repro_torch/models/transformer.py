@@ -21,6 +21,7 @@ from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.launch.sharding import (ParamMeta, stack_meta, torch_dtype,
                                          tree_map)
 from repro_torch.models import blocks
+from repro_torch.models import mamba as mamba_mod
 from repro_torch.models.common import rmsnorm, rmsnorm_meta, softmax_xent
 
 VOCAB_PAD_MULTIPLE = 256
@@ -116,7 +117,8 @@ def _groups(tree, n: int) -> list:
 def lm_forward(params, tokens, cfg: ModelConfig, pcfg: ParallelConfig, *,
                want_cache: bool = False):
     """tokens: [B, S].  Returns (hidden [B, S, d], cache, aux); the
-    cache's leaves are [groups, B, S, kv*dh].  With ``pcfg.remat ==
+    cache's leaves lead with the group axis: attention's k/v [groups, B,
+    S, kv*dh], a Mamba layer's state (``init_cache``).  With ``pcfg.remat ==
     "block"`` and no cache wanted, a forward that autograd records keeps
     only each group's input and recomputes the group in the backward.
     (The reference's prefix embeddings come with the vision and audio
@@ -152,10 +154,9 @@ def lm_forward(params, tokens, cfg: ModelConfig, pcfg: ParallelConfig, *,
         caches.append(gc)
     cache = None
     if want_cache:
-        cache = {f"sub{j}": {n: torch.stack([c[f"sub{j}"][n]
-                                             for c in caches])
-                             for n in ("k", "v")}
-                 for j in range(len(kinds))}
+        cache = {sub: {n: torch.stack([c[sub][n] for c in caches])
+                       for n in leaves}
+                 for sub, leaves in caches[0].items()}
     h = rmsnorm(h, params["final_norm"], cfg.rms_eps)
     return h, cache, aux
 
@@ -171,23 +172,29 @@ def lm_loss(params, batch, cfg: ModelConfig, pcfg: ParallelConfig):
 
 
 # ---------------------------------------------------------------------------
-# KV caches
+# KV / state caches
 # ---------------------------------------------------------------------------
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
                device=None):
-    """Zeroed decode cache (leaves lead with groups)."""
+    """Zeroed decode cache (leaves lead with groups): k/v ``[g, batch,
+    max_len, kv*dh]`` in ``dtype`` for an attention sub-layer; for a
+    Mamba one ``ssm [g, batch, H, N, P]`` f32 and ``conv_x``, ``conv_B``,
+    ``conv_C`` ``[g, batch, K-1, C]`` in ``dtype``."""
     kv, dh = cfg.n_kv_heads, cfg.resolved_head_dim
     g = n_groups(cfg)
     cache = {}
-    for j, kind in enumerate(layer_kinds(cfg)):
-        if kind[0] != "attn":
-            raise blocks._not_ported(kind)
-        cache[f"sub{j}"] = {
-            n: torch.zeros((g, batch, max_len, kv * dh),
-                           dtype=torch_dtype(dtype), device=device)
-            for n in ("k", "v")}
+    for j, (mixer, _) in enumerate(layer_kinds(cfg)):
+        if mixer == "attn":
+            leaves = {n: torch.zeros((batch, max_len, kv * dh),
+                                     dtype=torch_dtype(dtype), device=device)
+                      for n in ("k", "v")}
+        else:
+            leaves = mamba_mod.mamba_init_state(
+                batch, cfg.d_model, cfg.mamba, dtype, device)._asdict()
+        cache[f"sub{j}"] = {n: t.new_zeros((g,) + t.shape)
+                            for n, t in leaves.items()}
     return cache
 
 

@@ -307,6 +307,6 @@ def test_unported_archs_and_kinds_say_so():
         get_config("no-such-arch")
     cfg = smoke_config(ARCH)
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        BLK.sublayer_meta(cfg, ("mamba", "dense"))
+        BLK.sublayer_meta(cfg, ("mamba", "moe"))
     with pytest.raises(NotImplementedError, match="not ported yet"):
         ZOO.model_meta(dataclasses.replace(cfg, is_encdec=True))

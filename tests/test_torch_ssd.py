@@ -1,0 +1,180 @@
+"""The port's ``ssd_scan`` (its plain version, which the wrapper takes for
+CPU tensors) against the JAX package's SSD scans, on the CPU.
+
+Inputs are made with numpy from a seed and go through both packages:
+``y`` against the reference's ``ops.ssd_scan`` (the Pallas kernel in
+interpret mode, as ``tests/test_kernels.py`` runs it) over the
+reference's sweep, 2e-3 at float32 and 5e-2 at bfloat16 (its own
+tolerances); the final state and a scan from a non-zero ``init_state``
+against ``repro.models.mamba.ssd_chunk_scan`` (the XLA route the model
+runs) and ``ref.ssd_scan_ref`` (the step-by-step recurrence), 2e-3.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as J_OPS
+from repro.kernels import ref as J_REF
+from repro.models import mamba as J_MAMBA
+from repro_torch.kernels import ssd_scan as SS
+from repro_torch.models import mamba as T_MAMBA
+
+SWEEP = [(1, 64, 2, 8, 4, 16), (2, 128, 4, 16, 8, 32),
+         (1, 256, 2, 32, 16, 64)]
+TOL = {"float32": 2e-3, "bfloat16": 5e-2}
+
+
+def _inputs(B, S, H, P, N, seed=0, dt_scale=1.0):
+    """Seeded float32 numpy inputs: xh, dt (post-softplus), A (negative),
+    B_, C_ — the reference sweep's distributions."""
+    rng = np.random.default_rng(seed)
+    xh = (rng.standard_normal((B, S, H, P)) * 0.5).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((B, S, H)))) * dt_scale
+    A = -np.exp(rng.standard_normal(H) * 0.3)
+    b = (rng.standard_normal((B, S, N)) * 0.5).astype(np.float32)
+    c = (rng.standard_normal((B, S, N)) * 0.5).astype(np.float32)
+    return xh, dt.astype(np.float32), A.astype(np.float32), b, c
+
+
+def _jax(arrs, dtype):
+    xh, dt, A, b, c = arrs
+    cast = lambda a: jnp.asarray(a).astype(dtype)  # noqa: E731
+    return cast(xh), jnp.asarray(dt), jnp.asarray(A), cast(b), cast(c)
+
+
+def _torch(arrs, dtype):
+    """The same values as ``_jax`` (bf16 rounded by JAX, carried bit for
+    bit through float32)."""
+    j = _jax(arrs, dtype)
+    td = getattr(torch, dtype)
+    return tuple(torch.from_numpy(np.array(a.astype(jnp.float32))).to(
+        td if i in (0, 3, 4) else torch.float32) for i, a in enumerate(j))
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy()
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", SWEEP)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_scan_matches_pallas(B, S, H, P, N, chunk, dtype):
+    arrs = _inputs(B, S, H, P, N, seed=S + H)
+    want, _ = J_OPS.ssd_scan(*_jax(arrs, dtype), chunk=chunk)
+    got, state = SS.ssd_scan(*_torch(arrs, dtype), chunk=chunk,
+                             want_state=False)
+    assert got.dtype == getattr(torch, dtype) and state is None
+    _close(got, want, TOL[dtype])
+    oracle, _ = J_REF.ssd_scan_ref(*_jax(arrs, dtype))
+    _close(got, oracle, TOL[dtype])
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", SWEEP)
+def test_final_state_matches_reference(B, S, H, P, N, chunk):
+    arrs = _inputs(B, S, H, P, N, seed=1)
+    got_y, got_s = SS.ssd_scan_plain(*_torch(arrs, "float32"), chunk=chunk)
+    assert got_s.shape == (B, H, N, P) and got_s.dtype == torch.float32
+    want_y, want_s = J_MAMBA.ssd_chunk_scan(*_jax(arrs, "float32"),
+                                            chunk=chunk)
+    _close(got_y, want_y, 2e-3)
+    _close(got_s, want_s, 2e-3)
+    _, oracle_s = J_REF.ssd_scan_ref(*_jax(arrs, "float32"))
+    _close(got_s, oracle_s, 2e-3)
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", SWEEP)
+def test_init_state_matches_reference(B, S, H, P, N, chunk):
+    """A scan that starts from a seeded state: y and the final state
+    against the reference's chunked scan, and against the two halves of
+    one longer scan (the second starting from the first's state)."""
+    arrs = _inputs(B, S, H, P, N, seed=2)
+    init = np.random.default_rng(3).standard_normal(
+        (B, H, N, P)).astype(np.float32)
+    t_in = _torch(arrs, "float32")
+    got_y, got_s = SS.ssd_scan(*t_in, chunk=chunk,
+                               init_state=torch.from_numpy(init))
+    want_y, want_s = J_MAMBA.ssd_chunk_scan(*_jax(arrs, "float32"),
+                                            chunk=chunk,
+                                            init_state=jnp.asarray(init))
+    _close(got_y, want_y, 2e-3)
+    _close(got_s, want_s, 2e-3)
+    half = S // 2
+    first = [t[:, :half] if t.dim() > 1 else t for t in t_in]
+    second = [t[:, half:] if t.dim() > 1 else t for t in t_in]
+    y0, s0 = SS.ssd_scan_plain(*first, chunk=chunk)
+    y1, s1 = SS.ssd_scan_plain(*second, chunk=chunk, init_state=s0)
+    full_y, full_s = SS.ssd_scan_plain(*t_in, chunk=chunk)
+    _close(torch.cat([y0, y1], dim=1), full_y, 2e-3)
+    _close(s1, full_s, 2e-3)
+
+
+def test_chunk_that_does_not_divide_raises_in_both_packages():
+    arrs = _inputs(1, 48, 2, 8, 4)
+    with pytest.raises(AssertionError):
+        J_OPS.ssd_scan(*_jax(arrs, "float32"), chunk=32)
+    with pytest.raises(AssertionError):
+        J_MAMBA.ssd_chunk_scan(*_jax(arrs, "float32"), chunk=32)
+    with pytest.raises(ValueError, match="does not divide"):
+        SS.ssd_scan(*_torch(arrs, "float32"), chunk=32)
+    with pytest.raises(ValueError, match="does not divide"):
+        T_MAMBA.ssd_chunk_scan(*_torch(arrs, "float32"), chunk=32)
+    # S below the chunk: one chunk of S rows, in both
+    got, _ = SS.ssd_scan(*_torch(arrs, "float32"), chunk=256)
+    want, _ = J_MAMBA.ssd_chunk_scan(*_jax(arrs, "float32"), chunk=256)
+    _close(got, want, 2e-3)
+
+
+def test_steep_decay_stays_finite_forward_and_backward():
+    """dt * A of -40 a row: the reference's whole-square exp(cum_i -
+    cum_j) overflows above the diagonal.  The plain version masks the
+    exponent first, so its output equals the recurrence's and its
+    gradient has no NaN."""
+    arrs = _inputs(1, 64, 2, 8, 4, seed=4, dt_scale=40.0)
+    xh, dt, A, b, c = (t.clone().requires_grad_()
+                       for t in _torch(arrs, "float32"))
+    y, state = SS.ssd_scan_plain(xh, dt, A, b, c, chunk=64)
+    oracle_y, oracle_s = J_REF.ssd_scan_ref(*_jax(arrs, "float32"))
+    _close(y, oracle_y, 2e-3)
+    _close(state, oracle_s, 2e-3)
+    grads = torch.autograd.grad((y.sum() + state.sum()), [xh, dt, A, b, c])
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+
+
+def test_plain_route_counts_no_launch_and_checks_its_arguments():
+    arrs = _torch(_inputs(1, 32, 2, 8, 4), "float32")
+    SS.launches.reset()
+    y, state = SS.ssd_scan(*arrs, chunk=16)
+    assert SS.launches.value == 0
+    assert y.shape == (1, 32, 2, 8) and state.shape == (1, 2, 4, 8)
+    xh, dt, A, b, c = arrs
+    with pytest.raises(ValueError, match="dt has shape"):
+        SS.ssd_scan(xh, dt[:, :16], A, b, c, chunk=16)
+    with pytest.raises(ValueError, match="init_state has shape"):
+        SS.ssd_scan(xh, dt, A, b, c, chunk=16,
+                    init_state=torch.zeros(1, 2, 8, 4))
+    with pytest.raises(ValueError, match="xh"):
+        SS.ssd_scan(xh[0], dt, A, b, c, chunk=16)
+
+
+@pytest.mark.cuda
+def test_bare_cuda_wrapper_refuses_grad():
+    """On the card the scan kernel has no backward: the bare wrapper
+    raises for an input that requires grad while grad mode is on, and
+    runs under ``no_grad``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (the CUDA ssd_scan kernel)")
+    xh, dt, A, b, c = (t.cuda() for t in _torch(_inputs(1, 64, 2, 8, 4),
+                                                "float32"))
+    xg = xh.clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="requires grad"):
+        SS.ssd_scan(xg, dt, A, b, c, chunk=32)
+    with torch.no_grad():
+        y, _ = SS.ssd_scan(xg, dt, A, b, c, chunk=32)
+    want, _ = SS.ssd_scan_plain(xh, dt, A, b, c, chunk=32)
+    torch.testing.assert_close(y, want, rtol=2e-3, atol=2e-3)
