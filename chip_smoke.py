@@ -8,9 +8,13 @@ imports nothing of JAX or of the JAX package.  Phases, in order — any
 failure exits non-zero and no result line is printed:
 
   1. the card's name and power limit (``nvidia-smi``), then the build of
-     the nine kernels from ``src/repro_torch/csrc`` (timed);
+     the nine kernels from ``src/repro_torch/csrc`` (timed), and the
+     tensor-core attention kernel's registers and spills (``ptxas -v``,
+     none may spill) and its ``HMMA`` instructions (``cuobjdump -sass``);
   2. each kernel against its plain PyTorch version on the card at the
-     listed shapes — the six integer kernels bit for bit, ``flash_attention``
+     listed shapes — the six integer kernels bit for bit (and
+     ``snapshot_select`` refused on a side stream, its call's host time
+     split into parts), ``flash_attention`` (head dims 40 to 256)
      within 2e-2 at bfloat16 and 2e-4 at float32, ``fused_adamw``'s
      parameters and ring within 2e-2 at bfloat16 and 1e-5 at float32 and
      its moments within 1e-5, ``ssd_scan``'s output within 2e-3 at
@@ -155,6 +159,65 @@ def check(cond, msg):
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 1: the build
+# ---------------------------------------------------------------------------
+
+
+def flash_build_check():
+    """What the compiler made of the tensor-core attention kernel: each
+    ``flash_attention_kernel_mma`` instantiation (head dims 64, 128, 256)
+    must spill nothing (``ptxas -v`` in the build's log) and must run its
+    products as ``HMMA`` (``cuobjdump -sass`` of the library).  Returns
+    {head dim: {registers, spill bytes, HMMA count}}."""
+    import re
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    from repro_torch.kernels import _lib
+
+    info, entry = {}, None
+    for line in _lib.build_log("flash_attention.cu").read_text() \
+            .splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1)
+            continue
+        d = re.search(r"flash_attention_kernel_mmaILi(\d+)E", entry or "")
+        if not d:
+            continue
+        row = info.setdefault(int(d.group(1)), {"spill_bytes": 0})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            row["spill_bytes"] += int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            row["registers"] = int(m.group(1))
+    sass = subprocess.run(
+        [os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "cuobjdump"),
+         "-sass", str(_lib.library_path())], capture_output=True, text=True,
+        timeout=300)
+    check(sass.returncode == 0, f"cuobjdump failed: {sass.stderr[-500:]}")
+    fn = None
+    for line in sass.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            d = re.search(r"flash_attention_kernel_mmaILi(\d+)E", m.group(1))
+            fn = int(d.group(1)) if d else None
+            if fn is not None:
+                info.setdefault(fn, {}).setdefault("hmma", 0)
+        elif fn is not None and "HMMA" in line:
+            info[fn]["hmma"] += 1
+    for d in (64, 128, 256):
+        row = info.get(d, {})
+        check(row.get("spill_bytes") == 0 and "registers" in row,
+              f"flash_attention_kernel_mma<{d}>: ptxas reports {row}")
+        check(row.get("hmma", 0) > 0,
+              f"flash_attention_kernel_mma<{d}> has no HMMA instruction")
+    return info
 
 
 # ---------------------------------------------------------------------------
@@ -613,19 +676,135 @@ def snapshot_select_checks(torch, dev, rng, bound):
     want, wok = SS.snapshot_select_plain(ragged, ts, 6)
     check(equal(torch, got, want) and bool(ok) == bool(wok),
           "snapshot_select != plain on a ragged row")
+    check(ok.dtype == torch.bool and ok.dim() == 0,
+          f"snapshot_select: ok is {ok.dtype} {tuple(ok.shape)}, not a "
+          "0-d bool")
     emit({"kernel_check": "snapshot_select", "cases": 5 * len(cases) + 1,
           "bit_identical": True})
+    # the one-stream rule: a launch from a side stream is refused
+    with torch.cuda.stream(torch.cuda.Stream(dev)):
+        try:
+            SS.snapshot_select(ring, ts, 6)
+            refused = ""
+        except RuntimeError as e:
+            refused = str(e)
+    check("one-stream rule" in refused,
+          "snapshot_select ran on a side stream")
     ts = torch.tensor([1, 2, 3, 4, 5, 6, 7, 8], dtype=torch.int32,
                       device=dev)
     slot = int(SS.select_slot_plain(ts, 5)[0])
-    return {"snapshot_select": {n: kernel_row(
-        torch, "snapshot_select", lambda: SS.snapshot_select(ring, ts, 5),
+    emit({"host_split": "snapshot_select", "shape": f"R={R} n={n} int32",
+          "ns_per_call": snapshot_select_host_split(torch, dev, ring, ts,
+                                                    slot)})
+    # the wrapper and the library call are both host-bound, and the
+    # host's speed drifts: time them in turns (ABBA), 15 runs of 100 calls
+    # each, and keep the medians
+    ms, lib_ms = [], []
+    for i in range(15):
+        pair = [(ms, lambda: SS.snapshot_select(ring, ts, 5)),
+                (lib_ms, lambda: ring[slot].clone())]
+        for runs, fn in (pair if i % 2 == 0 else pair[::-1]):
+            runs.append(time_ms(torch, fn, iters=100, warm=10))
+    # the host's speed moves between two levels within a run, so the two
+    # lists' medians can fall on different levels: the turns pair them
+    ratios = [a / b for a, b in zip(ms, lib_ms)]
+    return {"snapshot_select": {n: dict(
+        ms=float(np.median(ms)), ms_runs=ms,
+        paired_ratio_median=float(np.median(ratios)),
+        turns_at_or_under_library=sum(r <= 1 for r in ratios),
+        **device_times(torch, lambda: SS.snapshot_select(ring, ts, 5),
+                       DEVICE_KERNELS["snapshot_select"]),
         shape=f"R={R} n={n} int32",
         plain_ms=time_ms(torch, lambda: SS.snapshot_select_plain(ring, ts,
                                                                  5)),
-        library_ms=time_ms(torch, lambda: ring[slot].clone()),
+        library_ms=float(np.median(lib_ms)), library_ms_runs=lib_ms,
         library="ring[slot].clone()",
         bound_ms=bound(2 * 4 * n + 4 * R + 4))}}
+
+
+def snapshot_select_host_split(torch, dev, ring, ts, slot, calls=1000):
+    """Host time of one ``snapshot_select`` call, by part: the mean of
+    ``calls`` runs of each part, ``time.perf_counter_ns`` around the loop
+    (the card drains after each part, outside the clock).  The parts of
+    the launch path before this one (a device context, two stream objects
+    and a 1-element int32 ``ok`` read back through ``ok[0] != 0``) are
+    timed as they were, beside the path the wrapper takes now."""
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels import snapshot_select as SS
+
+    lib = _lib.library()
+    fn = lib.snapshot_select_rows
+    out = ring.new_empty(ring.shape[1:])
+    ok = torch.empty((), dtype=torch.bool, device=dev)
+    ok32 = torch.empty(1, dtype=torch.int32, device=dev)
+    R, row_bytes = ring.shape[0], out.numel() * out.element_size()
+    index = torch.cuda.current_device()
+    stream = torch.cuda.default_stream(dev).cuda_stream
+    args = (ring.data_ptr(), R, row_bytes, ts.data_ptr(), 5, out.data_ptr(),
+            ok.data_ptr())
+
+    def previous_checks():
+        if ring.dim() < 1 or ring.shape[0] < 1 or ts.dtype != torch.int32 \
+                or ts.shape != (R,) or ts.device != ring.device:
+            raise ValueError
+        _lib.device_kind(ring)
+        if not ring.is_contiguous() or not ts.is_contiguous():
+            raise ValueError
+
+    def context():
+        with torch.cuda.device(dev):
+            pass
+
+    def previous_path():
+        previous_checks()
+        o = torch.empty(ring.shape[1:], dtype=ring.dtype, device=dev)
+        k = torch.empty(1, dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            st = torch.cuda.current_stream(dev)
+            if st != torch.cuda.default_stream(dev):
+                raise RuntimeError
+            fn(ring.data_ptr(), R, row_bytes, ts.data_ptr(), 5,
+               o.data_ptr(), k.data_ptr(), st.cuda_stream)
+        SS.launches.add()
+        return o, k[0] != 0
+
+    parts = {
+        "previous_checks": previous_checks,
+        "empty_out": lambda: torch.empty(ring.shape[1:], dtype=ring.dtype,
+                                         device=dev),
+        "new_empty_out": lambda: ring.new_empty(ring.shape[1:]),
+        "empty_ok_int32": lambda: torch.empty(1, dtype=torch.int32,
+                                              device=dev),
+        "empty_ok_bool": lambda: torch.empty((), dtype=torch.bool,
+                                             device=dev),
+        "ok_from_block": lambda: SS._fresh_ok(dev),
+        "device_context": context,
+        "stream_objects": lambda: torch.cuda.current_stream(dev)
+        != torch.cuda.default_stream(dev),
+        "raw_stream_handles": lambda: (
+            torch._C._cuda_getDevice(),
+            torch._C._cuda_getCurrentRawStream(index) != stream),
+        "ctypes_call": lambda: fn(*args, stream),
+        "ctypes_call_no_launch": lambda: lib.cuda_error_string(0),
+        "ok_index_compare": lambda: ok32[0] != 0,
+        "launch_counter": SS.launches.add,
+        "lib_launch": lambda: _lib.launch("snapshot_select_rows", dev,
+                                          *args),
+        "previous_path": previous_path,
+        "wrapper": lambda: SS.snapshot_select(ring, ts, 5),
+        "ring_slot_clone": lambda: ring[slot].clone(),
+    }
+    split = {}
+    for name, part in parts.items():
+        for _ in range(calls // 10):
+            part()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter_ns()
+        for _ in range(calls):
+            part()
+        split[name] = (time.perf_counter_ns() - t0) / calls
+        torch.cuda.synchronize()
+    return split
 
 
 #: flash_attention cases: name -> (B, Sq, Sk, H, KV, D, causal, dtype);
@@ -636,6 +815,17 @@ FLASH_CASES = {
     "noncausal_f32": (2, 512, 512, 16, 2, 128, False, "float32"),
     "ragged_causal_bf16": (1, 300, 300, 16, 2, 128, True, "bfloat16"),
     "ragged_noncausal_f32": (2, 100, 77, 4, 1, 40, False, "float32"),
+    # the trainer's forward (4 x 512 tokens a step)
+    "train_fwd_b4_512": (4, 512, 512, 16, 2, 128, True, "bfloat16"),
+    # paligemma-3b's heads (8 query heads over one kv head of 256)
+    "mqa_d256_512": (1, 512, 512, 8, 1, 256, True, "bfloat16"),
+    "d256_ragged_f32": (1, 200, 200, 8, 1, 256, True, "float32"),
+    # a seamless-style cross-attention: 100 queries over 77 keys
+    "cross_d64_bf16": (2, 100, 77, 16, 16, 64, False, "bfloat16"),
+    # a head dim the 64-wide padding leaves ragged
+    "ragged_d40_bf16": (2, 100, 77, 4, 1, 40, False, "bfloat16"),
+    # rows not 16-byte aligned (D % 8 != 0): masked element loads/stores
+    "unaligned_d36_bf16": (1, 100, 100, 4, 2, 36, True, "bfloat16"),
 }
 TOLERANCE = {"bfloat16": 2e-2, "float32": 2e-4}   # rtol = atol
 
@@ -718,6 +908,9 @@ SSD_CASES = {
                                "random"),
     "mamba_prefill_512_f32": (1, 512, 48, 64, 128, 256, "float32",
                               "random"),
+    # a 200-token prompt: Q = 200, three full 64-row tiles and a short one
+    "mamba_prompt_200": (1, 200, 48, 64, 128, 256, "bfloat16", "random"),
+    "mamba_prompt_200_f32": (1, 200, 48, 64, 128, 256, "float32", "random"),
 }
 #: the reference's SSD tolerances (rtol = atol): y in its dtype; the final
 #: state is float32 in both
@@ -2293,6 +2486,7 @@ def main() -> int:
     _lib.library()
     emit({"build_seconds": time.perf_counter() - t0,
           "library": os.path.relpath(str(_lib.library_path()), HERE)})
+    emit({"flash_attention_mma_build": flash_build_check()})
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)

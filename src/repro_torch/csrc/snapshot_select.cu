@@ -9,8 +9,9 @@
 // masked = (ts != -1 && ts <= read_clock) ? ts : -1, the FIRST maximum of
 // masked wins, and with no valid slot that is slot 0 with ok = 0.  Then
 // the grid copies only that row, row_bytes long, to out; block 0 writes
-// ok.  The copy is dtype-agnostic (bytes, 16 at a time when aligned) and
-// masks its own ragged tail — the TPU version asserted n % tile == 0.
+// ok as one byte, 0 or 1: the caller's 0-d torch.bool tensor.  The copy
+// is dtype-agnostic (bytes, 16 at a time when aligned) and masks its own
+// ragged tail — the TPU version asserted n % tile == 0.
 //
 // Bound on the card: bytes — one row read and one row written (2 x 4 x n
 // for an int32 block of n words; 8 MB at n = 1,000,000, 2.4 us at
@@ -31,7 +32,7 @@ __global__ void snapshot_select_kernel(const uint8_t* __restrict__ ring,
                                        const int32_t* __restrict__ ts,
                                        int64_t read_clock,
                                        uint8_t* __restrict__ out,
-                                       int32_t* __restrict__ ok) {
+                                       uint8_t* __restrict__ ok) {
   __shared__ int64_t slot;
   if (threadIdx.x == 0) {
     int64_t best = 0;
@@ -71,6 +72,6 @@ extern "C" int snapshot_select_rows(const void* ring, long long n_slots,
                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(ring), n_slots, row_bytes,
       static_cast<const int32_t*>(ts), read_clock,
-      static_cast<uint8_t*>(out), static_cast<int32_t*>(ok));
+      static_cast<uint8_t*>(out), static_cast<uint8_t*>(ok));
   return static_cast<int>(cudaGetLastError());
 }

@@ -52,7 +52,7 @@ SOURCES = ("gather_read.cu", "scatter_write.cu", "validate.cu",
 #: headers the sources include (hashed with them, not compiled alone)
 HEADERS = ("copy_bytes.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_longlong
@@ -127,10 +127,17 @@ def library_path() -> Path:
     return BUILD_DIR / f"librepro_torch_{h.hexdigest()[:16]}.so"
 
 
+def build_log(source: str) -> Path:
+    """The compiler's output for ``source`` (``ptxas -v``: registers,
+    shared memory and spills of each kernel) from the library's build."""
+    return BUILD_DIR / f"{library_path().stem}.{source[:-3]}.log"
+
+
 def build() -> Path:
     """Compile the sources (in parallel) and link the library, unless the
     library for exactly these sources already exists.  A file lock keeps
-    concurrent processes from building over each other."""
+    concurrent processes from building over each other.  Each source's
+    compiler output is kept beside the library (``build_log``)."""
     out = library_path()
     if out.exists():
         return out
@@ -152,6 +159,7 @@ def build() -> Path:
                 log = p.communicate()[0].decode(errors="replace")
                 if p.returncode:
                     errs.append(f"{s}:\n{log}")
+                (BUILD_DIR / f"{out.stem}.{s[:-3]}.log").write_text(log)
             if errs:
                 raise RuntimeError("nvcc failed:\n" + "\n".join(errs))
             so = tmp / out.name
@@ -183,17 +191,32 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
+#: the raw handle of each device's default stream, by device index
+_DEFAULT_STREAMS: dict = {}
+
+
 def launch(name: str, device: torch.device, *args) -> None:
     """Call C entry point ``name`` on ``device``'s default stream; raise
-    if the launch reported an error."""
-    lib = library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device)
-        if stream != torch.cuda.default_stream(device):
-            raise RuntimeError(
-                f"{name}: the STM's device state must be driven from the "
-                "default stream (one-stream rule), not a side stream")
-        err = getattr(lib, name)(*args, stream.cuda_stream)
+    if the launch reported an error.  The one-stream check compares raw
+    stream handles, and the device is made current only when it is not
+    already: no stream objects or device context at every call
+    (``PERF.md`` splits a call's host time)."""
+    index = device.index
+    current = torch._C._cuda_getDevice()
+    if index is not None and index != current:
+        with torch.cuda.device(index):
+            return launch(name, device, *args)
+    lib = _lib if _lib is not None else library()
+    stream = torch._C._cuda_getCurrentRawStream(current)
+    default = _DEFAULT_STREAMS.get(current)
+    if default is None:
+        default = _DEFAULT_STREAMS[current] = \
+            torch.cuda.default_stream(current).cuda_stream
+    if stream != default:
+        raise RuntimeError(
+            f"{name}: the STM's device state must be driven from the "
+            "default stream (one-stream rule), not a side stream")
+    err = getattr(lib, name)(*args, stream)
     if err:
         msg = lib.cuda_error_string(err).decode(errors="replace")
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")

@@ -11,13 +11,18 @@ accumulator; ``p`` cast to v's dtype before ``p . v``; the output
 ``acc / max(l, 1e-30)``.
 
 On the card it is ``csrc/flash_attention.cu``: one CTA per (batch,
-head, 64-row query tile) walks the kv tiles in order with the running
+head, query tile) walks the kv tiles in order with the running
 statistics in registers (the TPU kernel carried them in VMEM across its
 innermost grid axis), reads the kv head of a query head in place instead
-of repeating K and V, and masks ragged tiles itself.  What bounds it on
-the card: at qwen2.5-3b's prefill the bytes and the tensor-core
-operations are about equal (~1.4 us at S=512); this first kernel runs
-on the FMA units and is far from both (``PERF.md``).
+of repeating K and V, and masks ragged tiles itself.  bf16 (serving and
+training) runs FlashAttention-2's shape on the tensor cores: both
+products as ``mma.sync`` m16n8k16 (bf16 operands, f32 sums), Q/K/V bf16
+in swizzled shared memory, K and V through a two-stage ``cp.async``
+ring, the softmax on the accumulator fragments and P fed back from
+registers as bf16; the head dim is padded to 64, 128 or 256.  f32 (the
+model checks) keeps FMA tiles.  What bounds it on the card: at
+qwen2.5-3b's prefill the bytes and the tensor-core operations are about
+equal (~1.4 us at S=512); the operations from S=2048 (``PERF.md``).
 
 ``flash_attention_plain`` is the plain PyTorch version the wrapper takes
 for CPU tensors: the same online softmax over 64-row kv blocks, all
@@ -36,7 +41,7 @@ launches = _lib.LaunchCounter("flash_attention")
 
 NEG_INF = -1e30
 BLOCK_K = 64          # the CUDA kernel's kv tile
-MAX_HEAD_DIM = 128    # the largest head dim the CUDA kernel takes
+MAX_HEAD_DIM = 256    # the largest head dim the CUDA kernel takes
 _KERNELS = {torch.float32: "flash_attention_f32",
             torch.bfloat16: "flash_attention_bf16"}
 
@@ -102,7 +107,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     ) -> torch.Tensor:
     """Attention of q ``[B, Sq, H, D]`` over k, v ``[B, Sk, KV, D]``.
 
-    A CUDA tensor launches the kernel (f32 or bf16, D <= 128, unit-stride
+    A CUDA tensor launches the kernel (f32 or bf16, D <= 256, unit-stride
     head dim; anything else raises); a CPU tensor takes the plain
     version.  Nothing is read back to the host.
 

@@ -13,12 +13,16 @@ such maximum, as ``argmax`` picks — and returns a copy of that row with
 On the card it is ``csrc/snapshot_select.cu``: every block scans ``ts``
 itself (the TPU kernel's scalar-prefetch index map becomes plain
 arguments) and the grid copies only the chosen row, masking its ragged
-tail.  What bounds it on the card: bytes — one row read and one row
-written, 8 MB for a 1,000,000-word int32 block.  ``snapshot_select_plain``
-is the plain PyTorch version the wrapper takes for CPU tensors.
+tail; block 0 writes ``ok`` straight into the 0-d bool tensor returned.
+What bounds it on the card: bytes — one row read and one row written,
+8 MB for a 1,000,000-word int32 block, 2.4 us; the host path (checks,
+the output's allocation, the launch) costs more than that.
+``snapshot_select_plain`` is the plain PyTorch version the wrapper takes
+for CPU tensors.
 """
 from __future__ import annotations
 
+import threading
 from typing import Tuple
 
 import torch
@@ -28,6 +32,9 @@ from repro_torch.kernels import _lib
 launches = _lib.LaunchCounter("snapshot_select")
 
 NO_TS = -1
+_OK_BLOCK = 1024      # 0-d ``ok`` results cut from one allocation
+_ok_views: dict = {}  # device -> iterator over a block's unused elements
+_ok_lock = threading.Lock()
 
 
 def select_slot_plain(ts: torch.Tensor, read_clock: int):
@@ -46,27 +53,59 @@ def snapshot_select_plain(ring: torch.Tensor, ts: torch.Tensor,
     return ring[slot].clone(), ok
 
 
+def _fresh_ok(device: torch.device) -> torch.Tensor:
+    """A 0-d bool tensor on ``device`` that no other call is handed: the
+    next element of a block of ``_OK_BLOCK`` allocated, and cut into 0-d
+    views, at once, so a call takes a view made in bulk where it took an
+    allocation.  No element is handed out twice; a block's memory goes
+    when its last element does."""
+    it = _ok_views.get(device)
+    ok = next(it, None) if it is not None else None
+    if ok is None:
+        with _ok_lock:
+            it = _ok_views.get(device)
+            ok = next(it, None) if it is not None else None
+            if ok is None:
+                block = torch.empty(_OK_BLOCK, dtype=torch.bool,
+                                    device=device)
+                it = _ok_views[device] = iter(block.unbind(0))
+                ok = next(it)
+    return ok
+
+
 def snapshot_select(ring: torch.Tensor, ts: torch.Tensor,
                     read_clock: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(value [*shape], ok 0-d bool)`` for ``ring`` [R, *shape]
     (contiguous, any dtype) and ``ts`` int32 [R] on the same device.
-    Nothing is read back to the host."""
-    if ring.dim() < 1 or ring.shape[0] < 1 or ts.dtype != torch.int32 or \
-            ts.shape != (ring.shape[0],) or ts.device != ring.device:
-        raise ValueError("snapshot_select takes ring [R, ...] and int32 "
-                         "ts [R] on one device")
-    if _lib.device_kind(ring) == "cpu":
+    Nothing is read back to the host.  (``mv_snapshot`` calls this for
+    every versioned block: the card's path reads as few tensor
+    properties as it can.)"""
+    if not ring.is_cuda:
+        _check(ring, ts)
+        _lib.device_kind(ring)
         return snapshot_select_plain(ring, ts, read_clock)
+    shape = ring.shape
+    if not shape or shape[0] < 1 or ts.ndim != 1 or \
+            ts.dtype is not torch.int32 or ts.shape[0] != shape[0] or \
+            ts.get_device() != ring.get_device():
+        _check(ring, ts)
     if not ring.is_contiguous() or not ts.is_contiguous():
         raise ValueError("snapshot_select takes contiguous ring and ts")
-    out = torch.empty(ring.shape[1:], dtype=ring.dtype, device=ring.device)
-    ok = torch.empty(1, dtype=torch.int32, device=ring.device)
-    _lib.launch("snapshot_select_rows", ring.device, ring.data_ptr(),
-                ring.shape[0], out.numel() * out.element_size(),
-                ts.data_ptr(), int(read_clock), out.data_ptr(),
+    out = ring.new_empty(shape[1:])
+    dev = ring.device
+    ok = _fresh_ok(dev)
+    _lib.launch("snapshot_select_rows", dev, ring.data_ptr(), shape[0],
+                out.nbytes, ts.data_ptr(), int(read_clock), out.data_ptr(),
                 ok.data_ptr())
     launches.add()
-    return out, ok[0] != 0
+    return out, ok
+
+
+def _check(ring: torch.Tensor, ts: torch.Tensor) -> None:
+    if ring.dim() < 1 or ring.shape[0] < 1 or ts.dtype != torch.int32 or \
+            ts.shape != ring.shape[:1] or ts.device != ring.device:
+        raise ValueError("snapshot_select takes ring [R, ...] and int32 "
+                         "ts [R] on one device")
 
 
 __all__ = ["NO_TS", "launches", "select_slot_plain", "snapshot_select",

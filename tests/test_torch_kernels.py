@@ -1,4 +1,4 @@
-"""The port's seven kernels, through their CPU (plain PyTorch) route,
+"""The port's kernels, through their CPU (plain PyTorch) route,
 against the JAX package's Pallas kernels and numpy twins.
 
 Pallas runs as ``tests/test_kernels.py`` runs it: ``interpret=True``,
@@ -455,6 +455,86 @@ def test_snapshot_select_copies_and_keeps_block_shape():
         SS.snapshot_select(ring, ts.to(torch.int64), 5)
 
 
+def test_snapshot_select_hands_out_distinct_ok_tensors():
+    """Each call's ``ok`` is a 0-d bool of its own, also across the bulk
+    blocks it is cut from: a later call never writes an earlier one's."""
+    dev = torch.device("cpu")
+    oks = [SS._fresh_ok(dev) for _ in range(SS._OK_BLOCK + 3)]
+    assert all(o.dim() == 0 and o.dtype == torch.bool for o in oks)
+    for o in oks:
+        o.fill_(False)
+    oks[5].fill_(True)
+    assert [bool(o) for o in oks].count(True) == 1
+    assert len({o.data_ptr() for o in oks}) == len(oks)
+
+
+def test_snapshot_select_ok_tensors_stay_distinct_across_threads():
+    """The STM's reader threads take ``ok`` tensors at once: under a
+    short switch interval and more threads than cores, no element is
+    handed out twice."""
+    import sys
+    import threading
+
+    dev = torch.device("cpu")
+    got = [[] for _ in range(16)]
+
+    def take(out):
+        for _ in range(300):
+            o = SS._fresh_ok(dev)
+            out.append((o.data_ptr(), o))
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=take, args=(g,)) for g in got]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(old)
+    taken = [x for g in got for x in g]
+    assert len(taken) == 16 * 300
+    # every tensor is alive in ``taken``, so equal addresses would mean
+    # one element handed out twice
+    assert len({ptr for ptr, _ in taken}) == len(taken)
+
+
+class _FakeLib:
+    """Stands in for the kernel library: records each entry point call."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        return lambda *args: self.calls.append((name, args)) or 0
+
+
+@pytest.mark.parametrize("stream,refused", [(0, False), (0x7F00, True)])
+def test_launch_keeps_the_one_stream_rule(monkeypatch, stream, refused):
+    """``_lib.launch`` enqueues on the default stream and refuses any
+    other, comparing raw stream handles (no card: the handles and the
+    library are stand-ins)."""
+    from repro_torch.kernels import _lib
+
+    fake = _FakeLib()
+    monkeypatch.setattr(_lib, "_lib", fake)
+    monkeypatch.setattr(torch._C, "_cuda_getDevice", lambda: 0,
+                        raising=False)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda i: stream, raising=False)
+    monkeypatch.setitem(_lib._DEFAULT_STREAMS, 0, 0)
+    dev = torch.device("cuda", 0)
+    if refused:
+        with pytest.raises(RuntimeError, match="one-stream rule"):
+            _lib.launch("snapshot_select_rows", dev, 1, 2, 3)
+        assert fake.calls == []
+    else:
+        _lib.launch("snapshot_select_rows", dev, 1, 2, 3)
+        assert fake.calls == [("snapshot_select_rows", (1, 2, 3, 0))]
+
+
 # ---------------------------------------------------------------------------
 # flash_attention (float: held within the reference's tolerances)
 # ---------------------------------------------------------------------------
@@ -486,6 +566,7 @@ def _fa_close(got, want, dtype):
     (2, 256, 4, 2, 64),      # GQA 2:1
     (1, 512, 8, 1, 64),      # MQA
     (2, 128, 4, 4, 128),     # the largest head dim
+    (1, 128, 8, 1, 256),     # MQA at paligemma-3b's head dim
 ])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -167,6 +167,23 @@ def test_mamba_apply_matches(mode):
         _close(got, want)
 
 
+@pytest.mark.parametrize("S", [2, 3, 5, 20])
+def test_short_prefill_with_state_matches(S):
+    """Prompts shorter than ``d_conv - 1`` (S = 2) or near it, and one
+    shorter than a chunk, prefilled from a seeded state: ``_tail_conv``
+    keeps the last ``min(S, d_conv - 1)`` rows as the reference does, and
+    the output and all four state leaves agree."""
+    jc, tc = _cfgs()
+    jl, tl = _layer0(*_params(jc, seed=5))
+    jx, tx = _x((2, S, tc.d_model), seed=8)
+    js, ts = _state(tc, 2, seed=9)
+    jy, jn = J_M.mamba_apply(jl, jx, jc.mamba, rms_eps=jc.rms_eps, state=js)
+    ty, tn = T_M.mamba_apply(tl, tx, tc.mamba, rms_eps=tc.rms_eps, state=ts)
+    _close(ty, jy)
+    for got, want in zip(tn, jn):
+        _close(got, want)
+
+
 @pytest.mark.parametrize("ffn", ["none", "dense"])
 def test_sublayer_matches_with_and_without_cache(ffn):
     """The ("mamba", ffn) sub-layer: sequence mode, the prefill that
