@@ -8,13 +8,16 @@ imports nothing of JAX or of the JAX package.  Phases, in order — any
 failure exits non-zero and no result line is printed:
 
   1. the card's name and power limit (``nvidia-smi``), then the build of
-     the nine kernels from ``src/repro_torch/csrc`` (timed), and the
+     the kernels from ``src/repro_torch/csrc`` (timed), and the
      tensor-core attention kernel's registers and spills (``ptxas -v``,
      none may spill) and its ``HMMA`` instructions (``cuobjdump -sass``);
   2. each kernel against its plain PyTorch version on the card at the
-     listed shapes — the six integer kernels bit for bit (and
-     ``snapshot_select`` refused on a side stream, its call's host time
-     split into parts), ``flash_attention`` (head dims 40 to 256)
+     listed shapes — the six integer kernels bit for bit, the bracketed
+     gather and ``commit_fused``'s ring refresh, device lock words and
+     fault split included (and ``snapshot_select`` refused on a side
+     stream; its, ``commit_fused``'s and the bracketed gather's host time
+     split into parts, beside the paths they replaced),
+     ``flash_attention`` (head dims 40 to 256)
      within 2e-2 at bfloat16 and 2e-4 at float32, ``fused_adamw``'s
      parameters and ring within 2e-2 at bfloat16 and 1e-5 at float32 and
      its moments within 1e-5, ``ssd_scan``'s output within 2e-3 at
@@ -51,8 +54,11 @@ failure exits non-zero and no result line is printed:
      ring window through ``MVStoreHandle.snapshot``.  Every completed
      scan or check must see its exact invariant sum (``violations ==
      0``), every trial must make progress (for the unversioned baselines
-     under a long scan: in updates), and every kernel's launch counter —
-     set to 0 before each trial and read after it — must have risen;
+     under a long scan: in updates), every kernel's launch counter —
+     set to 0 before each trial and read after it — must have risen, and
+     a scanned chunk must take exactly one bracketed gather on each
+     lock-version backend (launches per chunk, counted once the trial's
+     workers stopped);
      then the model server: ``repro_torch.launch.serve.Server`` serves
      qwen2.5-3b at full width and depth from MVStore snapshots (8 seeded
      requests of 512 prompt tokens and 32 new tokens through 4 slots;
@@ -112,6 +118,10 @@ AMOUNT = 5
 KERNELS = {
     "gather_read": ("src/repro_torch/csrc/gather_read.cu",
                     "src/repro/kernels/gather_read.py:58", 256),
+    # a bulk read's pre/heap/post gathers in one launch (the second
+    # kernel of gather_read.cu; three gather_read_flat calls on the TPU)
+    "gather_bracketed": ("src/repro_torch/csrc/gather_read.cu",
+                         "src/repro/kernels/gather_read.py:58", 256),
     "scatter_write": ("src/repro_torch/csrc/scatter_write.cu",
                       "src/repro/kernels/scatter_write.py:75", 1024),
     "validate": ("src/repro_torch/csrc/validate.cu",
@@ -132,13 +142,17 @@ KERNELS = {
                  "src/repro/kernels/ssd_scan.py:77", "mamba_prefill_512"),
 }
 BACKENDS = ("multiverse", "tl2", "dctl", "norec", "tinystm", "mvstore")
+#: the backends whose bulk reads take the lock-version bracket
+LOCKVER_BACKENDS = ("multiverse", "tl2", "dctl", "tinystm")
 #: each kernel's __global__ functions, as named in a profiler trace
 DEVICE_KERNELS = {
     "gather_read": ("gather_read_kernel",),
+    "gather_bracketed": ("gather_bracketed_kernel",),
     "scatter_write": ("scatter_write_kernel",),
     "validate": ("validate_kernel",),
     "version_select": ("version_select_kernel",),
-    "commit_fused": ("decide_kernel", "publish_kernel"),
+    "commit_fused": ("decide_kernel", "publish_kernel",
+                     "publish_rows_kernel"),
     "snapshot_select": ("snapshot_select_kernel",),
     "flash_attention": ("flash_attention_kernel",),
     "fused_adamw": ("fused_adamw_kernel",),
@@ -366,6 +380,8 @@ def kernel_checks(torch, dev, rng):
         check(np.array_equal(got.cpu().numpy(), row32_np[idx]),
               f"gather_read int32 != host row at N={n}")
 
+    rows.update(bracketed_checks(torch, dev, rng, row, row_np, bound))
+
     # validate: all three modes, versions near 2^40
     base = 1 << 40
     for n in (256, 1024, 1_000_000):
@@ -433,6 +449,94 @@ def kernel_checks(torch, dev, rng):
     mamba_train_refusal_check(torch, dev)
     attention_grad_checks(torch, dev)
     return rows
+
+
+def in_turns(torch, fns, turns=15, iters=100):
+    """Host-bound calls timed in turns: ``turns`` runs of ``iters`` calls
+    of each of ``fns`` (name -> fn), the order reversed every other turn
+    (ABBA), since the host's speed drifts between levels within a run.
+    Returns {name: [ms per call, one per turn]}."""
+    runs = {k: [] for k in fns}
+    order = list(fns)
+    for i in range(turns):
+        for k in (order if i % 2 == 0 else order[::-1]):
+            runs[k].append(time_ms(torch, fns[k], iters=iters, warm=10))
+    return runs
+
+
+def bracketed_checks(torch, dev, rng, heap, heap_np, bound):
+    """gather_bracketed against its plain version (the three gathers in
+    order) and against the host rows, bit for bit, over a 2^16-word lock
+    row and the 1,000,000-word heap, with the indices in the launch's
+    parameters (N <= 256) and on the card (longer); then timed at the
+    scan chunk (N=256) in turns beside the three-call path it replaces
+    (the earlier ``gather_lockver``: one index copy, three ``gather_read``
+    calls) and three ``index_select`` calls."""
+    from repro_torch.kernels import gather_read as GR
+    from repro_torch.kernels._lib import to_device
+
+    words_np = rng.integers(-(1 << 62), 1 << 62, 1 << 16, dtype=np.int64)
+    words = to_device(words_np, dev)
+    H = heap.numel()
+    for n in (1, 255, 256, 4096, 100_000):
+        idxs = rng.integers(0, words.numel(), n, dtype=np.int64)
+        addrs = rng.integers(0, H, n, dtype=np.int64)
+        out = GR.gather_bracketed(words, heap, idxs, addrs)
+        idx_dev = out[3]
+        want = GR.gather_lockver_plain(words, heap, to_device(idxs, dev),
+                                       to_device(addrs, dev))
+        check(equal(torch, out, want), f"gather_bracketed != plain at N={n}")
+        host = out.cpu().numpy()
+        check(np.array_equal(host[0], words_np[idxs])
+              and np.array_equal(host[1], words_np[idxs])
+              and np.array_equal(host[2], heap_np[addrs])
+              and np.array_equal(idx_dev.cpu().numpy(), idxs),
+              f"gather_bracketed != host rows at N={n}")
+    emit({"kernel_check": "gather_bracketed", "cases": 5,
+          "bit_identical": True})
+    n = 256
+    idxs = rng.integers(0, words.numel(), n, dtype=np.int64)
+    addrs = rng.integers(0, H, n, dtype=np.int64)
+    i_t, a_t = to_device(idxs, dev), to_device(addrs, dev)
+
+    def three_calls():
+        both = to_device(np.concatenate((idxs, addrs)), dev)
+        w = torch.empty((2, n), dtype=torch.int64, device=dev)
+        GR.gather_read(words, idxs, both[:n], out=w[0])
+        vals = GR.gather_read(heap, addrs, both[n:])
+        GR.gather_read(words, idxs, both[:n], out=w[1])
+        return w, vals
+
+    def index_selects():
+        return (torch.index_select(words, 0, i_t),
+                torch.index_select(heap, 0, a_t),
+                torch.index_select(words, 0, i_t))
+
+    def bracketed():
+        return GR.gather_bracketed(words, heap, idxs, addrs)
+    emit({"host_split": "gather_bracketed",
+          "shape": f"N={n}, 2^16 lock words, {H}-word heap",
+          "ns_per_call": gather_bracketed_host_split(
+              torch, dev, words, heap, idxs, addrs)})
+    runs = in_turns(torch, {"bracketed": bracketed,
+                            "three_calls": three_calls,
+                            "index_selects": index_selects})
+    ratios = [a / b for a, b in zip(runs["bracketed"], runs["three_calls"])]
+    return {"gather_bracketed": {n: dict(
+        ms=float(np.median(runs["bracketed"])), ms_runs=runs["bracketed"],
+        three_call_ms=float(np.median(runs["three_calls"])),
+        three_call_ms_runs=runs["three_calls"],
+        paired_ratio_to_three_calls=float(np.median(ratios)),
+        **device_times(torch, bracketed, DEVICE_KERNELS["gather_bracketed"]),
+        shape=f"N={n}, 2^16 lock words, {H}-word heap, int64",
+        plain_ms=time_ms(torch, lambda: GR.gather_lockver_plain(
+            words, heap, i_t, a_t)),
+        library_ms=float(np.median(runs["index_selects"])),
+        library_ms_runs=runs["index_selects"],
+        library="three torch.index_select calls (indices on the card)",
+        # two indices read, three words read and four written (the lock
+        # indices come out as row 3 for the mirror gather)
+        bound_ms=bound(56 * n))}}
 
 
 def _words(ver, own, meta):
@@ -565,6 +669,8 @@ def commit_fused_checks(torch, dev, rng, bound):
                                         "CPU")
     check(g.clock == c.clock == 10, "mv_commit_fused clock")
 
+    cases += ring_and_device_word_checks(torch, dev, rng, heap_np, base)
+
     # the group trial's shape: 8 members x 1024 rows, 8192 lock and 8192
     # read entries, in place over the 1M-word int64 heap; one batch in
     # which every member survives (the one timed below) and one in which
@@ -596,13 +702,12 @@ def commit_fused_checks(torch, dev, rng, bound):
     rows = {}
     n = b["w_addr"].size
     dv = {k: to_device(np.asarray(v, np.int64), dev) for k, v in b.items()}
-    g_heap, p_heap, l_heap = heap_t.clone(), heap_t.clone(), heap_t.clone()
-
-    def kern():
-        CF.commit_fused(g_heap, b["w_addr"], b["w_val"], b["w_seg"],
-                        b["l_words"], b["l_seg"], b["r_words"], b["r_seen"],
-                        b["r_seg"], b["tids"], b["r_clocks"], base + 7,
-                        n_txn, mode=CF.MODE_LE)
+    g_heap, h_heap, p_heap, l_heap = (heap_t.clone() for _ in range(4))
+    group = (b["w_addr"], b["w_val"], b["w_seg"], dv["l_words"], b["l_seg"],
+             dv["r_words"], b["r_seen"], b["r_seg"], b["tids"],
+             b["r_clocks"], base + 7, n_txn)
+    group_host = group[:3] + (b["l_words"], b["l_seg"], b["r_words"]) + \
+        group[6:]
 
     def plain():
         CF.commit_fused_plain(p_heap, dv["w_addr"], dv["w_val"],
@@ -610,45 +715,455 @@ def commit_fused_checks(torch, dev, rng, bound):
                               dv["r_words"], dv["r_seen"], dv["r_seg"],
                               dv["tids"], dv["r_clocks"], base + 7, n_txn,
                               CF.MODE_LE)
+    # LE mode reads each read entry's word and segment (no seen), each
+    # lock entry's word and segment and writes its release word, each
+    # write row's address, value and segment and writes one heap word,
+    # and the members' tid and clock (ok written)
+    group_bound = bound(16 * n_r + 24 * n_l + 32 * n + 17 * n_txn)
+    plain_ms = time_ms(torch, plain)
+    library_ms = time_ms(torch, lambda: l_heap.index_copy_(
+        0, dv["w_addr"], dv["w_val"]))
+    # as the group publish calls it: the lock words it gathered on the
+    # card go in as device tensors
     rows["group"] = kernel_row(
-        torch, "commit_fused", kern,
-        shape=f"T={n_txn} N={n} L={n_l} M={n_r} H={H} int64 in place",
-        plain_ms=time_ms(torch, plain),
-        library_ms=time_ms(torch, lambda: l_heap.index_copy_(
-            0, dv["w_addr"], dv["w_val"])),
+        torch, "commit_fused", lambda: CF.commit_fused(
+            g_heap, *group, mode=CF.MODE_LE),
+        shape=f"T={n_txn} N={n} L={n_l} M={n_r} H={H} int64 in place, "
+              "lock words on the card",
+        plain_ms=plain_ms, library_ms=library_ms,
         library="index_copy_ (the scatter part alone)",
-        # LE mode reads each read entry's word and segment (no seen),
-        # each lock entry's word and segment and writes its release
-        # word, each write row's address, value and segment and writes
-        # one heap word, and the members' tid and clock (ok written)
-        bound_ms=bound(16 * n_r + 24 * n_l + 32 * n + 20 * n_txn))
-    # the timed publishes rewrite the same values: both heaps agree
-    check(equal(torch, g_heap, p_heap),
+        bound_ms=group_bound)
+    rows["group_host_words"] = kernel_row(
+        torch, "commit_fused", lambda: CF.commit_fused(
+            h_heap, *group_host, mode=CF.MODE_LE),
+        shape=f"T={n_txn} N={n} L={n_l} M={n_r} H={H} int64 in place, "
+              "lock words from the host",
+        plain_ms=plain_ms, library_ms=library_ms,
+        library="index_copy_ (the scatter part alone)",
+        bound_ms=group_bound)
+    # the timed publishes rewrite the same values: the heaps agree
+    check(equal(torch, g_heap, p_heap) and equal(torch, h_heap, p_heap),
           "commit_fused heap != plain after the timed group publishes")
 
     # MVStore publish shape: one member, two rows, 1M-word int32 block,
-    # out of place (the kernel's copy phase seeds the new block)
+    # out of place, the 8-slot ring's slot refreshed in the same call;
+    # timed in turns beside the same work through library calls
+    R, slot = 8, 3
     blk_t = torch.from_numpy(blk).to(dev)
+    ring8 = torch.from_numpy(rng.integers(-1000, 1000, (R, H)).astype(
+        np.int32)).to(dev)
+    ts8 = torch.full((R,), -1, dtype=torch.int32, device=dev)
+    y_ring, y_ts = ring8.clone(), ts8.clone()
     a2 = np.array([17, 999_983], np.int64)
     v2 = np.array([5, -5], np.int64)
     z, one = np.zeros((0,), np.int64), np.zeros(1, np.int64)
     a2_t, v2_t = to_device(a2, dev), to_device(v2, dev).to(torch.int32)
     z_t, one_t = to_device(z, dev), to_device(one, dev)
-    rows["mvstore"] = kernel_row(
-        torch, "commit_fused", lambda: CF.commit_fused(
-            blk_t, a2, v2, [0, 0], z, z, z, z, z, one, one, 3, 1,
-            out_of_place=True),
-        shape=f"T=1 N=2 H={H} int32 out of place",
+    s2_t = to_device(np.zeros(2, np.int64), dev)
+    mv_args = (blk_t, a2, v2, [0, 0], z, z, z, z, z, one, one, 3, 1)
+    mv_kw = dict(out_of_place=True, ring=ring8, ring_ts=ts8, ring_slot=slot)
+
+    def same_work():
+        new = torch.index_copy(blk_t, 0, a2_t, v2_t)
+        y_ring[slot].copy_(new)
+        y_ts[slot] = 3
+        return new
+    got = CF.commit_fused(*mv_args, **mv_kw)
+    want = same_work()
+    check(equal(torch, got[0], want) and equal(torch, ring8, y_ring)
+          and equal(torch, ts8, y_ts), "commit_fused's ring-refreshing "
+                                       "publish != the library calls")
+    runs = in_turns(torch, {"wrapper": lambda: CF.commit_fused(
+        *mv_args, **mv_kw), "same_work": same_work})
+    ratios = [x / y for x, y in zip(runs["wrapper"], runs["same_work"])]
+    rows["mvstore"] = dict(
+        ms=float(np.median(runs["wrapper"])), ms_runs=runs["wrapper"],
+        paired_ratio_median=float(np.median(ratios)),
+        turns_at_or_under_library=sum(r <= 1 for r in ratios),
+        **device_times(torch, lambda: CF.commit_fused(*mv_args, **mv_kw),
+                       DEVICE_KERNELS["commit_fused"]),
+        shape=f"T=1 N=2 H={H} int32 out of place, R={R} ring refreshed",
         plain_ms=time_ms(torch, lambda: CF.commit_fused_plain(
-            blk_t, a2_t, v2_t, to_device(np.zeros(2, np.int64), dev), z_t,
-            z_t, z_t, z_t, z_t, one_t, one_t, 3, 1, CF.MODE_LE, True)),
-        library_ms=time_ms(torch, lambda: torch.index_copy(
-            blk_t, 0, a2_t, v2_t)),
-        library="torch.index_copy (out of place)",
-        # the block read once and the new block written once, plus the
-        # two rows (address, value, segment) and the member's tid/clock
-        bound_ms=bound(2 * 4 * H + 2 * (8 + 8 + 8 + 4) + 20))
+            blk_t, a2_t, v2_t, s2_t, z_t, z_t, z_t, z_t, z_t, one_t, one_t,
+            3, 1, CF.MODE_LE, True, ring8, ts8, slot)),
+        library_ms=float(np.median(runs["same_work"])),
+        library_ms_runs=runs["same_work"],
+        library="torch.index_copy (out of place), ring[slot].copy_, "
+                "ring_ts[slot] = clock",
+        # the block read once, the new block and the ring row written
+        # once each, plus the two rows (address, value, segment), the
+        # member's tid/clock, its ok byte and the ring timestamp
+        bound_ms=bound(3 * 4 * H + 2 * (8 + 4 + 8) + 16 + 1 + 4))
+    emit({"host_split": "commit_fused",
+          "shape": rows["mvstore"]["shape"],
+          "ns_per_call": commit_fused_host_split(
+              torch, dev, mv_args, mv_kw, out_of_place=True)})
+    emit({"host_split": "commit_fused", "shape": rows["group"]["shape"],
+          "ns_per_call": commit_fused_host_split(
+              torch, dev, (heap_t.clone(),) + group_host,
+              dict(mode=CF.MODE_LE), out_of_place=False,
+              dev_words=(dv["l_words"], dv["r_words"]), calls=300)})
     return {"commit_fused": rows}
+
+
+def ring_and_device_word_checks(torch, dev, rng, heap_np, base):
+    """commit_fused with the ring refresh (int64 and int32 heaps, in and
+    out of place, int32 and int64 timestamps) and with the lock words as
+    device tensors, against the plain version on the card; and the fault
+    split (three C calls around ``mid_scatter``) against the plain
+    version's split.  Returns the number of cases."""
+    from repro_torch.kernels import commit_fused as CF
+    from repro_torch.kernels._lib import to_device
+    from repro_torch.reliability import faultpoints as FP
+
+    # the commit version a ring timestamp holds fits in int32
+    H, R, cases, cv = 100_003, 4, 0, 12_345
+    for dtype in (torch.int64, torch.int32):
+        heap0 = torch.from_numpy(heap_np[:H].copy()).to(dtype).to(dev)
+        for mode in (CF.MODE_LT, CF.MODE_LE, CF.MODE_EQ):
+            b = _group_batch(rng, 6, H, rng.integers(0, 200, 6), 500, 500,
+                             base, fail=True)
+            dv = {k: to_device(np.asarray(v, np.int64), dev)
+                  for k, v in b.items()}
+            for oop, ts_dtype, dev_words in ((False, torch.int32, True),
+                                             (True, torch.int64, False),
+                                             (True, torch.int32, True)):
+                ring0 = heap0.repeat(R, 1) - 1
+                ts0 = torch.tensor([1, -1, 3, 2], dtype=ts_dtype,
+                                   device=dev)
+                slot = int(rng.integers(0, R))
+                k_heap, k_ring, k_ts = heap0.clone(), ring0.clone(), \
+                    ts0.clone()
+                lw = dv["l_words"] if dev_words else b["l_words"]
+                rw = dv["r_words"] if dev_words else b["r_words"]
+                got = CF.commit_fused(
+                    k_heap, b["w_addr"], b["w_val"], b["w_seg"], lw,
+                    b["l_seg"], rw, b["r_seen"], b["r_seg"], b["tids"],
+                    b["r_clocks"], cv, 6, mode=mode, out_of_place=oop,
+                    ring=k_ring, ring_ts=k_ts, ring_slot=slot)
+                p_ring, p_ts = ring0.clone(), ts0.clone()
+                want = CF.commit_fused_plain(
+                    heap0.clone(), dv["w_addr"], dv["w_val"].to(dtype),
+                    dv["w_seg"], dv["l_words"], dv["l_seg"], dv["r_words"],
+                    dv["r_seen"], dv["r_seg"], dv["tids"], dv["r_clocks"],
+                    cv, 6, mode, oop, p_ring, p_ts, slot)
+                for g, w, what in zip(got, want, ("heap", "ok", "l_out",
+                                                  "ring", "ring_ts")):
+                    check(equal(torch, g, w),
+                          f"commit_fused with the ring refresh: {what} != "
+                          f"plain ({dtype}, mode {mode}, out_of_place="
+                          f"{oop}, device words {dev_words})")
+                check(equal(torch, k_ring[slot], got[0])
+                      and int(k_ts[slot]) == cv,
+                      "the refreshed ring slot is not the new heap at cv")
+                if oop:
+                    check(equal(torch, k_heap, heap0),
+                          "out-of-place commit_fused wrote its input")
+                cases += 1
+    # the fault split: the heap image at mid_scatter and the result
+    b = _group_batch(rng, 4, H, [40, 0, 33, 51], 300, 300, base, fail=True)
+    dv = {k: to_device(np.asarray(v, np.int64), dev) for k, v in b.items()}
+    heap0 = torch.from_numpy(heap_np[:H].copy()).to(dev)
+    images = {}
+    active, fire = FP.ACTIVE, FP.fire
+    try:
+        for route in ("card", "plain"):
+            heap = heap0.clone()
+            ring, ts = heap0.repeat(2, 1), torch.zeros(2, dtype=torch.int32,
+                                                       device=dev)
+            FP.ACTIVE = object()
+            FP.fire = lambda point, tid=-1, route=route, heap=heap, \
+                ring=ring: images.setdefault(route, (
+                    point, heap.clone(), ring[1].clone()))
+            if route == "card":
+                got = CF.commit_fused(
+                    heap, b["w_addr"], b["w_val"], b["w_seg"], dv["l_words"],
+                    b["l_seg"], dv["r_words"], b["r_seen"], b["r_seg"],
+                    b["tids"], b["r_clocks"], cv, 4,
+                    mode=CF.MODE_LE, ring=ring, ring_ts=ts, ring_slot=1)
+            else:
+                want = CF.commit_fused_plain(
+                    heap, dv["w_addr"], dv["w_val"], dv["w_seg"],
+                    dv["l_words"], dv["l_seg"], dv["r_words"], dv["r_seen"],
+                    dv["r_seg"], dv["tids"], dv["r_clocks"], cv, 4,
+                    CF.MODE_LE, False, ring, ts, 1)
+    finally:
+        FP.ACTIVE, FP.fire = active, fire
+    for g, w in zip(got, want):
+        check(equal(torch, g, w), "commit_fused's fault split != plain")
+    (pc, hc, rc), (pp, hp, rp) = images["card"], images["plain"]
+    check(pc == pp == "mid_scatter" and equal(torch, hc, hp)
+          and equal(torch, rc, rp),
+          "commit_fused's heap at mid_scatter != the plain version's")
+    return cases + 1
+
+
+def commit_fused_host_split(torch, dev, args, kw, out_of_place, calls=1000,
+                            dev_words=None):
+    """Host time of one ``commit_fused`` call, by part: the mean of
+    ``calls`` runs of each part, ``time.perf_counter_ns`` around the loop
+    (the card drains after each part, outside the clock).  The earlier
+    wrapper is kept here as ``previous_path`` — its host steps in order,
+    ending in the present entry point with no staged copy (its own call
+    also set ``ok`` with a memset, which is not in it) — and split into
+    its steps, beside the present wrapper and its steps; ``dev_words``
+    (the lock words on the card) times the wrapper as the group publish
+    now calls it."""
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels import commit_fused as CF
+    from repro_torch.kernels import gather_read as GR
+
+    heap, w_addr, w_val, w_seg, l_words, l_seg, r_words, r_seen, r_seg, \
+        tids, r_clocks, cv, n_txn = args
+    mode = kw.get("mode", CF.MODE_LE)
+    heap = heap.clone()
+    ring_kw = {k: kw[k] for k in ("ring", "ring_ts", "ring_slot") if k in kw}
+    entry = CF._ENTRY[heap.dtype]
+    nine = (w_addr, w_seg, l_words, l_seg, r_words, r_seen, r_seg, tids,
+            r_clocks)
+
+    def prev_cast():
+        cols = [np.asarray(x, np.int64).reshape(-1) for x in nine]
+        vals = np.asarray(w_val).astype(np.int64, copy=False).reshape(-1)
+        return cols, vals
+    cols, vals = prev_cast()
+    wa, ws, lw, ls, rw, rn, rs, td, rc = cols
+    cat = np.concatenate(cols + [vals])
+    cut = np.cumsum([0] + [c.size for c in cols] + [vals.size])
+
+    def prev_pinned_copy():
+        return torch.from_numpy(cat).pin_memory().to(dev, non_blocking=True)
+    dev_cat = prev_pinned_copy()
+
+    def prev_checks():
+        for seg in (ws, ls, rs):
+            if seg.size and (int(seg.min()) < 0 or int(seg.max()) >= n_txn):
+                raise ValueError
+        lo, hi = (int(wa.min()), int(wa.max())) if wa.size else (0, 0)
+        if lo < 0 or hi >= heap.numel():
+            raise IndexError
+
+    def prev_slices(d):
+        return [d[cut[k]:cut[k + 1]] for k in range(len(cut) - 1)]
+
+    def prev_allocs():
+        return (torch.empty_like(heap) if out_of_place else heap,
+                torch.empty(n_txn, dtype=torch.int32, device=dev),
+                torch.empty(ls.size, dtype=torch.int64, device=dev))
+    ok32 = torch.ones(n_txn, dtype=torch.int32, device=dev)
+
+    def previous_path():
+        cols, vals = prev_cast()
+        prev_checks()
+        d = torch.from_numpy(np.concatenate(cols + [vals])).pin_memory() \
+            .to(dev, non_blocking=True)
+        wa_t, ws_t, lw_t, ls_t, rw_t, rn_t, rs_t, td_t, rc_t, v_t = \
+            prev_slices(d)
+        v_t = v_t.to(heap.dtype)
+        out, ok, l_out = prev_allocs()
+        # the earlier entry took these as 27 ctypes arguments; this one reads
+        # them from a header, its columns at word offsets from ok's bytes
+        o = ok.data_ptr()
+        hdr = np.array((
+            heap.data_ptr(), out.data_ptr(), heap.numel(), 0, 0, 0, 0, o, 0,
+            0, lw_t.data_ptr(), rw_t.data_ptr(), l_out.data_ptr(), wa.size,
+            ls.size, rs.size, int(mode), int(cv),
+            *((t.data_ptr() - o) // 8 for t in (wa_t, ws_t, ls_t, rs_t,
+                                                 rn_t, td_t, rc_t, v_t)),
+            CF._DECIDE | CF._PUBLISH, 0, wa.size, ls.size), np.int64)
+        _lib.launch(entry, dev, hdr.ctypes.data)
+        CF.launches.add()
+        return out, ok != 0, l_out
+
+    lw_arg, rw_arg = dev_words if dev_words is not None else (l_words,
+                                                              r_words)
+
+    def host_columns():
+        return ([CF._host_col(x, "x") for x in (w_addr, w_seg, l_seg,
+                                                 r_seg, r_seen, tids,
+                                                 r_clocks)],
+                CF._values(w_val),
+                CF._words_col(lw_arg, ls.size, heap, "l_words"),
+                CF._words_col(rw_arg, rs.size, heap, "r_words"))
+    lw_c, rw_c = host_columns()[2:]
+    lay = CF._Layout(wa.size, ls.size, rs.size, n_txn, mode,
+                     not isinstance(lw_c, torch.Tensor),
+                     not isinstance(rw_c, torch.Tensor),
+                     heap.element_size())
+    pool = _lib.staging(dev)
+    blk = torch.empty(8 * (lay.staged + ls.size), dtype=torch.bool,
+                      device=dev)
+    no_work = np.zeros(CF._CALL_WORDS, np.int64)
+
+    def acquire_release():
+        pool.release(pool.acquire())
+
+    two = np.array([3, 4], np.int64)
+    one_idx = _lib.to_device(two[:1], dev)
+
+    def without_c_call():
+        real = _lib.launch
+        _lib.launch = lambda *a: None
+        try:
+            CF.commit_fused(heap, w_addr, w_val, w_seg, lw_arg, l_seg, rw_arg,
+                            r_seen, r_seg, tids, r_clocks, cv, n_txn,
+                            mode=mode, out_of_place=out_of_place, **ring_kw)
+        finally:
+            _lib.launch = real
+
+    def stage():
+        st = pool.acquire()
+        try:
+            _, u8, i64 = st.take(8 * lay.staged)
+            CF._stage(u8, i64, lay, wa, ws, ls, rs, rn, td, rc, lw_c, rw_c,
+                      vals, heap)
+        finally:
+            pool.release(st)
+
+    def header():
+        head = pool.blocks[0].head
+        head[:CF._CALL_WORDS] = (
+            heap.data_ptr(), heap.data_ptr(), heap.numel(), 0, 0, 0, 0,
+            blk.data_ptr(), 0, 0, 0, 0, 0, wa.size, ls.size, rs.size,
+            int(mode), int(cv), *lay.offsets, 0, 0, wa.size, ls.size)
+
+    parts = {
+        "prev_cast_columns": prev_cast,
+        "prev_checks_min_max": prev_checks,
+        "prev_concatenate": lambda: np.concatenate(cols + [vals]),
+        "prev_pin_memory": lambda: torch.from_numpy(cat).pin_memory(),
+        "prev_pinned_copy": prev_pinned_copy,
+        "prev_ten_slices": lambda: prev_slices(dev_cat),
+        "prev_value_cast": lambda: dev_cat[cut[-2]:].to(heap.dtype),
+        "prev_three_allocs": prev_allocs,
+        "prev_ok_compare": lambda: ok32 != 0,
+        "previous_path": previous_path,
+        "host_columns": host_columns,
+        "layout": lambda: CF._Layout(wa.size, ls.size, rs.size, n_txn, mode,
+                                     True, True, heap.element_size()),
+        "device_block": lambda: torch.empty(8 * (lay.staged + ls.size),
+                                            dtype=torch.bool, device=dev),
+        "out_block": (lambda: heap.new_empty(heap.shape)) if out_of_place
+        else (lambda: None),
+        "pool_acquire_release": acquire_release,
+        "stage_and_check": stage,
+        "call_header": header,
+        "ok_view": lambda: blk[:n_txn],
+        "ctypes_call_no_work": lambda: _lib.launch(entry, dev,
+                                                   no_work.ctypes.data),
+        "launch_counter": CF.launches.add,
+        # what the C call's CUDA work costs the host: one staged copy
+        # (to_device: allocation, stage, copy, event) and one launch
+        "to_device_2_words": lambda: _lib.to_device(two, dev),
+        "gather_read_dev_1": lambda: GR.gather_read_dev(heap, one_idx),
+        "wrapper_without_c_call": without_c_call,
+        "wrapper": lambda: CF.commit_fused(
+            heap, w_addr, w_val, w_seg, lw_arg, l_seg, rw_arg, r_seen,
+            r_seg, tids, r_clocks, cv, n_txn, mode=mode,
+            out_of_place=out_of_place, **ring_kw),
+    }
+    if not ls.size and not rs.size and wa.size <= CF._SMALL_ROWS:
+        # the rows route (no read or lock entries): its own steps instead
+        # of the staged route's
+        for k in ("layout", "device_block", "pool_acquire_release",
+                  "stage_and_check", "call_header", "ok_view"):
+            del parts[k]
+        out = heap.new_empty(heap.shape)
+        ok = torch.empty(n_txn, dtype=torch.bool, device=dev)
+        call = np.zeros(10 + 2 * CF._SMALL_ROWS, np.int64)
+        call[:10] = (heap.data_ptr(), out.data_ptr(), heap.numel(), 0, 0, 0,
+                     ok.data_ptr(), n_txn, wa.size, int(cv))
+        call[10:10 + wa.size] = wa
+
+        def rows_checks():
+            if int(ws.view(np.uint64).max()) >= n_txn or \
+                    int(wa.view(np.uint64).max()) >= heap.numel():
+                raise ValueError
+
+        head = tuple(call[:10].tolist())
+
+        def rows_call_fill():
+            raw, _, words = CF._tls.rows
+            CF._ROWS_HEAD.pack_into(raw, 0, *head)
+            words[10:10 + wa.size] = wa
+            np.copyto(words[10 + CF._SMALL_ROWS:
+                            10 + CF._SMALL_ROWS + wa.size], vals,
+                      casting="unsafe")
+        parts = dict(
+            list(parts.items())[:-4], rows_checks=rows_checks,
+            ok_alloc=lambda: torch.empty(n_txn, dtype=torch.bool,
+                                         device=dev),
+            rows_call_fill=rows_call_fill,
+            rows_c_call=lambda: _lib.launch(CF._ROWS_ENTRY[heap.dtype], dev,
+                                            call.ctypes.data),
+            **dict(list(parts.items())[-4:]))
+    return run_split(torch, parts, calls)
+
+
+def run_split(torch, parts, calls):
+    """``{part: mean ns per call}``: ``calls`` runs of each part, after a
+    tenth as many to warm, ``time.perf_counter_ns`` around the loop and
+    the card drained after each part, outside the clock."""
+    split = {}
+    for name, part in parts.items():
+        for _ in range(max(1, calls // 10)):
+            part()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter_ns()
+        for _ in range(calls):
+            part()
+        split[name] = (time.perf_counter_ns() - t0) / calls
+        torch.cuda.synchronize()
+    return split
+
+
+def gather_bracketed_host_split(torch, dev, words, heap, idxs, addrs,
+                                calls=1000):
+    """Host time of one ``gather_bracketed`` call at a scan chunk, by
+    part, beside the three-call path it replaces (the earlier
+    ``gather_lockver``)."""
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels import gather_read as GR
+
+    n = addrs.size
+    i, a = _lib.host_index(idxs), _lib.host_index(addrs)
+    out = torch.empty((4, n), dtype=torch.int64, device=dev)
+    pidx = np.zeros(2 * GR.PARAM_IDX, np.int32)
+    pidx[:n], pidx[GR.PARAM_IDX:GR.PARAM_IDX + n] = i, a
+
+    def fill():
+        p = np.empty(2 * GR.PARAM_IDX, np.int32)
+        p[:n] = i
+        p[GR.PARAM_IDX:GR.PARAM_IDX + n] = a
+
+    def three_calls():
+        both = _lib.to_device(np.concatenate((i, a)), dev)
+        w = torch.empty((2, n), dtype=torch.int64, device=dev)
+        GR.gather_read(words, i, both[:n], out=w[0])
+        vals = GR.gather_read(heap, a, both[n:])
+        GR.gather_read(words, i, both[:n], out=w[1])
+        return w, vals
+
+    parts = {
+        "check_rows": lambda: (_lib.check_row(words), _lib.check_row(heap)),
+        "host_index_two": lambda: (_lib.host_index(idxs),
+                                   _lib.host_index(addrs)),
+        "bounds_two": lambda: (_lib.check_addr_bounds(i, words.numel()),
+                               _lib.check_addr_bounds(a, heap.numel())),
+        "param_fill": fill,
+        "out_alloc": lambda: torch.empty((4, n), dtype=torch.int64,
+                                         device=dev),
+        "c_call": lambda: _lib.launch(
+            "gather_bracketed_i64", dev, words.data_ptr(), words.numel(),
+            heap.data_ptr(), heap.numel(), 0, pidx.ctypes.data, n,
+            out.data_ptr()),
+        "idx_row_view": lambda: out[3],
+        "wrapper": lambda: GR.gather_bracketed(words, heap, idxs, addrs),
+        "to_device_both": lambda: _lib.to_device(np.concatenate((i, a)),
+                                                 dev),
+        "three_call_path": three_calls,
+    }
+    return run_split(torch, parts, calls)
 
 
 def snapshot_select_checks(torch, dev, rng, bound):
@@ -1477,6 +1992,7 @@ def longread_trial(torch, name, scan, lock_bits, duration_s, warmup_s,
     t_start = time.perf_counter()
     tot, dt = run_trial([scanner, updater(1), updater(2)], duration_s,
                         warmup_s, done, probe)
+    per_chunk = chunk_launches(tm, base, min(scan, 16 * chunk), chunk)
     final = run(tm, lambda tx: _sum(tx.read_bulk(range(base, base + scan))),
                 tid=0)
     stats = tm.stats()
@@ -1493,11 +2009,40 @@ def longread_trial(torch, name, scan, lock_bits, duration_s, warmup_s,
            "failed_updates": tot["failed_updates"],
            "violations": tot["violations"],
            "mode_transitions": stats["mode_transitions"],
-           "final_mode": stats["mode"]}
+           "final_mode": stats["mode"],
+           "launches_per_chunk": per_chunk}
     check(tot["updates"] > 0 and (tot["scans"] > 0
                                   or backend != "multiverse"),
           f"{name}: no progress ({dict(tot)})")
+    if backend in LOCKVER_BACKENDS:
+        check(per_chunk["gather_read"] == per_chunk["gather_bracketed"] == 1,
+              f"{name}: a scanned chunk did not take one bracketed gather "
+              f"({per_chunk})")
     return row
+
+
+def chunk_launches(tm, base, words, chunk):
+    """Kernel launches per scanned chunk: one read-only scan of ``words``
+    words in ``chunk``-word ``read_bulk`` calls once the trial's workers
+    have stopped, the launch counts read at the start and at the end of
+    the transaction's body (the attempt that commits)."""
+    from repro_torch import kernels as K
+    from repro_torch.api import run
+
+    seen = {}
+
+    def scan_tx(tx):
+        before = K.launch_counts()
+        for off in range(0, words, chunk):
+            tx.read_bulk(range(base + off, base + min(off + chunk, words)))
+        after = K.launch_counts()
+        seen.update({k: (after[k] - before[k]) for k in after})
+
+    run(tm, scan_tx, tid=0)
+    chunks = -(-words // chunk)
+    return {k: v / chunks for k, v in seen.items()
+            if k in ("gather_read", "gather_bracketed", "version_select",
+                     "validate")}
 
 
 def rwmix_trial(torch, name, wb, duration_s, warmup_s, backend="multiverse",

@@ -50,7 +50,7 @@ def load_numpy_state(tm, state: Dict) -> None:
         buf = torch.zeros(max(heap.size, h._buf.shape[0]),
                           dtype=torch.int64, device=dev)
         buf[:heap.size] = torch.from_numpy(heap.copy()).to(dev)
-        h._buf, h._len = buf, heap.size
+        h._install(buf, heap.size)
     words = np.asarray(state["lock_words"], np.int64)
     if words.shape != tuple(eng.locks._words.shape):
         raise ValueError(f"lock table is {tuple(eng.locks._words.shape)}, "

@@ -145,6 +145,7 @@ class ArrayHeap:
         self._buf = torch.zeros(max(capacity, 1), dtype=torch.int64,
                                 device=self.device)
         self._len = 0
+        self._live = self._buf[:0]       # the allocated words, a view
         self._lock = threading.Lock()
 
     def alloc(self, n: int, init: Any = None) -> int:
@@ -161,8 +162,13 @@ class ArrayHeap:
                 grown[:base] = self._buf[:base]
                 self._buf = grown
             self._buf[base:need] = fill
-            self._len = need
+            self._install(self._buf, need)
             return base
+
+    def _install(self, buf: torch.Tensor, n: int) -> None:
+        """Make ``buf`` the buffer with ``n`` words allocated (the caller
+        holds the heap lock)."""
+        self._buf, self._len, self._live = buf, n, buf[:n]
 
     def __getitem__(self, addr: int) -> int:
         # both ends: a negative address would wrap to the end of the
@@ -186,17 +192,26 @@ class ArrayHeap:
 
     def live(self) -> torch.Tensor:
         """The allocated words (a view of the device buffer)."""
-        return self._buf[:self._len]
+        return self._live
 
-    def gather(self, addrs, dev_idx=None) -> torch.Tensor:
+    def gather(self, addrs) -> torch.Tensor:
         """Batched read: one ``gather_read`` launch over the live words,
         returning a new int64 device tensor.  Enqueued under the heap
         lock, so a concurrent ``alloc`` cannot swap the buffer out from
-        under it; bounds are checked against the allocation frontier.
-        ``dev_idx``: the same addresses already on the device."""
+        under it; bounds are checked against the allocation frontier."""
         a = host_index(addrs)
         with self._lock:
-            return GR.gather_read(self._buf[:self._len], a, dev_idx)
+            return GR.gather_read(self._live, a)
+
+    def gather_bracketed(self, words: torch.Tensor, idxs, addrs):
+        """A bulk read's bracketed gather, ``out`` [4, N]:
+        ``words[idxs]`` before and after, the live ``heap[addrs]`` and
+        the lock indices in one ``gather_read`` launch
+        (``GR.gather_bracketed``), enqueued under the heap lock like
+        ``gather``; ``words`` is the lock table's row
+        (``ArrayLockTable.row``)."""
+        with self._lock:
+            return GR.gather_bracketed(words, self._live, idxs, addrs)
 
     def scatter(self, addrs, values) -> None:
         """Batched write-back: one in-place ``scatter_write`` launch
@@ -230,6 +245,11 @@ class ArrayLockTable(LockTable):
         # batch covers, so the stripe count bounds the per-sweep host
         # lock traffic while scalar CAS contention stays negligible
         self._stripes = Striped(128)
+
+    @property
+    def row(self) -> torch.Tensor:
+        """The packed words themselves, for the bracketed bulk gather."""
+        return self._words
 
     # -- storage ops -------------------------------------------------------
     def _word(self, idx: int) -> int:

@@ -3,9 +3,11 @@
 The paper's long-running read-only transactions scan thousands of words;
 word-at-a-time through Python, the scan measures the interpreter rather
 than the TM.  This module is the engine-level batch: ONE heap gather
-bracketed by TWO consistent lock-word gathers — three ``gather_read``
-launches on the device — then a stability predicate over the two lock
-snapshots, evaluated on the host after one copy of the gathered words.
+bracketed by TWO consistent lock-word gathers — on an ``ArrayHeap`` one
+bracketed ``gather_read`` launch that reads each element's lock word,
+heap word and lock word again — then a stability predicate over the two
+lock snapshots, evaluated on the host after one copy of the gathered
+words.
 
 Soundness argument, per element ``i``:
 
@@ -19,10 +21,16 @@ Soundness argument, per element ``i``:
   * ``version <(=) r_clock`` then places the stable value at/before the
     transaction's snapshot — exactly the scalar read's validation.
 
-On the device this argument needs the three gathers to run in the order
-they were issued relative to every writer's lock and data writes: all of
-them go to the one default stream (``kernels/_lib.py``), which executes
-in issue order.
+On the device this argument needs the pre, heap and post reads to be
+ordered against every writer's lock and data writes.  Every device write
+of the STM's state — lock CAS and unlock (``arrayheap.py``), scatters,
+publishes — is a launch or copy on the one default stream
+(``kernels/_lib.py``), which executes in issue order, so no write can
+land while one kernel runs: a single kernel that reads the pre word, the
+heap word and the post word sees them at least as consistently as three
+launches would, between which another thread's write may be enqueued.
+The predicate, the verdict and the scalar fallback are the same for
+both.  An ``ObjectHeap`` (host values) keeps the three gathers.
 
 Elements that FAIL the predicate (locked, flagged, version too new, or
 torn between the gathers) are NOT errors: the caller re-reads just those
@@ -75,16 +83,15 @@ def gather_row(row: torch.Tensor, addrs: np.ndarray) -> torch.Tensor:
     return GR.gather_read(row, addrs)
 
 
-def heap_gather(heap, addrs: np.ndarray, dev_idx=None):
+def heap_gather(heap, addrs: np.ndarray):
     """``heap[addrs]`` in one pass.
 
     ``ArrayHeap`` answers with one ``gather_read`` launch (an int64
-    tensor on its device; ``dev_idx`` is the addresses already copied
-    there); ``ObjectHeap`` with one list pass; anything else falls back
-    to scalar indexing.
+    tensor on its device); ``ObjectHeap`` with one list pass; anything
+    else falls back to scalar indexing.
     """
     if isinstance(heap, ArrayHeap):
-        return heap.gather(addrs, dev_idx)
+        return heap.gather(addrs)
     g = getattr(heap, "gather", None)
     if g is None:
         return [heap[int(a)] for a in addrs]
@@ -92,24 +99,32 @@ def heap_gather(heap, addrs: np.ndarray, dev_idx=None):
 
 
 def gather_lockver(eng, addrs: np.ndarray):
-    """Enqueue a batch's three gathers: lock words, heap words, lock
-    words again — three ``gather_read`` launches in this order on the one
-    stream.  One host->device copy carries both index sets.
+    """Enqueue a batch's bracketed gather: lock words, heap words, lock
+    words again.  On an ``ArrayHeap`` that is ONE ``gather_read`` launch
+    (``ArrayHeap.gather_bracketed``, under the heap lock, so ``alloc``
+    cannot swap the buffer); on an ``ObjectHeap`` two lock-word launches
+    around the host gather.
 
     Returns ``(idxs, idx_dev, words, vals)``: the lock indices (host and
     device), the two lock snapshots as one [2, N] device tensor (not yet
     copied back, so a caller can enqueue more reads keyed by the same
-    indices and copy everything back at once), and the gathered values.
+    indices and copy everything back at once), and the gathered values
+    (on an ``ArrayHeap``, ``words`` and ``vals`` are views of the one
+    output block).
     """
     locks = eng.locks
-    n = addrs.size
     idxs = locks.index_bulk(addrs)
-    both = to_device(np.concatenate((idxs, addrs)), eng.device)
-    words = torch.empty((2, n), dtype=torch.int64, device=eng.device)
-    locks.words_at(idxs, both[:n], out=words[0])     # pre-gather
-    vals = heap_gather(eng.heap, addrs, both[n:])    # heap gather
-    locks.words_at(idxs, both[:n], out=words[1])     # post-gather
-    return idxs, both[:n], words, vals
+    if isinstance(eng.heap, ArrayHeap):
+        out = eng.heap.gather_bracketed(locks.row, idxs, addrs)
+        _, _, vals, idx_dev = out.unbind(0)
+        return idxs, idx_dev, out[:2], vals
+    idx_dev = to_device(idxs, eng.device)
+    words = torch.empty((2, addrs.size), dtype=torch.int64,
+                        device=eng.device)
+    locks.words_at(idxs, idx_dev, out=words[0])     # pre-gather
+    vals = heap_gather(eng.heap, addrs)             # heap gather
+    locks.words_at(idxs, idx_dev, out=words[1])     # post-gather
+    return idxs, idx_dev, words, vals
 
 
 def lockver_verdict(eng, d, addrs: np.ndarray, idxs: np.ndarray,
@@ -171,7 +186,7 @@ def lockver_verdict(eng, d, addrs: np.ndarray, idxs: np.ndarray,
 def bulk_read_lockver(eng, d, addrs: np.ndarray, *, inclusive: bool,
                       track: bool = True):
     """One batched read attempt against the lock-version protocol: the
-    three gathers, one copy back, the verdict.  Returns ``(values, ok,
+    bracketed gather, one copy back, the verdict.  Returns ``(values, ok,
     frozen)``: ``values`` is the gathered batch (a device tensor, or a
     list on an object heap), meaningful where ``ok``; see
     ``lockver_verdict`` for the masks."""

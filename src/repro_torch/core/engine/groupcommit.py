@@ -350,11 +350,13 @@ class CommitBatcher:
         # the window, so the kernel decides on exactly what the host
         # decided on.
         with locks.striped(l_flat):
-            if r_flat.size:
-                l_words, r_words = to_host([locks.words_at(l_flat),
-                                            locks.words_at(r_flat)])
+            # the words stay on the card for the kernel's verdict too
+            l_dev = locks.words_at(l_flat)
+            r_dev = locks.words_at(r_flat) if r_flat.size else None
+            if r_dev is not None:
+                l_words, r_words = to_host([l_dev, r_dev])
             else:
-                l_words, r_words = locks.words_at(l_flat).cpu().numpy(), None
+                l_words, r_words = l_dev.cpu().numpy(), None
             r_seen = None
             if r_flat.size == 0 and not (l_words & 3).any():
                 # fast verdict: no reads to validate and every write
@@ -403,8 +405,8 @@ class CommitBatcher:
                     if okd:
                         d.publish_started = True
                 rel = self._publish(group, ok, all_ok, w_addrs, w_vals,
-                                    l_flat, l_seg, l_words, r_flat, r_seg,
-                                    r_words, r_seen, tids, wv, mode)
+                                    l_seg, l_dev, r_seg, r_dev, r_seen,
+                                    tids, wv, mode)
                 if FP.ACTIVE is not None:
                     FP.fire("post_scatter", int(tids[0]))
                     FP.fire("pre_release", int(tids[0]))
@@ -421,21 +423,23 @@ class CommitBatcher:
         self._bookkeep(group, ok)
         return ok
 
-    def _publish(self, group, ok, all_ok, w_addrs, w_vals, l_flat, l_seg,
-                 l_words, r_flat, r_seg, r_words, r_seen, tids, wv, mode):
+    def _publish(self, group, ok, all_ok, w_addrs, w_vals, l_seg, l_dev,
+                 r_seg, r_dev, r_seen, tids, wv, mode):
         """Scatter every surviving member's writes in one sweep.
 
         On an ``ArrayHeap``: ONE ``commit_fused`` call over the engine
         heap, in place — verdict + claim check + scatter + release words
         (the CUDA kernel on the card).  It is handed the lock words the
-        host verdict read (``l_words``/``r_words``, gathered inside the
-        stripe window), not a re-gather: a read-set word may change
-        after the verdict, since the window holds only the write-lock
-        stripes, and a kernel deciding on newer words could drop a
-        member the host has claimed and is about to release as
-        committed.  Its ``ok`` is copied back and must equal the host's,
-        or the publish raises.  Returns the release words for every
-        lock entry (a device tensor).
+        host verdict read (``l_dev``/``r_dev``: the device tensors
+        gathered inside the stripe window, which the host copied for
+        its verdict, so they do not cross the bus again), not a
+        re-gather: a read-set word may change after the verdict, since
+        the window holds only the write-lock stripes, and a kernel
+        deciding on newer words could drop a member the host has
+        claimed and is about to release as committed.  Its ``ok`` is
+        copied back and must equal the host's, or the publish raises.
+        Returns the release words for every lock entry (a device
+        tensor).
 
         On an object heap: one ``heap_scatter`` of the surviving values;
         returns ``None`` (the caller stamps the claimed words).
@@ -449,11 +453,11 @@ class CommitBatcher:
                               len(group))
             with eng.heap._lock:
                 _, k_ok, rel = CF.commit_fused(
-                    eng.heap.live(), w_flat, vals, w_seg, l_words, l_seg,
-                    z if r_words is None else r_words,
+                    eng.heap.live(), w_flat, vals, w_seg, l_dev, l_seg,
+                    z if r_dev is None else r_dev,
                     z if r_seen is None else r_seen, r_seg, tids, rcs, wv,
                     len(group), mode=mode)
-            k_ok = k_ok.cpu().numpy() != 0
+            k_ok = k_ok.cpu().numpy()
             if not np.array_equal(k_ok, ok):
                 raise RuntimeError(
                     f"commit_fused verdict {k_ok.tolist()} differs from "

@@ -33,11 +33,12 @@ ints; ring timestamps are int32 tensors [R] and blocks keep their dtype
 What is in place and what is not: ``mv_commit`` is functional like the
 reference; ``mv_commit_fused`` (the store's sparse publish) builds the
 new live block OUT OF PLACE through the ``commit_fused`` kernel, so a
-reader holding the old block keeps a whole snapshot, but refreshes the
-ring slot ``clock' % R`` IN PLACE — R x the block per commit would be the
-price of an immutable ring.  A caller with concurrent ring readers fences
-that slot itself (``api/mvhandle.py``'s seqlock on the host copy of the
-timestamps).
+reader holding the old block keeps a whole snapshot, and the same call
+refreshes the ring slot ``clock' % R`` and its timestamp IN PLACE, as
+the reference's call does (donated there) — R x the block per commit
+would be the price of an immutable ring.  A caller with concurrent ring
+readers fences that slot itself (``api/mvhandle.py``'s seqlock on the
+host copy of the timestamps).
 """
 from __future__ import annotations
 
@@ -186,9 +187,10 @@ def mv_commit_fused(state: MVStoreState, key: str, addrs, values, *,
     The new block comes out of ONE ``commit_fused`` call, OUT OF PLACE
     (the kernel seeds the new tensor from the old one and scatters into
     it), so the old block stays whole for readers still holding it.  A
-    versioned block's ring slot ``clock' % R`` and its timestamp are then
-    refreshed IN PLACE (module docstring).  Addresses outside the block
-    raise ``IndexError`` before anything is written.
+    versioned block's ring slot ``clock' % R`` and its timestamp are
+    refreshed IN PLACE by the same call, as in the reference (module
+    docstring).  Addresses outside the block raise ``IndexError`` before
+    anything is written.
     """
     if FP.ACTIVE is not None:
         FP.fire("pre_scatter")
@@ -203,14 +205,14 @@ def mv_commit_fused(state: MVStoreState, key: str, addrs, values, *,
             raise IndexError(lo if lo < 0 else hi)
     z = np.zeros((0,), np.int64)
     one = np.zeros(1, np.int64)
-    new_block, _, _ = CF.commit_fused(
-        live, a, values, np.zeros(a.size, np.int64), z, z, z, z, z, one, one,
-        new_clock, 1, out_of_place=True)
     ring = state.ring.get(path)
+    kw = {}
     if ring is not None:
-        slot = new_clock % cfg.ring_slots
-        ring[slot].copy_(new_block)
-        state.ring_ts[path][slot] = new_clock
+        kw = dict(ring=ring, ring_ts=state.ring_ts[path],
+                  ring_slot=new_clock % cfg.ring_slots)
+    new_block = CF.commit_fused(
+        live, a, values, np.zeros(a.size, np.int64), z, z, z, z, z, one, one,
+        new_clock, 1, out_of_place=True, **kw)[0]
     if FP.ACTIVE is not None:
         FP.fire("mid_scatter")
     new_live = dict(state.live)

@@ -55,8 +55,8 @@ __global__ void snapshot_select_kernel(const uint8_t* __restrict__ ring,
   const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  repro_torch::copy_bytes(ring + slot * row_bytes, out, row_bytes, tid,
-                          stride);
+  repro_torch::copy_bytes(ring + slot * row_bytes, out, nullptr, row_bytes,
+                          tid, stride);
 }
 
 }  // namespace

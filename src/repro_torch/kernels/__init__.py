@@ -6,12 +6,13 @@ wrapper launches its kernel for a CUDA tensor and takes the plain
 version only for a CPU tensor — there is no fallback from one to the
 other.
 
-    gather_read     out[i] = row[idx[i]]     (heap, lock words, MVStore rows)
+    gather_read     out[i] = row[idx[i]]     (heap, lock words, MVStore rows);
+                    a bulk read's pre/heap/post gathers in one launch
     scatter_write   row[idx[i]] = val[i], in place    (heap, lock words)
     validate        read-set predicate + all-valid flag
     version_select  newest mirror slot below a snapshot
     commit_fused    group verdict + scatter + release words (group commit,
-                    MVStore publish)
+                    MVStore publish with its ring refresh)
     snapshot_select newest ring slot at/below a clock, copied (MVStore)
     flash_attention causal/non-causal attention forward, grouped-query
                     heads (every prefill attention layer and every
@@ -40,6 +41,9 @@ COUNTERS = {m.launches.name: m.launches
             for m in (gather_read, scatter_write, validate, version_select,
                       commit_fused, snapshot_select, flash_attention,
                       fused_adamw, ssd_scan)}
+#: the bracketed bulk-read gathers, also counted under ``gather_read``
+COUNTERS[gather_read.bracketed_launches.name] = \
+    gather_read.bracketed_launches
 
 
 def reset_launch_counts() -> None:

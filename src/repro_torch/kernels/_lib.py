@@ -25,8 +25,9 @@ enqueues on the same stream, so ``launch`` refuses to run on any stream
 but the device's default one.
 
 Also here: the bounds contract shared by every gather/scatter
-(``check_addr_bounds``), the host-address to device-index conversion, and
-the per-kernel launch counter.
+(``check_addr_bounds``), the host-address to device-index conversion and
+its pinned staging blocks (``to_device``, ``StagingPool``), and the
+per-kernel launch counter.
 """
 from __future__ import annotations
 
@@ -48,12 +49,14 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("gather_read.cu", "scatter_write.cu", "validate.cu",
            "version_select.cu", "commit_fused.cu", "snapshot_select.cu",
-           "flash_attention.cu", "fused_adamw.cu", "ssd_scan.cu")
+           "flash_attention.cu", "fused_adamw.cu", "ssd_scan.cu",
+           "staging.cu")
 #: headers the sources include (hashed with them, not compiled alone)
 HEADERS = ("copy_bytes.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+_I64 = np.dtype(np.int64)
 _P = ctypes.c_void_p
 _I = ctypes.c_longlong
 _D = ctypes.c_double
@@ -64,9 +67,10 @@ SIGNATURES = {
     "scatter_write_i64": (_P, _I, _P, _P, _I, _P),
     "validate_readset_i64": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
     "version_select_i64": (_P, _P, _I, _I, _I, _P, _P, _P),
-    "commit_fused_i64": (_P, _P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _I,
-                         _I, _P, _P, _P, _I, _P, _P, _I, _I, _I, _P, _P,
-                         _I, _P),
+    "gather_bracketed_i64": (_P, _I, _P, _I, _P, _P, _I, _P, _P),
+    "commit_fused_i64": (_P, _P),
+    "commit_rows_i64": (_P, _P),
+    "stage_copy": (_P, _P, _I, _P, _P),
     "snapshot_select_rows": (_P, _I, _I, _P, _I, _P, _P, _P),
     "flash_attention_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _D,
                             _I, _P),
@@ -77,6 +81,7 @@ for _name in ("fused_adamw_f32_f32", "fused_adamw_f32_bf16",
     SIGNATURES[_name] = (_P, _P, _P, _P, _P, _P, _P, _P, _I, _D, _D, _D, _D,
                          _P)
 SIGNATURES["commit_fused_i32"] = SIGNATURES["commit_fused_i64"]
+SIGNATURES["commit_rows_i32"] = SIGNATURES["commit_rows_i64"]
 SIGNATURES["ssd_scan_f32"] = (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                               _I, _I, _P)
 SIGNATURES["ssd_scan_bf16"] = SIGNATURES["ssd_scan_f32"]
@@ -187,6 +192,10 @@ def library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             lib.cuda_error_string.argtypes = [ctypes.c_int]
             lib.cuda_error_string.restype = ctypes.c_char_p
+            lib.staging_event_create.argtypes = [ctypes.POINTER(_P)]
+            lib.staging_event_query.argtypes = [_P]
+            for fn in (lib.staging_event_create, lib.staging_event_query):
+                fn.restype = ctypes.c_int
             _lib = lib
         return _lib
 
@@ -216,9 +225,113 @@ def launch(name: str, device: torch.device, *args) -> None:
         raise RuntimeError(
             f"{name}: the STM's device state must be driven from the "
             "default stream (one-stream rule), not a side stream")
-    err = getattr(lib, name)(*args, stream)
+    _raise_if(getattr(lib, name)(*args, stream), name)
+
+
+_CUDA_NOT_READY = 600        # cudaErrorNotReady
+#: bytes at the head of a staging block for a call's arguments
+#: (commit_fused's ``CommitCall``); the staged columns follow
+STAGING_HEAD = 256
+
+
+class PinnedStaging:
+    """One pinned host block for a host->device copy, and the event
+    recorded right behind its copy on the stream.
+
+    ``take(nbytes)`` grows the block when it is too small and returns
+    ``(head, u8, i64)``: int64 words for a call's arguments, and the
+    column region after them as uint8 and int64 views (its address is
+    ``ptr + STAGING_HEAD``).  A block is written only while no copy out
+    of it is pending (``StagingPool`` checks), so growing drops nothing
+    in flight."""
+
+    def __init__(self, device: torch.device):
+        self.host: Optional[torch.Tensor] = None
+        self.head = self.u8 = self.i64 = None
+        self.ptr = 0
+        self.busy = False
+        ev = _P()
+        with torch.cuda.device(device):
+            _raise_if(library().staging_event_create(ctypes.byref(ev)),
+                      "staging_event_create")
+        self.event: int = ev.value
+
+    def done(self) -> bool:
+        """Whether every copy recorded on the block's event has run."""
+        err = _lib.staging_event_query(self.event)
+        if err == _CUDA_NOT_READY:
+            return False
+        _raise_if(err, "staging_event_query")
+        return True
+
+    def take(self, nbytes: int):
+        if self.host is None or self.u8.size < nbytes:
+            old = 0 if self.u8 is None else self.u8.size
+            size = max(-(-nbytes // 8) * 8, 2 * old, 1 << 16)
+            self.host = torch.empty(STAGING_HEAD + size, dtype=torch.uint8,
+                                    pin_memory=True)
+            whole = self.host.numpy()
+            self.head = whole[:STAGING_HEAD].view(np.int64)
+            self.u8 = whole[STAGING_HEAD:]
+            self.i64 = self.u8.view(np.int64)
+            self.ptr = self.host.data_ptr()
+        return self.head, self.u8, self.i64
+
+
+class StagingPool:
+    """The pinned staging blocks of one device.  ``acquire`` hands out a
+    block that no other call holds and whose last copy has run (the
+    next such block in turn, or a new one when every block is held or
+    still copying), so a call never waits for the card; ``release``
+    returns it once the call has enqueued its copy.  In steady state the
+    first block tried is free: the pool grows only as deep as the
+    stream's backlog of staged copies.  (``pin_memory()``, which this
+    replaces on the hot paths, takes a block from torch's pinned cache
+    at every call and allocates one on a miss.)"""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.blocks: list = []
+        self.next = 0
+        self.lock = threading.Lock()
+
+    def acquire(self) -> PinnedStaging:
+        with self.lock:
+            n = len(self.blocks)
+            for k in range(n):
+                st = self.blocks[(self.next + k) % n]
+                if not st.busy and st.done():
+                    st.busy = True
+                    self.next = (self.next + k + 1) % n
+                    return st
+            st = PinnedStaging(self.device)
+            st.busy = True
+            self.blocks.append(st)
+            return st
+
+    @staticmethod
+    def release(st: PinnedStaging) -> None:
+        st.busy = False
+
+
+_POOLS: dict = {}
+_pools_lock = threading.Lock()
+
+
+def staging(device: torch.device) -> StagingPool:
+    """The staging pool of CUDA ``device`` (made at first use)."""
+    pool = _POOLS.get(device.index)
+    if pool is None:
+        with _pools_lock:
+            pool = _POOLS.get(device.index)
+            if pool is None:
+                pool = _POOLS[device.index] = StagingPool(device)
+    return pool
+
+
+def _raise_if(err: int, name: str) -> None:
     if err:
-        msg = lib.cuda_error_string(err).decode(errors="replace")
+        msg = library().cuda_error_string(err).decode(errors="replace")
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
 
 
@@ -239,38 +352,53 @@ def check_addr_bounds(idx: np.ndarray, n: int) -> None:
     hit a word near the end of the buffer."""
     if not idx.size:
         return
-    lo, hi = int(idx.min()), int(idx.max())
-    if lo < 0 or hi >= n:
+    a = idx if idx.dtype == np.int64 else idx.astype(np.int64)
+    # one pass: as uint64 a negative address is past any frontier too
+    if int(a.view(np.uint64).max()) >= n:
+        lo, hi = int(a.min()), int(a.max())
         raise IndexError(lo if lo < 0 else hi)
 
 
 def host_index(idx) -> np.ndarray:
     """Addresses as a host int64[N] array (lists, ranges, numpy, CPU
     tensors).  Addresses live on the host; a CUDA tensor is refused."""
+    if type(idx) is np.ndarray and idx.dtype is _I64 and idx.ndim == 1:
+        return idx
     if isinstance(idx, torch.Tensor) and idx.device.type != "cpu":
         raise TypeError("addresses are host arrays; got a "
                         f"{idx.device} tensor")
-    a = np.asarray(idx, np.int64).reshape(-1)
-    return a
+    return np.asarray(idx, np.int64).reshape(-1)
 
 
 def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A host int64 array as a tensor on ``device``.
+    """A host int64 array as a tensor of its shape on ``device``.
 
-    To a card the copy goes through pinned memory and does not wait:
-    torch's pinned-memory cache keeps the staging buffer until the copy
-    has run, ``a`` itself is free as soon as this returns, and the copy
-    is ordered before every later launch on the one stream.  (A blocking
-    copy from pageable memory would wait for the whole stream — a stall
-    in which the STM's other threads take the interpreter lock.)  On the
-    CPU the tensor shares ``a``'s memory."""
+    To a card the copy goes through a pinned staging block
+    (``StagingPool``) and does not wait: the block is not written again
+    until its copy has run, ``a`` itself is free as soon as this
+    returns, and the copy is ordered before every later launch on the
+    one stream.  (A blocking copy from pageable memory would wait for
+    the whole stream — a stall in which the STM's other threads take
+    the interpreter lock.)  On the CPU the tensor shares ``a``'s
+    memory."""
     a = np.ascontiguousarray(a, np.int64)
-    if not a.flags.writeable:
-        a = a.copy()
-    t = torch.from_numpy(a)
-    if torch.device(device).type == "cpu":
-        return t
-    return t.pin_memory().to(device, non_blocking=True)
+    device = torch.device(device)
+    if device.type == "cpu":
+        return torch.from_numpy(a if a.flags.writeable else a.copy())
+    if device.type != "cuda":
+        raise RuntimeError(f"unsupported device {device}")
+    out = torch.empty(a.shape, dtype=torch.int64, device=device)
+    if a.size:
+        pool = staging(device)
+        st = pool.acquire()
+        try:
+            _, _, i64 = st.take(8 * a.size)
+            i64[:a.size] = a.reshape(-1)
+            launch("stage_copy", device, out.data_ptr(),
+                   st.ptr + STAGING_HEAD, 8 * a.size, st.event)
+        finally:
+            pool.release(st)
+    return out
 
 
 def to_host(tensors) -> list:

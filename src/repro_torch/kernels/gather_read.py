@@ -17,16 +17,34 @@ one thread per element reading the row in place (the TPU kernel carried
 the whole heap as one VMEM block and padded ragged batches with address
 0; here the kernel masks the ragged edge and the host pads nothing).
 Addresses are int64 end to end, so there is no int32 range route.
+
+``gather_bracketed`` is a bulk transactional read's three gathers — the
+lock words, the heap words, the lock words again (``core/engine/
+bulkread.py``) — as ONE launch of the second kernel in the same source,
+``gather_bracketed_i64``: each thread reads its pre word, its heap word
+and its post word, into one [4, N] int64 output (rows: pre, post, heap,
+and the lock indices for the mirror gather that may follow).  One
+launch is as sound as three under the one-stream rule: every device
+write of the STM's state is a launch or copy on the default stream, so
+no write lands while the kernel runs (``csrc/gather_read.cu`` has the
+argument).  On the main path's 256-word chunks the two index sets ride
+in the launch's parameters, so a chunk's three launches, three
+allocations and host->device index copy become one launch and one
+allocation.  ``gather_lockver_plain`` is its plain version: the three
+gathers in order.
 """
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _lib
 
 launches = _lib.LaunchCounter("gather_read")
+#: the bracketed launches alone (each also counts under ``launches``)
+bracketed_launches = _lib.LaunchCounter("gather_bracketed")
 
 #: the C entry point for each row dtype
 _ENTRY = {torch.int64: "gather_read_i64", torch.int32: "gather_read_i32"}
@@ -80,4 +98,70 @@ def gather_read(row: torch.Tensor, addrs,
     return gather_read_dev(row, dev_idx, out)
 
 
-__all__ = ["gather_plain", "gather_read", "gather_read_dev", "launches"]
+#: up to this many elements a bracketed gather's indices ride in the
+#: launch's parameters (kParamIdx in csrc/gather_read.cu)
+PARAM_IDX = 256
+
+
+def gather_lockver_plain(words: torch.Tensor, heap: torch.Tensor,
+                         idx: torch.Tensor,
+                         addrs: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of ``gather_bracketed``: the pre-gather, the
+    heap gather and the post-gather, in that order, as one [4, N] tensor
+    (rows: pre, post, heap, the lock indices)."""
+    pre = words[idx]
+    vals = heap[addrs]
+    post = words[idx]
+    return torch.stack((pre, post, vals, idx))
+
+
+def gather_bracketed(words: torch.Tensor, heap: torch.Tensor, idxs,
+                     addrs) -> torch.Tensor:
+    """``out`` [4, N] int64 on the rows' device: ``words[idxs]`` before,
+    ``words[idxs]`` after (rows 0 and 1) and ``heap[addrs]`` (row 2) of
+    one bracketed read, and the lock indices (row 3).
+
+    ``words`` (packed lock words) and ``heap`` are contiguous 1-D int64
+    rows on one device; ``idxs``/``addrs`` are host arrays of one length,
+    each index inside its row, or ``IndexError`` is raised before
+    anything is launched.  Up to ``PARAM_IDX`` elements the indices ride
+    in the launch's parameters; a longer batch copies both index sets to
+    the device at once.
+    """
+    _lib.check_row(words)
+    _lib.check_row(heap)
+    if words.get_device() != heap.get_device():
+        raise ValueError("gather_bracketed: words and heap on two devices")
+    i, a = _lib.host_index(idxs), _lib.host_index(addrs)
+    n = a.size
+    if i.size != n:
+        raise ValueError("gather_bracketed: idxs and addrs differ in "
+                         "length")
+    n_w, n_h = words.numel(), heap.numel()
+    _lib.check_addr_bounds(i, n_w)
+    _lib.check_addr_bounds(a, n_h)
+    if not heap.is_cuda:
+        _lib.device_kind(heap)
+        return gather_lockver_plain(words, heap, torch.from_numpy(i.copy()),
+                                    torch.from_numpy(a.copy()))
+    dev = heap.device
+    out = torch.empty((4, n), dtype=torch.int64, device=dev)
+    if n:
+        if n <= PARAM_IDX and n_w <= 1 << 31 and n_h <= 1 << 31:
+            pidx = np.empty(2 * PARAM_IDX, np.int32)
+            pidx[:n] = i
+            pidx[PARAM_IDX:PARAM_IDX + n] = a
+            idx_ptr, host_ptr = 0, pidx.ctypes.data
+        else:
+            both = _lib.to_device(np.concatenate((i, a)), dev)
+            idx_ptr, host_ptr = both.data_ptr(), 0
+        _lib.launch("gather_bracketed_i64", dev, words.data_ptr(), n_w,
+                    heap.data_ptr(), n_h, idx_ptr, host_ptr, n,
+                    out.data_ptr())
+        launches.add()
+        bracketed_launches.add()
+    return out
+
+
+__all__ = ["bracketed_launches", "gather_bracketed", "gather_lockver_plain",
+           "gather_plain", "gather_read", "gather_read_dev", "launches"]

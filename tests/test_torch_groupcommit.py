@@ -313,3 +313,62 @@ def test_mid_scatter_split_matches_reference(monkeypatch):
     np.testing.assert_array_equal(images[1], images[0])
     assert images[1][1:3].tolist() == [101, 102] and images[1][3] == 3
     assert images[1][9:].tolist() == list(range(9, 16))
+
+
+def _reading_batch(tm, base, stamp):
+    """Members that read a word each (the full verdict, not the fast
+    path) and write their own block."""
+    txs = []
+    for t in range(N_TXNS):
+        tx = tm.raw.begin(t)
+        seen = int(tx.read(base + N_TXNS * WORDS + t))
+        tx.write_bulk(range(base + t * WORDS, base + (t + 1) * WORDS),
+                      [stamp + seen + t] * WORDS)
+        txs.append(tx)
+    return txs
+
+
+def test_group_publish_hands_over_gathered_words_and_keeps_the_check(
+        monkeypatch):
+    """The TL2 group publish gives ``commit_fused`` the lock words it
+    gathered inside the stripe window as tensors on the lock table's
+    device (on the card they do not cross the bus again): the unclaimed
+    words of the write locks and the read entries' words.  A kernel
+    verdict that differs from the host's still raises."""
+    seen = []
+    real = CF.commit_fused
+
+    def spy(heap, w_addr, w_val, w_seg, l_words, l_seg, r_words, *a, **k):
+        seen.append((l_words, r_words))
+        return real(heap, w_addr, w_val, w_seg, l_words, l_seg, r_words,
+                    *a, **k)
+    monkeypatch.setattr(CF, "commit_fused", spy)
+    tm = _tm(T, "tl2")
+    base = tm.alloc(N_TXNS * WORDS + 8, 3)
+    b = TG.CommitBatcher(tm.raw)
+    for tx in _reading_batch(tm, base, 10):
+        b.add(tx)
+    assert b.commit_all() == [True] * N_TXNS
+    (l_words, r_words), = seen
+    row = tm.raw.locks.row
+    for w in (l_words, r_words):
+        assert isinstance(w, torch.Tensor) and w.dtype == torch.int64
+        assert w.device == row.device and w.dim() == 1
+    assert r_words.numel() == N_TXNS
+    assert not bool(((l_words & 2) != 0).any())     # gathered before claim
+    np.testing.assert_array_equal(
+        _heap(tm.raw, base, N_TXNS * WORDS),
+        np.repeat(10 + 3 + np.arange(N_TXNS), WORDS))
+
+    def flipped(*a, **k):
+        heap, ok, rel = real(*a, **k)
+        ok = ok.clone()
+        ok[N_TXNS - 1] = False
+        return heap, ok, rel
+    monkeypatch.setattr(CF, "commit_fused", flipped)
+    b = TG.CommitBatcher(tm.raw)
+    for tx in _reading_batch(tm, base, 20):
+        b.add(tx)
+    with pytest.raises(RuntimeError, match="host verdict"):
+        b.commit_all()
+    tm.stop()
