@@ -9,21 +9,26 @@ failure exits non-zero and no result line is printed:
 
   1. the card's name and power limit (``nvidia-smi``), then the build of
      the kernels from ``src/repro_torch/csrc`` (timed), and the
-     tensor-core attention kernel's registers and spills (``ptxas -v``,
-     none may spill) and its ``HMMA`` instructions (``cuobjdump -sass``);
+     tensor-core kernels' (attention's and the SSD scan's) registers and
+     spills (``ptxas -v``, none may spill) and their ``HMMA``
+     instructions (``cuobjdump -sass``);
   2. each kernel against its plain PyTorch version on the card at the
      listed shapes — the six integer kernels bit for bit, the bracketed
      gather and ``commit_fused``'s ring refresh, device lock words and
-     fault split included (and ``snapshot_select`` refused on a side
-     stream; its, ``commit_fused``'s and the bracketed gather's host time
-     split into parts, beside the paths they replaced),
+     fault split included, and ``validate_words`` (a bulk revalidation in
+     one launch) in every mode, both clock ranges and both of its routes
+     (and ``snapshot_select`` refused on a side stream; its,
+     ``commit_fused``'s, the bracketed gather's and a bulk revalidation's
+     host time split into parts, beside the paths they replaced),
      ``flash_attention`` (head dims 40 to 256)
      within 2e-2 at bfloat16 and 2e-4 at float32, ``fused_adamw``'s
      parameters and ring within 2e-2 at bfloat16 and 1e-5 at float32 and
      its moments within 1e-5, ``ssd_scan``'s output within 2e-3 at
      float32 and 5e-2 at bfloat16 and its final state within 2e-3 (rtol
-     = atol, the JAX package's ``tests/test_kernels.py`` tolerances) —
-     then timed with CUDA events
+     = atol, the JAX package's ``tests/test_kernels.py`` tolerances), and
+     each of its four launches against its plain stage (the f32 scratch
+     within 2e-3, y within the same tolerances) — then timed with CUDA
+     events
      beside the plain version, the library call where one exists, and
      the bound, and traced with ``torch.profiler`` for the kernels' own
      device time; and the attention gradient (``FlashAttentionFn``: the
@@ -56,9 +61,10 @@ failure exits non-zero and no result line is printed:
      0``), every trial must make progress (for the unversioned baselines
      under a long scan: in updates), every kernel's launch counter —
      set to 0 before each trial and read after it — must have risen, and
-     a scanned chunk must take exactly one bracketed gather on each
-     lock-version backend (launches per chunk, counted once the trial's
-     workers stopped);
+     a scanned chunk must take exactly one bracketed gather, and a bulk
+     revalidation one ``validate`` launch and no gather, on each
+     lock-version backend (launches per chunk and per revalidation,
+     counted once the trial's workers stopped);
      then the model server: ``repro_torch.launch.serve.Server`` serves
      qwen2.5-3b at full width and depth from MVStore snapshots (8 seeded
      requests of 512 prompt tokens and 32 new tokens through 4 slots;
@@ -101,6 +107,7 @@ import sys
 import threading
 import time
 from collections import defaultdict
+from itertools import chain
 
 import numpy as np
 
@@ -149,7 +156,7 @@ DEVICE_KERNELS = {
     "gather_read": ("gather_read_kernel",),
     "gather_bracketed": ("gather_bracketed_kernel",),
     "scatter_write": ("scatter_write_kernel",),
-    "validate": ("validate_kernel",),
+    "validate": ("validate_kernel", "validate_words_kernel"),
     "version_select": ("version_select_kernel",),
     "commit_fused": ("decide_kernel", "publish_kernel",
                      "publish_rows_kernel"),
@@ -180,36 +187,54 @@ def emit(obj):
 # ---------------------------------------------------------------------------
 
 
-def flash_build_check():
-    """What the compiler made of the tensor-core attention kernel: each
-    ``flash_attention_kernel_mma`` instantiation (head dims 64, 128, 256)
-    must spill nothing (``ptxas -v`` in the build's log) and must run its
-    products as ``HMMA`` (``cuobjdump -sass`` of the library).  Returns
-    {head dim: {registers, spill bytes, HMMA count}}."""
+#: the tensor-core kernels the build must give HMMA and no spills:
+#: (source, kernel template) -> its int template arguments
+MMA_KERNELS = {
+    ("flash_attention.cu", "flash_attention_kernel_mma"): (64, 128, 256),
+    ("ssd_scan.cu", "ssd_scan_kernel_cb_mma"): (64, 128),
+    ("ssd_scan.cu", "ssd_scan_kernel_state_mma"): (64, 128),
+    ("ssd_scan.cu", "ssd_scan_kernel_out_mma"): (64, 128),
+}
+
+
+def mma_build_check():
+    """What the compiler made of the tensor-core kernels: each
+    instantiation in ``MMA_KERNELS`` must spill nothing (``ptxas -v`` in
+    the build's log) and must run its products as ``HMMA`` (``cuobjdump
+    -sass`` of the library).  Returns {kernel<arg>: {registers, spill
+    bytes, HMMA count}}."""
     import re
 
     from torch.utils.cpp_extension import CUDA_HOME
 
     from repro_torch.kernels import _lib
 
-    info, entry = {}, None
-    for line in _lib.build_log("flash_attention.cu").read_text() \
-            .splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            entry = m.group(1)
-            continue
-        d = re.search(r"flash_attention_kernel_mmaILi(\d+)E", entry or "")
-        if not d:
-            continue
-        row = info.setdefault(int(d.group(1)), {"spill_bytes": 0})
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m:
-            row["spill_bytes"] += int(m.group(1)) + int(m.group(2))
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            row["registers"] = int(m.group(1))
+    def which(mangled):
+        """``kernel<arg>`` of a mangled instantiation in MMA_KERNELS."""
+        for _, name in MMA_KERNELS:
+            m = re.search(name + r"ILi(\d+)E", mangled)
+            if m:
+                return f"{name}<{m.group(1)}>"
+        return None
+
+    info = {}
+    for src in sorted({src for src, _ in MMA_KERNELS}):
+        entry = None
+        for line in _lib.build_log(src).read_text().splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                entry = which(m.group(1))
+                continue
+            if entry is None:
+                continue
+            row = info.setdefault(entry, {"spill_bytes": 0})
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                row["spill_bytes"] += int(m.group(1)) + int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                row["registers"] = int(m.group(1))
     sass = subprocess.run(
         [os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "cuobjdump"),
          "-sass", str(_lib.library_path())], capture_output=True, text=True,
@@ -219,18 +244,18 @@ def flash_build_check():
     for line in sass.stdout.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            d = re.search(r"flash_attention_kernel_mmaILi(\d+)E", m.group(1))
-            fn = int(d.group(1)) if d else None
+            fn = which(m.group(1))
             if fn is not None:
                 info.setdefault(fn, {}).setdefault("hmma", 0)
         elif fn is not None and "HMMA" in line:
             info[fn]["hmma"] += 1
-    for d in (64, 128, 256):
-        row = info.get(d, {})
-        check(row.get("spill_bytes") == 0 and "registers" in row,
-              f"flash_attention_kernel_mma<{d}>: ptxas reports {row}")
-        check(row.get("hmma", 0) > 0,
-              f"flash_attention_kernel_mma<{d}> has no HMMA instruction")
+    for (_, name), args in MMA_KERNELS.items():
+        for a in args:
+            row = info.get(f"{name}<{a}>", {})
+            check(row.get("spill_bytes") == 0 and "registers" in row,
+                  f"{name}<{a}>: ptxas reports {row}")
+            check(row.get("hmma", 0) > 0,
+                  f"{name}<{a}> has no HMMA instruction")
     return info
 
 
@@ -279,21 +304,27 @@ def device_times(torch, fn, kernels, iters=50, warm=5):
     """Per-call device time of ``fn`` from a profiler trace of ``iters``
     warmed calls: ``kernel_device_ms`` (the named CUDA kernels alone) and
     ``device_busy_ms`` (every GPU activity the call enqueued, copies and
-    memsets included); both None when the trace shows no GPU activity."""
+    memsets included).  A trace that holds no GPU activity at all (one
+    of the bracketed gather's traces held none in one run) is taken again,
+    up to three times (``trace_attempts``); both None if all were
+    empty."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    n, busy, named = gpu_activity(prof, kernels)
-    if n == 0:
-        return {"kernel_device_ms": None, "device_busy_ms": None}
-    return {"kernel_device_ms": named / iters / 1e3,
-            "device_busy_ms": busy / iters / 1e3}
+    for attempt in range(1, 4):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        n, busy, named = gpu_activity(prof, kernels)
+        if n:
+            return {"kernel_device_ms": named / iters / 1e3,
+                    "device_busy_ms": busy / iters / 1e3,
+                    "trace_attempts": attempt}
+    return {"kernel_device_ms": None, "device_busy_ms": None,
+            "trace_attempts": attempt}
 
 
 def kernel_row(torch, name, fn, iters=200, **rest):
@@ -409,13 +440,14 @@ def kernel_checks(torch, dev, rng):
         check(bool(all_ok) and bool(mask.all()),
               f"validate all-valid set failed at N={n}")
         if n in (1024, 1_000_000):
-            rows.setdefault("validate", {})[n] = kernel_row(
+            rows.setdefault("validate", {})[f"mask_{n}"] = kernel_row(
                 torch, "validate", lambda: VK.validate_mask(
                     *args, seen_t, base, 1, 0),
                 plain_ms=time_ms(torch, lambda: VK.validate_plain(
                     *args, seen_t, base, 1, 0).all()),
                 library_ms=None,
                 bound_ms=bound(28 * n + 4))
+    rows["validate"].update(validate_words_checks(torch, dev, rng, bound))
 
     # version_select: depth 4, empty / all-valid / no-valid rows
     empty = 1 << 62
@@ -449,6 +481,186 @@ def kernel_checks(torch, dev, rng):
     mamba_train_refusal_check(torch, dev)
     attention_grad_checks(torch, dev)
     return rows
+
+
+def _lock_set(rng, n, base, n_words, fail=0.01):
+    """A packed lock row of ``n_words`` words and a read set of ``n``
+    (lock index, seen version) pairs over it: versions near ``base``,
+    owners -2..5, a ``fail`` share of entries locked, flagged or seen at
+    another version."""
+    ver = base + rng.integers(-50, 50, n_words, dtype=np.int64)
+    own = rng.integers(-2, 6, n_words)
+    meta = (rng.random(n_words) < fail).astype(np.int64) \
+        | ((rng.random(n_words) < fail).astype(np.int64) << 1)
+    idx = rng.integers(0, n_words, n, dtype=np.int64)
+    seen = ver[idx] + rng.integers(-1, 2, n) * (rng.random(n) < fail)
+    return _words(ver, own, meta), np.stack((idx, seen), axis=1)
+
+
+def validate_words_checks(torch, dev, rng, bound):
+    """validate_words against its plain version (``validate_plain`` over
+    the plain split of the gathered words), bit for bit, verdict and mask,
+    at N = 256 and 1024 (pairs in the launch's parameters), 4096 and
+    1,000,000 (one staged copy; one CTA, then a grid), in all three modes,
+    with versions and clocks inside int32 and beyond it, and on all-valid
+    sets; then a bulk revalidation at N = 1024 split into its parts and
+    timed in turns beside the path it replaces (a ``gather_read`` launch
+    and the ``validate`` kernel over the split fields).  Returns the timing
+    rows {N: row}."""
+    from repro_torch.kernels import validate as VK
+    from repro_torch.kernels._lib import to_device
+
+    cases = 0
+    for n in (256, 1024, 4096, 1_000_000):
+        n_words = 1 << 16 if n <= 4096 else 1 << 20
+        for base in (1000, 1 << 40):
+            words_np, entries = _lock_set(rng, n, base, n_words)
+            words = to_device(words_np, dev)
+            # the same indices, every entry seen at its word's version
+            exact = entries.copy()
+            exact[:, 1] = words_np[exact[:, 0]] >> 18
+            sets = ((entries, to_device(entries, dev)),
+                    (exact, to_device(exact, dev)))
+            for mode in (0, 1, 2):
+                for r_clock, tid in ((base + 60, 1), (base, 0),
+                                     (base - 60, -1)):
+                    for e, e_t in sets:
+                        ok, mask = VK.validate_words(words, e, r_clock, tid,
+                                                     mode, want_mask=True)
+                        want = VK.validate_words_plain(words, e_t, r_clock,
+                                                       tid, mode)
+                        check(equal(torch, mask, want)
+                              and bool(ok) == bool(want.all()),
+                              f"validate_words != plain N={n} "
+                              f"base={base} mode={mode} r_clock={r_clock}")
+                        ok2, none = VK.validate_words(words, e, r_clock,
+                                                      tid, mode)
+                        check(none is None and bool(ok2) == bool(ok),
+                              f"validate_words verdict without the mask "
+                              f"differs N={n} mode={mode}")
+                        cases += 1
+            # an all-valid set (no lock held, seen = version): true
+            free = _words(words_np >> 18, np.full(n_words, -1),
+                          np.zeros(n_words))
+            ok, _ = VK.validate_words(to_device(free, dev), exact,
+                                      base + 60, 0, 0)
+            check(bool(ok), f"validate_words all-valid set failed N={n}")
+    emit({"kernel_check": "validate_words", "cases": cases,
+          "bit_identical": True})
+
+    rows = {}
+    for n in (1024, 1_000_000):
+        words_np, entries = _lock_set(rng, n, 1 << 40, 1 << 16 if n <= 4096
+                                      else 1 << 20)
+        words = to_device(words_np, dev)
+        ent_t = to_device(entries, dev)
+        rows[n] = kernel_row(
+            torch, "validate", lambda: VK.validate_words(
+                words, entries, 1 << 40, 1, 0),
+            plain_ms=time_ms(torch, lambda: VK.validate_words_plain(
+                words, ent_t, 1 << 40, 1, 0).all()),
+            library_ms=None, shape=f"N={n} read-set pairs, "
+            f"{words.numel()}-word lock row, verdict only",
+            # pairs and words read, the verdict written
+            bound_ms=bound(24 * n + 1))
+    rows.update(revalidation_split(torch, dev, rng))
+    return rows
+
+
+def revalidation_split(torch, dev, rng, n=1024, calls=1000):
+    """One commit's bulk revalidation at N = 1024 on a 2^16-word lock
+    table on the card (all entries valid: the verdict a commit mostly
+    gets), from the read-set list to the Python bool: the path this
+    replaced (two index columns, ``ArrayLockTable.gather`` — the index
+    copy, one ``gather_read``, the field split and casts — then
+    ``validate_readset``: the seen copy, two allocations, the memset and
+    kernel, the flag op and the read-back) and the ``validate_words``
+    path, each split into its parts (ns a call), then both timed in 15
+    paired turns of 100 calls, beside the wrapper alone."""
+    from repro_torch.core.engine import arrayheap as AH
+    from repro_torch.core.engine import validation as V
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels import gather_read as GR
+    from repro_torch.kernels import validate as VK
+
+    locks = AH.ArrayLockTable(16, device=dev)
+    words_np, entries = _lock_set(rng, n, 1 << 40, locks.size, fail=0)
+    locks.row.copy_(_lib.to_device(words_np, dev))
+    entries[:, 1] = words_np[entries[:, 0]] >> 18
+    read_set = [tuple(e) for e in entries.tolist()]
+    r_clock, tid, mode = (1 << 40) + 60, 0, V.V_LE
+    row = locks.row
+
+    def previous_path():
+        idxs = np.fromiter((e[0] for e in read_set), np.int64, n)
+        seen = np.fromiter((e[1] for e in read_set), np.int64, n)
+        ver, own, meta = locks.gather(idxs)
+        return VK.validate_readset(ver, own, meta, seen, r_clock, tid, mode)
+
+    def new_path():
+        return V.revalidate_bulk(locks, read_set, r_clock, tid, mode)
+
+    check(previous_path() is True and new_path() is True,
+          "revalidation of an all-valid read set failed")
+    idxs, seen = entries[:, 0].copy(), entries[:, 1].copy()
+    idx_t = _lib.to_device(idxs, dev)
+    w = GR.gather_read_dev(row, idx_t)
+    ver, own, meta = locks.gather(idxs)
+    seen_t = _lib.to_device(seen, dev)
+    mask = torch.empty(n, dtype=torch.int32, device=dev)
+    flag = torch.empty(1, dtype=torch.int32, device=dev)
+    flag_t = flag[0] != 0
+    ok = _lib.fresh_ok(dev)
+    parts = {
+        "previous.columns": lambda: (
+            np.fromiter((e[0] for e in read_set), np.int64, n),
+            np.fromiter((e[1] for e in read_set), np.int64, n)),
+        "previous.index_copy": lambda: _lib.to_device(idxs, dev),
+        "previous.gather_read": lambda: GR.gather_read_dev(row, idx_t),
+        "previous.split_and_casts": lambda: [
+            t.to(torch.int32) for t in AH._split(w)[1:]],
+        "previous.seen_copy": lambda: _lib.to_device(seen, dev),
+        "previous.allocations": lambda: (
+            torch.empty(n, dtype=torch.int32, device=dev),
+            torch.empty(1, dtype=torch.int32, device=dev)),
+        "previous.memset_and_launch": lambda: _lib.launch(
+            "validate_readset_i64", dev, ver.data_ptr(), own.data_ptr(),
+            meta.data_ptr(), seen_t.data_ptr(), n, r_clock, tid, mode,
+            mask.data_ptr(), flag.data_ptr()),
+        "previous.flag_op": lambda: flag[0] != 0,
+        "previous.read_back": lambda: bool(flag_t),
+        "previous.whole": previous_path,
+        "new.columns": lambda: np.fromiter(
+            chain.from_iterable(read_set), np.int64, 2 * n).reshape(-1, 2),
+        "new.checks": lambda: (
+            _lib.check_row(row), _lib.check_addr_bounds(
+                np.ascontiguousarray(entries, np.int64)[:, 0], row.numel())),
+        "new.ok_from_block": lambda: _lib.fresh_ok(dev),
+        "new.c_call": lambda: _lib.launch(
+            "validate_words_i64", dev, row.data_ptr(), row.numel(),
+            entries.ctypes.data, None, None, None, n, r_clock, tid, mode,
+            None, ok.data_ptr()),
+        "new.wrapper": lambda: VK.validate_words(row, entries, r_clock, tid,
+                                                 mode),
+        "new.read_back": lambda: bool(ok),
+        "new.whole": new_path,
+    }
+    emit({"host_split": "bulk_revalidation",
+          "shape": f"N={n}, 2^16 lock words, mode V_LE, all valid",
+          "ns_per_call": run_split(torch, parts, calls)})
+    runs = in_turns(torch, {"new": new_path, "previous": previous_path,
+                            "wrapper": lambda: VK.validate_words(
+                                row, entries, r_clock, tid, mode)})
+    ratios = [a / b for a, b in zip(runs["new"], runs["previous"])]
+    return {"revalidation_1024": dict(
+        ms=float(np.median(runs["new"])), ms_runs=runs["new"],
+        previous_ms=float(np.median(runs["previous"])),
+        previous_ms_runs=runs["previous"],
+        paired_ratio_to_previous=float(np.median(ratios)),
+        wrapper_ms=float(np.median(runs["wrapper"])),
+        wrapper_ms_runs=runs["wrapper"],
+        shape=f"N={n} read set (list of pairs) to a Python bool, "
+              "2^16-word lock row on the card")}
 
 
 def in_turns(torch, fns, turns=15, iters=100):
@@ -1292,7 +1504,7 @@ def snapshot_select_host_split(torch, dev, ring, ts, slot, calls=1000):
                                               device=dev),
         "empty_ok_bool": lambda: torch.empty((), dtype=torch.bool,
                                              device=dev),
-        "ok_from_block": lambda: SS._fresh_ok(dev),
+        "ok_from_block": lambda: _lib.fresh_ok(dev),
         "device_context": context,
         "stream_objects": lambda: torch.cuda.current_stream(dev)
         != torch.cuda.default_stream(dev),
@@ -1440,14 +1652,60 @@ def ssd_macs(S, H, P, N, Q) -> int:
     return S // Q * (pairs * N + H * (pairs * P + 2 * Q * N * P))
 
 
+def ssd_stage_checks(torch, SS, args, q, st0, dt):
+    """Each of the four launches of ``ssd_scan`` alone against its plain
+    stage on the same inputs: a stage reads its inputs from the scratch,
+    where the plain stages' results are put first.  The f32 scratch (C.B^T
+    at and below the diagonal's tiles, cum, the chunk states) within 2e-3,
+    y within ``SSD_TOL``.  Returns {stage: max abs error}."""
+    xh, dts, A, Bm, Cm = args
+    S, N = xh.shape[1], Bm.shape[-1]
+    Q = min(q, S)
+    cb_w = SS.chunk_cb_plain(Bm, Cm, Q)
+    cum_w = SS.chunk_cum_plain(dts, A, Q)
+    local_w = SS.chunk_state_plain(xh, dts, Bm, cum_w, Q)
+    ins_w, final_w = SS.fold_plain(local_w, cum_w, st0)
+    y_w = SS.output_plain(xh, dts, Cm, cb_w, cum_w, ins_w, Q)
+    tiles = torch.arange(Q, device=xh.device) // 64
+    below = tiles[None, :] <= tiles[:, None]        # the tiles computed
+    work = SS.scratch(xh, N, Q)
+    cb, cum, states = work
+    y = torch.empty_like(xh)
+    final = torch.empty_like(final_w)
+
+    def run(stage):
+        SS.launch_stages(stage, xh, dts, A, Bm, Cm, st0, y, final, work, Q)
+        torch.cuda.synchronize()
+
+    errs = {}
+    run(SS.STAGE_CB)
+    errs["cb"] = max_abs_err(torch, cb[..., :Q, :Q][..., below],
+                             cb_w[..., below], "float32", 2e-3)
+    run(SS.STAGE_STATE)
+    errs["cum"] = max_abs_err(torch, cum, cum_w, "float32", 2e-3)
+    errs["state"] = max_abs_err(torch, states, local_w, "float32", 2e-3)
+    cum.copy_(cum_w)
+    states.copy_(local_w)
+    run(SS.STAGE_FOLD)
+    errs["fold"] = max(max_abs_err(torch, states, ins_w, "float32", 2e-3),
+                       max_abs_err(torch, final, final_w, "float32", 2e-3))
+    cb[..., :Q, :Q].copy_(cb_w)
+    states.copy_(ins_w)
+    run(SS.STAGE_OUT)
+    errs["out"] = max_abs_err(torch, y, y_w, dt, SSD_TOL[dt])
+    return errs
+
+
 def ssd_checks(torch, dev):
     """ssd_scan against its plain version on the card at every case of
-    ``SSD_CASES``: y within ``SSD_TOL`` and the final state within 2e-3.
-    The prefill case is timed: CUDA events, the profiler's kernel time,
-    the plain version (no single PyTorch call computes the scan: no
-    library time).  The bound is the larger of ``ssd_macs`` at the f32
-    peak (the arithmetic is f32) and the bytes of x, dt, A, B, C, y and
-    the two states over the memory rate, for one batch row."""
+    ``SSD_CASES``: each of its four launches alone against its plain
+    stage (``ssd_stage_checks``), then the whole call, y within
+    ``SSD_TOL`` and the final state within 2e-3.  The prefill case is
+    timed: CUDA events, the profiler's kernel time, the plain version (no
+    single PyTorch call computes the scan: no library time).  The bound is
+    the larger of ``ssd_macs`` at the peak of the route's arithmetic (bf16
+    on the tensor cores, f32 off them) and the bytes of x, dt, A, B, C, y
+    and the two states over the memory rate, for one batch row."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ssd_scan as SS
@@ -1469,6 +1727,10 @@ def ssd_checks(torch, dev):
             st0 = torch.zeros(B, H, N, P, device=dev) if init == "zeros" \
                 else torch.randn(B, H, N, P, generator=gen, device=dev)
         args = (xh, dts, A, Bm, Cm)
+        try:
+            stage_errs = ssd_stage_checks(torch, SS, args, q, st0, dt)
+        except Failed as e:
+            raise Failed(f"ssd_scan stage != plain stage ({name}): {e}")
         y, st = SS.ssd_scan(*args, chunk=q, init_state=st0)
         yw, stw = SS.ssd_scan_plain(*args, chunk=q, init_state=st0)
         torch.cuda.synchronize()
@@ -1479,32 +1741,66 @@ def ssd_checks(torch, dev):
             raise Failed(f"ssd_scan != plain ({name}): {e}")
         check(y.dtype == dtype and st.dtype == torch.float32,
               f"ssd_scan ({name}): output dtypes {y.dtype}, {st.dtype}")
-        errs[name] = {"y": err, "final_state": serr}
+        errs[name] = {"y": err, "final_state": serr, "stages": stage_errs}
         if name != KERNELS["ssd_scan"][2]:
             continue
+        timed = (args, q, st0)
         Q = min(q, S)
-        t_ops = 2 * B * ssd_macs(S, H, P, N, Q) / PEAK_OPS_PER_S[
-            "float32"] * 1e3
+        t_ops = 2 * B * ssd_macs(S, H, P, N, Q) / PEAK_OPS_PER_S[dt] * 1e3
         nbytes = (2 * xh.numel() * xh.element_size()
                   + 4 * (dts.numel() + A.numel() + 2 * st.numel())
                   + 2 * Bm.numel() * Bm.element_size())
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        def scan():
+            return SS.ssd_scan(*args, chunk=q, init_state=st0)
         rows[name] = kernel_row(
-            torch, "ssd_scan",
-            lambda: SS.ssd_scan(*args, chunk=q, init_state=st0),
+            torch, "ssd_scan", scan,
+            # each launch's own device time (one trace each)
+            stage_device_ms={st: device_times(
+                torch, scan, (f"ssd_scan_kernel_{st}",))["kernel_device_ms"]
+                for st in ("cb", "state", "fold", "out")},
             shape=f"B={B} S={S} H={H} P={P} N={N} Q={Q} {dt}, "
                   f"{init} init_state, final state out",
             max_abs_err=err, final_state_max_abs_err=serr,
-            tolerance=SSD_TOL[dt],
+            stage_max_abs_err=stage_errs, tolerance=SSD_TOL[dt],
             plain_ms=time_ms(torch, lambda: SS.ssd_scan_plain(
                 *args, chunk=q, init_state=st0), iters=20, warm=3),
             library_ms=None, library="none (no one call)",
             macs=B * ssd_macs(S, H, P, N, Q), bytes=nbytes,
+            ops_ms=t_ops, bytes_ms=t_bytes, peak=dt,
             bound_ms=max(t_ops, t_bytes),
             bound_by="operations" if t_ops >= t_bytes else "bytes")
     emit({"kernel_check": "ssd_scan", "cases": len(SSD_CASES),
           "max_abs_err": errs})
+    emit({"host_split": "ssd_scan",
+          "shape": rows[KERNELS["ssd_scan"][2]]["shape"],
+          "ns_per_call": ssd_host_split(torch, SS, *timed)})
     return {"ssd_scan": rows}
+
+
+def ssd_host_split(torch, SS, args, q, st0, calls=1000):
+    """Host time of one ``ssd_scan`` call at the prefill shape, by part:
+    the argument checks, the two output allocations, the scratch's one
+    allocation, the C call (its four launches) and the whole wrapper."""
+    xh, dts, A, Bm, Cm = args
+    Bsz, S, H, P = xh.shape
+    N, Q = Bm.shape[-1], min(q, S)
+    starts, _, total = SS._layout(Bsz, S, H, P, N, Q)
+    y = torch.empty_like(xh)
+    st = torch.empty((Bsz, H, N, P), dtype=torch.float32, device=xh.device)
+    work = torch.empty(total, dtype=torch.float32, device=xh.device)
+    ptrs = [work.data_ptr() + 4 * a for a in starts]
+    parts = {
+        "checks": lambda: SS._check(*args, st0),
+        "outputs_alloc": lambda: (torch.empty_like(xh), torch.empty(
+            (Bsz, H, N, P), dtype=torch.float32, device=xh.device)),
+        "scratch_alloc": lambda: torch.empty(total, dtype=torch.float32,
+                                             device=xh.device),
+        "c_call_four_launches": lambda: SS._launch(
+            SS.ALL_STAGES, *args, st0, y, st, ptrs, Q),
+        "wrapper": lambda: SS.ssd_scan(*args, chunk=q, init_state=st0),
+    }
+    return run_split(torch, parts, calls)
 
 
 def mamba_train_refusal_check(torch, dev):
@@ -2045,6 +2341,39 @@ def chunk_launches(tm, base, words, chunk):
                      "validate")}
 
 
+def revalidation_launches(tm, base, words):
+    """Kernel launches per bulk revalidation: once the trial's workers
+    have stopped, one transaction reads ``words`` words in one
+    ``read_bulk`` and checks its read set (``Txn.validate_bulk``, the
+    commit's revalidation), with the launch counts read around every
+    bulk revalidation it makes.  Returns [{validate, gather_read}, ...],
+    one entry per bulk revalidation."""
+    from repro_torch import kernels as K
+    from repro_torch.api import run
+    from repro_torch.core.engine import validation as V
+
+    inner, seen = V.revalidate_bulk, []
+
+    def counted(*args):
+        before = K.launch_counts()
+        out = inner(*args)
+        after = K.launch_counts()
+        seen.append({k: after[k] - before[k]
+                     for k in ("validate", "gather_read")})
+        return out
+
+    def body(tx):
+        tx.read_bulk(range(base, base + words))
+        check(tx.validate_bulk(), "a quiet read set failed validation")
+
+    V.revalidate_bulk = counted
+    try:
+        run(tm, body, tid=0)
+    finally:
+        V.revalidate_bulk = inner
+    return seen
+
+
 def rwmix_trial(torch, name, wb, duration_s, warmup_s, backend="multiverse",
                 probe=None):
     """2 block-rotation updaters + 1 checker (eval/workloads.py rwmix)."""
@@ -2094,6 +2423,8 @@ def rwmix_trial(torch, name, wb, duration_s, warmup_s, backend="multiverse",
 
     tot, dt = run_trial([updater(0), updater(1), checker], duration_s,
                         warmup_s, probe=probe)
+    per_reval = (revalidation_launches(tm, base, wb)
+                 if backend in LOCKVER_BACKENDS else None)
     final = run(tm, lambda tx: [_sum(tx.read_bulk(
         range(base + wb * b, base + wb * (b + 1)))) for b in range(n_blocks)],
         tid=0)
@@ -2108,9 +2439,15 @@ def rwmix_trial(torch, name, wb, duration_s, warmup_s, backend="multiverse",
            "failed_checks": tot["failed_checks"],
            "violations": tot["violations"],
            "mode_transitions": stats["mode_transitions"],
-           "final_mode": stats["mode"]}
+           "final_mode": stats["mode"],
+           "launches_per_revalidation": per_reval}
     check(tot["updates"] > 0 and tot["checks"] > 0,
           f"{name}: no progress ({dict(tot)})")
+    if per_reval is not None:
+        check(per_reval and all(r == {"validate": 1, "gather_read": 0}
+                                for r in per_reval),
+              f"{name}: a bulk revalidation did not take one validate "
+              f"launch and no gather ({per_reval})")
     return row
 
 
@@ -3031,7 +3368,7 @@ def main() -> int:
     _lib.library()
     emit({"build_seconds": time.perf_counter() - t0,
           "library": os.path.relpath(str(_lib.library_path()), HERE)})
-    emit({"flash_attention_mma_build": flash_build_check()})
+    emit({"mma_build": mma_build_check()})
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)

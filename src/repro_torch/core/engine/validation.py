@@ -10,11 +10,13 @@ three predicates over the current lock word vs what the transaction saw:
   * ``V_EQ``  (TinySTM): locked-by-other conflicts; ``version == seen``.
 
 ``revalidate`` is the single entry point: it runs the word-at-a-time
-scalar loop for small read sets and switches to the BULK path — one
-consistent ``gather`` of the packed lock words (a ``gather_read`` launch
-on the device), then the ``validate`` kernel over the gathered fields —
-once the read set is large enough to amortize it.  On a CPU lock table
-the same call takes the kernel's plain PyTorch version.
+scalar loop for small read sets and switches to the BULK path once the
+read set is large enough to amortize it: ``validate_words`` over the
+lock table's packed row — on the card ONE launch that gathers each
+entry's lock word, splits it and evaluates the predicate, and one
+read-back of the verdict.  On a CPU lock table the same call takes the
+kernel's plain PyTorch version (the gather, the field split and
+``validate_plain``).
 
 NOrec validates VALUES, not versions: ``validate_values`` re-reads each
 ``(addr, value)`` pair against the heap — in one heap gather once the
@@ -23,6 +25,7 @@ one blocking copy each).
 """
 from __future__ import annotations
 
+from itertools import chain
 from typing import List, Optional
 
 import numpy as np
@@ -57,14 +60,15 @@ def revalidate_scalar(locks, read_set: List[tuple], r_clock: int, tid: int,
 
 def revalidate_bulk(locks, read_set: List[tuple], r_clock: int, tid: int,
                     mode: int) -> Optional[bool]:
-    """Bulk revalidation; ``None`` when the lock table cannot gather."""
-    gather = getattr(locks, "gather", None)
-    if gather is None:
+    """Bulk revalidation; ``None`` when the lock table keeps no packed
+    row (the host ``LockTable``)."""
+    row = getattr(locks, "row", None)
+    if row is None:
         return None
-    idxs = np.fromiter((e[0] for e in read_set), np.int64, len(read_set))
-    seen = np.fromiter((e[1] for e in read_set), np.int64, len(read_set))
-    ver, own, meta = gather(idxs)
-    return VK.validate_readset(ver, own, meta, seen, r_clock, tid, mode)
+    # the (lock index, seen version) pairs in one pass over the tuples
+    entries = np.fromiter(chain.from_iterable(read_set), np.int64,
+                          2 * len(read_set)).reshape(-1, 2)
+    return bool(VK.validate_words(row, entries, r_clock, tid, mode)[0])
 
 
 def revalidate(locks, read_set: List[tuple], r_clock: int, tid: int,

@@ -60,12 +60,15 @@
 #include <math.h>
 #include <cstdint>
 
+#include "mma_bf16.cuh"
+
 namespace {
+
+using namespace repro_torch;
 
 constexpr int kBK = 64;              // key rows of a kv tile
 constexpr int kThreads = 128;        // 4 warps
 constexpr float kNegInf = -1e30f;    // the TPU kernel's mask value
-constexpr int kMaxDevices = 64;
 
 struct Strides {
   long long b, s, h;
@@ -83,68 +86,6 @@ struct Problem {
 
 using bf16 = __nv_bfloat16;
 constexpr int kBQ = 64;              // query rows of a CTA (16 a warp)
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// element offset of (row r, column c) in a [rows][kD] bf16 tile whose
-// 16-byte chunks are XOR-swizzled by the row's low three bits
-template <int kD>
-__device__ __forceinline__ int swz(int r, int c) {
-  return r * kD + ((((c >> 3) ^ r) & 7) | ((c >> 3) & ~7)) * 8 + (c & 7);
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t& r0,
-                                        uint32_t& r1, uint32_t& r2,
-                                        uint32_t& r3) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t& r0,
-                                              uint32_t& r1, uint32_t& r2,
-                                              uint32_t& r3) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-      : "r"(addr));
-}
-
-// d += a . b on the tensor cores: a 16x16 bf16 (row), b 16x8 bf16 (col),
-// d 16x8 f32
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two f32 rounded to a bf16 pair, the lower column in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 
 // Byte offsets, in a swizzled [rows][kD] tile, of the 16-byte chunks
 // 2j + c0 (j < 4) of row ``row``, whose low three bits are this lane's
@@ -585,22 +526,6 @@ __global__ void __launch_bounds__(kThreads)
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
-
-// Raise a kernel's dynamic shared memory limit once per (kernel, device),
-// not at every call: ``done`` is the calling instantiation's own flags.
-// (Launches hold the interpreter lock, so the flags see one caller.)
-template <typename Kernel>
-cudaError_t allow_smem(bool* done, Kernel kernel, size_t bytes) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < kMaxDevices && done[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(bytes));
-  if (err == cudaSuccess && dev < kMaxDevices) done[dev] = true;
-  return err;
-}
 
 Problem make_problem(long long B, long long H, long long KV, long long Sq,
                      long long Sk, long long D, long long bq,

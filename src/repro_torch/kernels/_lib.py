@@ -26,8 +26,9 @@ but the device's default one.
 
 Also here: the bounds contract shared by every gather/scatter
 (``check_addr_bounds``), the host-address to device-index conversion and
-its pinned staging blocks (``to_device``, ``StagingPool``), and the
-per-kernel launch counter.
+its pinned staging blocks (``to_device``, ``StagingPool``), the 0-d bool
+verdicts the kernels write in place (``fresh_ok``), and the per-kernel
+launch counter.
 """
 from __future__ import annotations
 
@@ -52,7 +53,7 @@ SOURCES = ("gather_read.cu", "scatter_write.cu", "validate.cu",
            "flash_attention.cu", "fused_adamw.cu", "ssd_scan.cu",
            "staging.cu")
 #: headers the sources include (hashed with them, not compiled alone)
-HEADERS = ("copy_bytes.cuh",)
+HEADERS = ("copy_bytes.cuh", "mma_bf16.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -66,6 +67,8 @@ SIGNATURES = {
     "gather_read_i32": (_P, _I, _P, _I, _P, _P),
     "scatter_write_i64": (_P, _I, _P, _P, _I, _P),
     "validate_readset_i64": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
+    "validate_words_i64": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
+                           _P),
     "version_select_i64": (_P, _P, _I, _I, _I, _P, _P, _P),
     "gather_bracketed_i64": (_P, _I, _P, _I, _P, _P, _I, _P, _P),
     "commit_fused_i64": (_P, _P),
@@ -82,8 +85,7 @@ for _name in ("fused_adamw_f32_f32", "fused_adamw_f32_bf16",
                          _P)
 SIGNATURES["commit_fused_i32"] = SIGNATURES["commit_fused_i64"]
 SIGNATURES["commit_rows_i32"] = SIGNATURES["commit_rows_i64"]
-SIGNATURES["ssd_scan_f32"] = (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                              _I, _I, _P)
+SIGNATURES["ssd_scan_f32"] = (_P,) * 11 + (_I,) * 7 + (_P,)
 SIGNATURES["ssd_scan_bf16"] = SIGNATURES["ssd_scan_f32"]
 
 _lib: Optional[ctypes.CDLL] = None
@@ -327,6 +329,31 @@ def staging(device: torch.device) -> StagingPool:
             if pool is None:
                 pool = _POOLS[device.index] = StagingPool(device)
     return pool
+
+
+OK_BLOCK = 1024      # 0-d ``ok`` results cut from one allocation
+_ok_views: dict = {}  # device -> iterator over a block's unused elements
+_ok_lock = threading.Lock()
+
+
+def fresh_ok(device: torch.device) -> torch.Tensor:
+    """A 0-d bool tensor on ``device`` that no other call is handed: the
+    next element of a block of ``OK_BLOCK`` allocated, and cut into 0-d
+    views, at once, so a call takes a view made in bulk where it took an
+    allocation.  No element is handed out twice; a block's memory goes
+    when its last element does."""
+    it = _ok_views.get(device)
+    ok = next(it, None) if it is not None else None
+    if ok is None:
+        with _ok_lock:
+            it = _ok_views.get(device)
+            ok = next(it, None) if it is not None else None
+            if ok is None:
+                block = torch.empty(OK_BLOCK, dtype=torch.bool,
+                                    device=device)
+                it = _ok_views[device] = iter(block.unbind(0))
+                ok = next(it)
+    return ok
 
 
 def _raise_if(err: int, name: str) -> None:

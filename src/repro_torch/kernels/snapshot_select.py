@@ -22,7 +22,6 @@ for CPU tensors.
 """
 from __future__ import annotations
 
-import threading
 from typing import Tuple
 
 import torch
@@ -32,9 +31,6 @@ from repro_torch.kernels import _lib
 launches = _lib.LaunchCounter("snapshot_select")
 
 NO_TS = -1
-_OK_BLOCK = 1024      # 0-d ``ok`` results cut from one allocation
-_ok_views: dict = {}  # device -> iterator over a block's unused elements
-_ok_lock = threading.Lock()
 
 
 def select_slot_plain(ts: torch.Tensor, read_clock: int):
@@ -51,26 +47,6 @@ def snapshot_select_plain(ring: torch.Tensor, ts: torch.Tensor,
     """Plain PyTorch version: ``(ring[slot] copied, ok)``."""
     slot, ok = select_slot_plain(ts, read_clock)
     return ring[slot].clone(), ok
-
-
-def _fresh_ok(device: torch.device) -> torch.Tensor:
-    """A 0-d bool tensor on ``device`` that no other call is handed: the
-    next element of a block of ``_OK_BLOCK`` allocated, and cut into 0-d
-    views, at once, so a call takes a view made in bulk where it took an
-    allocation.  No element is handed out twice; a block's memory goes
-    when its last element does."""
-    it = _ok_views.get(device)
-    ok = next(it, None) if it is not None else None
-    if ok is None:
-        with _ok_lock:
-            it = _ok_views.get(device)
-            ok = next(it, None) if it is not None else None
-            if ok is None:
-                block = torch.empty(_OK_BLOCK, dtype=torch.bool,
-                                    device=device)
-                it = _ok_views[device] = iter(block.unbind(0))
-                ok = next(it)
-    return ok
 
 
 def snapshot_select(ring: torch.Tensor, ts: torch.Tensor,
@@ -93,7 +69,7 @@ def snapshot_select(ring: torch.Tensor, ts: torch.Tensor,
         raise ValueError("snapshot_select takes contiguous ring and ts")
     out = ring.new_empty(shape[1:])
     dev = ring.device
-    ok = _fresh_ok(dev)
+    ok = _lib.fresh_ok(dev)
     _lib.launch("snapshot_select_rows", dev, ring.data_ptr(), shape[0],
                 out.nbytes, ts.data_ptr(), int(read_clock), out.data_ptr(),
                 ok.data_ptr())

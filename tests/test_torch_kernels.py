@@ -28,6 +28,7 @@ from repro.kernels import version_select as J_VS
 from repro_torch import kernels as K
 from repro_torch.core.engine import arrayheap as TA
 from repro_torch.core.engine import validation as TV
+from repro_torch.kernels import _lib
 from repro_torch.kernels import commit_fused as CF
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import gather_read as GR
@@ -459,7 +460,7 @@ def test_snapshot_select_hands_out_distinct_ok_tensors():
     """Each call's ``ok`` is a 0-d bool of its own, also across the bulk
     blocks it is cut from: a later call never writes an earlier one's."""
     dev = torch.device("cpu")
-    oks = [SS._fresh_ok(dev) for _ in range(SS._OK_BLOCK + 3)]
+    oks = [_lib.fresh_ok(dev) for _ in range(_lib.OK_BLOCK + 3)]
     assert all(o.dim() == 0 and o.dtype == torch.bool for o in oks)
     for o in oks:
         o.fill_(False)
@@ -480,7 +481,7 @@ def test_snapshot_select_ok_tensors_stay_distinct_across_threads():
 
     def take(out):
         for _ in range(300):
-            o = SS._fresh_ok(dev)
+            o = _lib.fresh_ok(dev)
             out.append((o.data_ptr(), o))
 
     old = sys.getswitchinterval()

@@ -178,3 +178,112 @@ def test_bare_cuda_wrapper_refuses_grad():
         y, _ = SS.ssd_scan(xg, dt, A, b, c, chunk=32)
     want, _ = SS.ssd_scan_plain(xh, dt, A, b, c, chunk=32)
     torch.testing.assert_close(y, want, rtol=2e-3, atol=2e-3)
+
+
+# The plain stages of the CUDA scan's decomposition (``kernels/ssd_scan``:
+# cb, state, fold, out), each against the reference.  The sweep plus a
+# ragged chunk (Q = 200, three full 64-row tiles and a short one) at the
+# smallest d_state of the sweep (N = 4).
+STAGE_SHAPES = SWEEP + [(1, 400, 2, 8, 4, 200)]
+
+
+def _chunk_np(a, Q):
+    """[B, S, ...] -> [B, nc, Q, ...] (numpy)."""
+    return a.reshape(a.shape[0], a.shape[1] // Q, Q, *a.shape[2:])
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", STAGE_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_stage_cb_and_cum_match_reference_chunk_einsums(B, S, H, P, N, chunk,
+                                                        dtype):
+    """Stage 1's C.B^T and stage 2's cum against the reference chunk
+    body's einsum and cumsum (``repro/models/mamba.py``), chunk by
+    chunk, on the same bf16-rounded inputs."""
+    arrs = _inputs(B, S, H, P, N, seed=5)
+    jx, jdt, jA, jb, jc = _jax(arrs, dtype)
+    _, tdt, tA, tb, tc = _torch(arrs, dtype)
+    Q = min(chunk, S)
+    cb = SS.chunk_cb_plain(tb, tc, Q)
+    cum = SS.chunk_cum_plain(tdt, tA, Q)
+    assert cb.shape == (B, S // Q, Q, Q) and cum.shape == (B, S // Q, H, Q)
+    for c in range(S // Q):
+        rows = slice(c * Q, (c + 1) * Q)
+        want_cb = jnp.einsum("bin,bjn->bij", jc[:, rows].astype(jnp.float32),
+                             jb[:, rows].astype(jnp.float32))
+        want_cum = jnp.cumsum(jdt[:, rows] * jA[None, None, :], axis=1)
+        _close(cb[:, c], want_cb, 2e-3)
+        _close(cum[:, c].transpose(1, 2), want_cum, 2e-3)
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", STAGE_SHAPES)
+def test_stage_states_match_reference(B, S, H, P, N, chunk):
+    """Stage 2's chunk-local states against the reference's chunked scan
+    of the chunk alone, and stage 3's state entering each chunk and
+    final state against the reference's scan of the prefix before it
+    (``ssd_chunk_scan``), from a seeded ``init_state``; from zeros, the
+    final state against the recurrence (``ssd_scan_ref``)."""
+    arrs = _inputs(B, S, H, P, N, seed=6)
+    init = np.random.default_rng(7).standard_normal(
+        (B, H, N, P)).astype(np.float32)
+    j_in = _jax(arrs, "float32")
+    t_in = _torch(arrs, "float32")
+    xh, dt, A, b, c = t_in
+    Q = min(chunk, S)
+    cum = SS.chunk_cum_plain(dt, A, Q)
+    local = SS.chunk_state_plain(xh, dt, b, cum, Q)
+    state_in, final = SS.fold_plain(local, cum, torch.from_numpy(init))
+    assert local.shape == state_in.shape == (B, S // Q, H, N, P)
+    for k in range(S // Q):
+        rows = slice(k * Q, (k + 1) * Q)
+        one = [a[:, rows] if a.ndim > 1 else a for a in j_in]
+        _, want_local = J_MAMBA.ssd_chunk_scan(*one, chunk=Q)
+        _close(local[:, k], want_local, 2e-3)
+        if k == 0:
+            _close(state_in[:, 0], init, 2e-3)
+        else:
+            prefix = [a[:, :k * Q] if a.ndim > 1 else a for a in j_in]
+            _, want_in = J_MAMBA.ssd_chunk_scan(
+                *prefix, chunk=Q, init_state=jnp.asarray(init))
+            _close(state_in[:, k], want_in, 2e-3)
+    _, want_final = J_MAMBA.ssd_chunk_scan(*j_in, chunk=Q,
+                                           init_state=jnp.asarray(init))
+    _close(final, want_final, 2e-3)
+    _, zero_final = SS.fold_plain(local, cum)
+    _, oracle = J_REF.ssd_scan_ref(*j_in)
+    _close(zero_final, oracle, 2e-3)
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", STAGE_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_stage_output_composition_matches_pallas(B, S, H, P, N, chunk,
+                                                 dtype):
+    """Stage 4's y over the plain stages before it, and
+    ``ssd_scan_plain`` (their composition), against the Pallas kernel in
+    interpret mode (``ops.ssd_scan``)."""
+    arrs = _inputs(B, S, H, P, N, seed=8)
+    xh, dt, A, b, c = _torch(arrs, dtype)
+    Q = min(chunk, S)
+    cum = SS.chunk_cum_plain(dt, A, Q)
+    state_in, _ = SS.fold_plain(SS.chunk_state_plain(xh, dt, b, cum, Q),
+                                cum)
+    y = SS.output_plain(xh, dt, c, SS.chunk_cb_plain(b, c, Q), cum,
+                        state_in, Q)
+    assert y.dtype == getattr(torch, dtype) and y.shape == xh.shape
+    want, _ = J_OPS.ssd_scan(*_jax(arrs, dtype), chunk=chunk)
+    _close(y, want, TOL[dtype])
+    composed, _ = SS.ssd_scan_plain(xh, dt, A, b, c, chunk=chunk)
+    assert torch.equal(composed, y)
+
+
+def test_scratch_views_are_one_aligned_allocation():
+    """The kernel's scratch is one f32 allocation cut into C.B^T (rows
+    padded to 64), cum and the chunk states, each view 16-byte aligned."""
+    xh = torch.zeros(2, 400, 3, 8)
+    cb, cum, states = SS.scratch(xh, 5, 200)
+    assert cb.shape == (2, 2, 256, 256) and cum.shape == (2, 2, 3, 200)
+    assert states.shape == (2, 2, 3, 5, 8)
+    base = cb.untyped_storage().data_ptr()
+    assert cum.untyped_storage().data_ptr() == base \
+        == states.untyped_storage().data_ptr()
+    assert all(t.data_ptr() % 16 == 0 and t.is_contiguous()
+               for t in (cb, cum, states))
