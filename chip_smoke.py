@@ -15,11 +15,17 @@ failure exits non-zero and no result line is printed:
   2. each kernel against its plain PyTorch version on the card at the
      listed shapes — the six integer kernels bit for bit, the bracketed
      gather and ``commit_fused``'s ring refresh, device lock words and
-     fault split included, and ``validate_words`` (a bulk revalidation in
-     one launch) in every mode, both clock ranges and both of its routes
-     (and ``snapshot_select`` refused on a side stream; its,
-     ``commit_fused``'s, the bracketed gather's and a bulk revalidation's
-     host time split into parts, beside the paths they replaced),
+     fault split included, ``validate_words`` (a bulk revalidation in
+     one launch) in every mode, both clock ranges and both of its routes,
+     ``mirror_select`` (a versioned chunk's mirror resolve in one launch)
+     on both of its argument routes, and ``scatter_write`` from host
+     columns (parameter and staged routes, the fill form, a repeated
+     index) and from columns on the card (and ``snapshot_select`` refused
+     on a side stream; its, ``commit_fused``'s, the bracketed gather's, a
+     bulk revalidation's, a versioned chunk's and a host-column scatter's
+     host time split into parts, and the last two, the write-back and the
+     release timed in paired turns beside the paths they replaced, their
+     device operations counted in a profiler trace),
      ``flash_attention`` (head dims 40 to 256)
      within 2e-2 at bfloat16 and 2e-4 at float32, ``fused_adamw``'s
      parameters and ring within 2e-2 at bfloat16 and 1e-5 at float32 and
@@ -61,10 +67,12 @@ failure exits non-zero and no result line is printed:
      0``), every trial must make progress (for the unversioned baselines
      under a long scan: in updates), every kernel's launch counter —
      set to 0 before each trial and read after it — must have risen, and
-     a scanned chunk must take exactly one bracketed gather, and a bulk
-     revalidation one ``validate`` launch and no gather, on each
+     a scanned chunk must take exactly one bracketed gather (and, read
+     by a versioned multiverse reader, one ``mirror_select`` as well), and
+     a bulk revalidation one ``validate`` launch and no gather, on each
      lock-version backend (launches per chunk and per revalidation,
-     counted once the trial's workers stopped);
+     counted once the trial's workers stopped), and some trial window
+     must have resolved versioned reads through ``mirror_select``;
      then the model server: ``repro_torch.launch.serve.Server`` serves
      qwen2.5-3b at full width and depth from MVStore snapshots (8 seeded
      requests of 512 prompt tokens and 32 new tokens through 4 slots;
@@ -135,6 +143,11 @@ KERNELS = {
                  "src/repro/kernels/validate.py:74", 1024),
     "version_select": ("src/repro_torch/csrc/version_select.cu",
                        "src/repro/kernels/version_select.py:62", 256),
+    # a versioned bulk read's mirror resolve in one launch (the second
+    # kernel of version_select.cu; the reference's PackedVLT.select, whose
+    # selection is version_select_flat on the TPU)
+    "mirror_select": ("src/repro_torch/csrc/version_select.cu",
+                      "src/repro/kernels/version_select.py:62", 256),
     "commit_fused": ("src/repro_torch/csrc/commit_fused.cu",
                      "src/repro/kernels/commit_fused.py:238", "group"),
     "snapshot_select": ("src/repro_torch/csrc/snapshot_select.cu",
@@ -155,9 +168,10 @@ LOCKVER_BACKENDS = ("multiverse", "tl2", "dctl", "tinystm")
 DEVICE_KERNELS = {
     "gather_read": ("gather_read_kernel",),
     "gather_bracketed": ("gather_bracketed_kernel",),
-    "scatter_write": ("scatter_write_kernel",),
+    "scatter_write": ("scatter_write_kernel", "scatter_pairs_kernel"),
     "validate": ("validate_kernel", "validate_words_kernel"),
-    "version_select": ("version_select_kernel",),
+    "version_select": ("version_select_kernel", "mirror_select_kernel"),
+    "mirror_select": ("mirror_select_kernel",),
     "commit_fused": ("decide_kernel", "publish_kernel",
                      "publish_rows_kernel"),
     "snapshot_select": ("snapshot_select_kernel",),
@@ -280,12 +294,9 @@ def time_ms(torch, fn, iters=200, warm=20):
     return start.elapsed_time(end) / iters
 
 
-def gpu_activity(prof, kernels=()):
-    """``(events, busy_us, kernels_us)`` of a finished ``torch.profiler``
-    run: how many GPU activities (kernels, copies, memsets) its trace
-    holds, their summed duration, and the summed duration of the kernels
-    whose names contain one of ``kernels``.  On one stream the activities
-    do not overlap, so the sum is the time the card was busy."""
+def gpu_events(prof):
+    """The GPU activities (kernels, copies, memsets) of a finished
+    ``torch.profiler`` run, as chrome-trace events."""
     os.makedirs(TRACE_DIR, exist_ok=True)
     path = os.path.join(TRACE_DIR, f"trace_{os.getpid()}.json")
     prof.export_chrome_trace(path)
@@ -294,7 +305,16 @@ def gpu_activity(prof, kernels=()):
             events = json.load(f)["traceEvents"]
     finally:
         os.remove(path)
-    gpu = [e for e in events if e.get("cat") in GPU_CATS and "dur" in e]
+    return [e for e in events if e.get("cat") in GPU_CATS and "dur" in e]
+
+
+def gpu_activity(prof, kernels=()):
+    """``(events, busy_us, kernels_us)`` of a finished ``torch.profiler``
+    run: how many GPU activities (kernels, copies, memsets) its trace
+    holds, their summed duration, and the summed duration of the kernels
+    whose names contain one of ``kernels``.  On one stream the activities
+    do not overlap, so the sum is the time the card was busy."""
+    gpu = gpu_events(prof)
     named = sum(e["dur"] for e in gpu if e["cat"] == "kernel"
                 and any(k in e["name"] for k in kernels))
     return len(gpu), sum(e["dur"] for e in gpu), named
@@ -344,7 +364,6 @@ def kernel_checks(torch, dev, rng):
     """Bit-for-bit kernel vs plain checks at every listed shape; returns
     {kernel: {N: timing row}} for the timed shapes."""
     from repro_torch.kernels import gather_read as GR
-    from repro_torch.kernels import scatter_write as SW
     from repro_torch.kernels import validate as VK
     from repro_torch.kernels import version_select as VS
     from repro_torch.kernels._lib import to_device
@@ -375,28 +394,7 @@ def kernel_checks(torch, dev, rng):
                 library_ms=time_ms(
                     torch, lambda: torch.index_select(row, 0, idx_t)),
                 bound_ms=bound(24 * n))
-    for n in (1, 255, 256, 1024, 4096, 1_000_000):
-        idx = rng.permutation(H)[:n].astype(np.int64)
-        vals = rng.integers(-big, big, n, dtype=np.int64)
-        a, b = row.clone(), row.clone()
-        SW.scatter_write(a, idx, vals)
-        idx_t, val_t = to_device(idx, dev), to_device(vals, dev)
-        SW.scatter_plain(b, idx_t, val_t)
-        check(equal(torch, a, b), f"scatter_write != plain at N={n}")
-        want = row_np.copy()
-        want[idx] = vals
-        check(np.array_equal(a.cpu().numpy(), want),
-              f"scatter_write != host scatter at N={n}")
-        if n in (1024, 1_000_000):
-            c = row.clone()
-            rows.setdefault("scatter_write", {})[n] = kernel_row(
-                torch, "scatter_write",
-                lambda: SW.scatter_write_dev(a, idx_t, val_t),
-                plain_ms=time_ms(torch,
-                                 lambda: SW.scatter_plain(b, idx_t, val_t)),
-                library_ms=time_ms(
-                    torch, lambda: c.index_copy_(0, idx_t, val_t)),
-                bound_ms=bound(24 * n))
+    rows.update(scatter_checks(torch, dev, rng, row, row_np, bound))
 
     # gather_read over an int32 row (the MVStore block and ring rows)
     row32_np = rng.integers(-(1 << 31), 1 << 31, H, dtype=np.int64) \
@@ -473,6 +471,8 @@ def kernel_checks(torch, dev, rng):
                     ts_t, data_t, base)),
                 library_ms=None,
                 bound_ms=bound((2 * 8 * 4 + 12) * n))
+    rows.update(mirror_select_checks(torch, dev, rng, bound))
+    rows.update(host_path_checks(torch, dev, rng, row))
     rows.update(commit_fused_checks(torch, dev, rng, bound))
     rows.update(snapshot_select_checks(torch, dev, rng, bound))
     rows.update(flash_checks(torch, dev))
@@ -747,8 +747,522 @@ def bracketed_checks(torch, dev, rng, heap, heap_np, bound):
         library_ms_runs=runs["index_selects"],
         library="three torch.index_select calls (indices on the card)",
         # two indices read, three words read and four written (the lock
-        # indices come out as row 3 for the mirror gather)
+        # indices come out as row 3)
         bound_ms=bound(56 * n))}}
+
+
+def scatter_checks(torch, dev, rng, row, row_np, bound):
+    """scatter_write bit for bit against its plain version on the card and
+    a numpy scatter: from host columns (numpy, and a list up to 65,536)
+    at N = 1, 1023 and 1024 (pairs in the launch's parameters) and 1025,
+    65,536 and 1,000,000 (one staged copy), from columns on the card
+    (``scatter_write_dev``), the fill form (up to 2048 indices in the
+    parameters, then staged) and a repeated index with an equal value
+    on both routes; then timed.  Returns {"scatter_write": rows}."""
+    from repro_torch.kernels import scatter_write as SW
+    from repro_torch.kernels._lib import to_device
+
+    big = 1 << 62
+    H = row.numel()
+    cases = 0
+
+    def agree(a, b, want, what):
+        nonlocal cases
+        check(equal(torch, a, b), f"scatter_write != plain: {what}")
+        check(np.array_equal(a.cpu().numpy(), want),
+              f"scatter_write != numpy scatter: {what}")
+        cases += 1
+
+    for n in (1, 1023, 1024, 1025, 65_536, 1_000_000):
+        idx = rng.permutation(H)[:n].astype(np.int64)
+        vals = rng.integers(-big, big, n, dtype=np.int64)
+        idx_t, val_t = to_device(idx, dev), to_device(vals, dev)
+        want = row_np.copy()
+        want[idx] = vals
+        b = row.clone()
+        SW.scatter_plain(b, idx_t, val_t)
+        for how, values in (("numpy", vals), ("card", val_t),
+                            ("list", vals.tolist() if n <= 65_536
+                             else None)):
+            if values is not None:
+                a = row.clone()
+                SW.scatter_write(a, idx, values)
+                agree(a, b, want, f"{how} columns at N={n}")
+    for n in (1, 2048, 2049, 65_536):
+        idx = rng.integers(0, H, n, dtype=np.int64)   # repeats allowed
+        word = int(rng.integers(-big, big))
+        a, b = row.clone(), row.clone()
+        SW.scatter_fill(a, idx, word)
+        SW.scatter_fill_plain(b, to_device(idx, dev), word)
+        want = row_np.copy()
+        want[idx] = word
+        agree(a, b, want, f"fill at N={n}")
+    for n in (1024, 4096):
+        u = rng.permutation(H)[:n - 1].astype(np.int64)
+        vals = rng.integers(-big, big, n - 1, dtype=np.int64)
+        idx, vals = np.append(u, u[0]), np.append(vals, vals[0])
+        a, b = row.clone(), row.clone()
+        SW.scatter_write(a, idx, vals)
+        SW.scatter_plain(b, to_device(idx, dev), to_device(vals, dev))
+        want = row_np.copy()
+        want[idx] = vals
+        agree(a, b, want, f"a repeated index at N={n}")
+    emit({"kernel_check": "scatter_write", "cases": cases,
+          "bit_identical": True})
+
+    out = {}
+    for n in (1024, 1_000_000):
+        idx = rng.permutation(H)[:n].astype(np.int64)
+        vals = rng.integers(-big, big, n, dtype=np.int64)
+        idx_t, val_t = to_device(idx, dev), to_device(vals, dev)
+        a, b, c = row.clone(), row.clone(), row.clone()
+        plain_ms = time_ms(torch, lambda: SW.scatter_plain(b, idx_t, val_t))
+        library_ms = time_ms(torch, lambda: c.index_copy_(0, idx_t, val_t))
+        route = "parameters" if n <= SW.PARAM_PAIRS else "one staged copy"
+        out[n] = kernel_row(
+            torch, "scatter_write", lambda: SW.scatter_write(a, idx, vals),
+            iters=200 if n <= 4096 else 50, plain_ms=plain_ms,
+            library_ms=library_ms, bound_ms=bound(24 * n),
+            shape=f"N={n} host columns (numpy) into a {H}-word int64 "
+                  f"row, {route}")
+        out[f"dev_{n}"] = kernel_row(
+            torch, "scatter_write",
+            lambda: SW.scatter_write_dev(a, idx_t, val_t),
+            plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound(24 * n),
+            shape=f"N={n} columns on the card (scatter_write_dev)")
+    n = 1024
+    idx = rng.integers(0, H, n, dtype=np.int64)
+    a, c = row.clone(), row.clone()
+    idx_t = to_device(idx, dev)
+    out[f"fill_{n}"] = kernel_row(
+        torch, "scatter_write", lambda: SW.scatter_fill(a, idx, 12345),
+        plain_ms=time_ms(torch, lambda: SW.scatter_fill_plain(
+            c, idx_t, 12345)),
+        library_ms=time_ms(torch, lambda: c.index_fill_(0, idx_t, 12345)),
+        bound_ms=bound(16 * n), shape=f"N={n} host indices, fill form")
+    return {"scatter_write": out}
+
+
+def _mirror_state(rng, size, base, ways=2, depth=4):
+    """A seeded mirror (``PackedVLT.arrays()`` shapes): seq mostly even, a
+    tenth odd (torn rows); ways tracking addresses 0..999, or NO_ADDR /
+    UNPACKABLE; timestamps around ``base``, newest first, a fifth of the
+    slots empty (EMPTY_TS); int64 data over the whole range."""
+    from repro_torch.core.vlt import EMPTY_TS, PackedVLT
+
+    seq = rng.integers(0, 1000, size) * 2 + (rng.random(size) < 0.1)
+    addr = rng.integers(0, 1000, (size, ways))
+    addr[rng.random((size, ways)) < 0.15] = PackedVLT.NO_ADDR
+    addr[rng.random((size, ways)) < 0.05] = PackedVLT.UNPACKABLE
+    ts = base + rng.integers(-12, 12, (size, ways, depth))
+    ts = -np.sort(-ts, axis=2)
+    ts[rng.random((size, ways, depth)) < 0.2] = EMPTY_TS
+    data = rng.integers(-(1 << 62), 1 << 62, (size, ways, depth))
+    return seq, addr, ts, data
+
+
+def _mirror_queries(rng, addr, n):
+    """``n`` (lock index, address) pairs: a third ask for way 0's
+    address, a third for way 1's, the rest for a random address."""
+    idxs = rng.integers(0, addr.shape[0], n).astype(np.int64)
+    pick = rng.integers(0, 3, n)
+    addrs = rng.integers(0, 1000, n).astype(np.int64)
+    for w in range(addr.shape[1]):
+        sel = pick == w
+        addrs[sel] = np.maximum(addr[idxs[sel], w], 0)
+    return idxs, addrs
+
+
+def _mirror_cases(state, idxs, addrs, r_clock):
+    """How many elements of each kind a query batch holds (host)."""
+    from repro_torch.core.vlt import EMPTY_TS
+
+    seq, addr, ts, _ = state
+    rows = addr[idxs]
+    match = (rows == addrs[:, None]) & (rows >= 0)
+    way = np.where(match.any(axis=1), np.argmax(match, axis=1), 0)
+    tw = ts[idxs, way]
+    return {"odd_seq": int((seq[idxs] & 1).sum()),
+            "unmatched": int((~match.any(axis=1)).sum()),
+            "second_way": int((match.any(axis=1) & (way == 1)).sum()),
+            "no_version_below": int((~(tw < r_clock).any(axis=1)).sum()),
+            "empty_slots": int((tw == EMPTY_TS).sum())}
+
+
+def mirror_select_checks(torch, dev, rng, bound):
+    """mirror_select bit for bit (values and codes, every lane) against
+    its plain version on a seeded 2^16-row mirror on the card, clocks
+    near 2^40: N = 1, 255, 256, 257 and 4096, on the parameter route
+    (N <= 256, else the wrapper's own staged copy) and on the device
+    route (the index sets handed in on the card, as the bracketed gather
+    stages them), each at three clocks; then timed at N=256 into a
+    caller's block.  Returns {"mirror_select": {256: row}}."""
+    from repro_torch.core.vlt import PackedVLT
+    from repro_torch.kernels import version_select as VS
+    from repro_torch.kernels._lib import to_device
+
+    base = 1 << 40
+    size = 1 << 16
+    state = _mirror_state(rng, size, base)
+    mirror = PackedVLT(size, device=dev)
+    mirror.load(*state)
+    seq, addr, _, _ = mirror.arrays()
+    td = mirror._tsdata
+    cases, seen, kinds = 0, set(), {}
+    for n in (1, 255, 256, 257, 4096):
+        idxs, addrs = _mirror_queries(rng, state[1], n)
+        i_t, a_t = to_device(idxs, dev), to_device(addrs, dev)
+        both = to_device(np.concatenate((idxs, addrs)), dev)
+        for r_clock in (base - 13, base, base + 13):
+            want = VS.mirror_select_plain(seq, addr, td, i_t, a_t, r_clock)
+            for dev_idx in (None, both):
+                got = VS.mirror_select(seq, addr, td, idxs, addrs, r_clock,
+                                       dev_idx=dev_idx)
+                check(equal(torch, got, want),
+                      f"mirror_select != plain at N={n} clock={r_clock} "
+                      f"route={'device' if dev_idx is not None else 'params'}")
+                cases += 1
+            seen.update(np.unique(want[1].cpu().numpy()).tolist())
+            if n == 4096:
+                kinds[r_clock] = _mirror_cases(state, idxs, addrs, r_clock)
+    check({0, 1, 2} <= seen, f"mirror_select codes seen: {seen}")
+    check(all(v > 0 for k in kinds.values() for v in k.values()),
+          f"mirror_select cases missing: {kinds}")
+    emit({"kernel_check": "mirror_select", "cases": cases,
+          "bit_identical": True, "codes_seen": sorted(seen),
+          "kinds_at_4096": kinds[base]})
+    n = 256
+    idxs, addrs = _mirror_queries(rng, state[1], n)
+    i_t, a_t = to_device(idxs, dev), to_device(addrs, dev)
+    blk = torch.empty((6, n), dtype=torch.int64, device=dev)
+    return {"mirror_select": {n: kernel_row(
+        torch, "mirror_select",
+        lambda: VS.mirror_select(seq, addr, td, idxs, addrs, base,
+                                 out=blk[4:]),
+        plain_ms=time_ms(torch, lambda: VS.mirror_select_plain(
+            seq, addr, td, i_t, a_t, base)),
+        library_ms=None,
+        # index and address, seq, two way addresses, one way's four ts
+        # and four data slots read; value and code written
+        bound_ms=bound((4 + 8 + 8 + 16 + 32 + 32 + 16) * n),
+        shape=f"N={n} into a caller's [2, N] block, 2^16-row mirror, "
+              "2 ways x depth 4, indices in the parameters")}}
+
+
+def _previous_mirror_gather(mirror, idx, r_clock):
+    """The mirror resolve ``mirror_select`` replaced (``PackedVLT.gather``):
+    seq, the way addresses, every way's slots and seq again by advanced
+    indexing, then one ``version_select`` launch over N x ways rows."""
+    from repro_torch.kernels import version_select as VS
+
+    n, ways, depth = idx.numel(), mirror.ways, mirror.depth
+    s1 = mirror._seq[idx]
+    rows_addr = mirror._addr[idx]
+    td = mirror._tsdata[:, idx]
+    s2 = mirror._seq[idx]
+    vals, found = VS.version_select(td[0].reshape(n * ways, depth),
+                                    td[1].reshape(n * ways, depth), r_clock)
+    return s1, s2, rows_addr, vals.view(n, ways), found.view(n, ways)
+
+
+def _previous_resolve(s1, s2, rows_addr, vals, found, addrs, ways=2):
+    """... and its host side (``PackedVLT.resolve``): the way match over
+    [N, ways] and the way hits."""
+    stable = (s1 == s2) & ((s1 & 1) == 0)
+    match = rows_addr == np.asarray(addrs, np.int64)[:, None]
+    way = np.argmax(match, axis=1)
+    rows = np.arange(way.size)
+    ok = stable & match.any(axis=1) & (found[rows, way] != 0)
+    for w in range(1, ways):
+        int((ok & (way == w)).sum())
+    return vals[rows, way], ok
+
+
+def _previous_scatter(row, addrs, values):
+    """The host-column scatter ``scatter_pairs`` replaced: the values coerced
+    and staged (``stage_copy``), the addresses staged, then
+    ``scatter_write_dev`` — three device operations, two allocations."""
+    import torch
+
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels import scatter_write as SW
+
+    _lib.check_row(row)
+    a = _lib.host_index(addrs)
+    _lib.check_addr_bounds(a, row.numel())
+    if isinstance(values, torch.Tensor):
+        vals = values.reshape(-1).to(device=row.device, dtype=torch.int64)
+    else:
+        arr = np.asarray(values)
+        if arr.dtype.kind not in "iu":
+            arr = np.fromiter((int(v) for v in values), np.int64, a.size)
+        vals = _lib.to_device(arr.reshape(-1), row.device)
+    SW.scatter_write_dev(row, _lib.to_device(a, row.device), vals)
+
+
+def op_counts(torch, fn, iters=20):
+    """Device operations per call of ``fn`` from a ``torch.profiler``
+    trace of ``iters`` warmed calls: each kernel by its ``__global__``
+    name, host->device and device->host copies, memsets."""
+    from torch.profiler import ProfilerActivity, profile
+
+    names = sorted({k for ks in DEVICE_KERNELS.values() for k in ks},
+                   key=len, reverse=True)
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        gpu = gpu_events(prof)
+        if gpu:
+            break
+    counts = defaultdict(int)
+    for e in gpu:
+        name = e["name"]
+        if e["cat"] == "kernel":
+            key = next((k for k in names if k in name), name[:80])
+        elif e["cat"] == "gpu_memcpy":
+            key = next((f"memcpy_{d}" for d in ("HtoD", "DtoH", "DtoD")
+                        if d in name), "memcpy")
+        else:
+            key = "memset"
+        counts[key] += 1
+    return {k: v / iters for k, v in sorted(counts.items())}
+
+
+def host_path_checks(torch, dev, rng, heap):
+    """The main path's calls through the two redesigned kernels, against
+    the paths they replaced (timed in 15 paired ABBA turns, host time
+    split into parts) and counted in a profiler trace:
+
+      * a versioned chunk at N=256 (2^16-row mirror, 2^16 lock words, the
+        1,000,000-word heap): the mirror resolve from the chunk's lock
+        indices and addresses to host (values, ok) — ``PackedVLT.select``
+        and one copy against ``gather`` + ``to_host`` + ``resolve`` — and
+        the whole chunk with its bracketed gather;
+      * the write-back at N=1024: ``ArrayHeap.scatter`` from a list;
+      * the release at N=1024: ``unlock_bulk`` at a version.
+
+    The operation counts: a versioned chunk through
+    ``bulkread.gather_versioned`` on a multiverse engine is two kernels
+    and one device->host copy; a scatter of <= 1024 pairs from host
+    columns one kernel and no copy, a larger one one copy and one
+    kernel."""
+    from repro_torch.configs.paper_stm import MultiverseParams
+    from repro_torch.core.engine import arrayheap as AH
+    from repro_torch.core.engine import bulkread as B
+    from repro_torch.core.vlt import PackedVLT
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels import gather_read as GR
+    from repro_torch.kernels import scatter_write as SW
+    from repro_torch.kernels import version_select as VS
+
+    out = {}
+    base, n = 1 << 40, 256
+    state = _mirror_state(rng, 1 << 16, base)
+    mirror = PackedVLT(1 << 16, device=dev)
+    mirror.load(*state)
+    seq, addr, _, _ = mirror.arrays()
+    td = mirror._tsdata
+    words = _lib.to_device(rng.integers(0, 1 << 62, 1 << 16), dev)
+    idxs, addrs = _mirror_queries(rng, state[1], n)
+    i_t = _lib.to_device(idxs, dev)
+    m_out = torch.empty((2, n), dtype=torch.int64, device=dev)
+
+    def new_mirror():
+        mirror.select(idxs, addrs, base, out=m_out)
+        host = m_out.cpu().numpy()
+        return host[0], host[1] != 0
+
+    def previous_mirror():
+        rows = _lib.to_host(list(_previous_mirror_gather(mirror, i_t,
+                                                         base)))
+        return _previous_resolve(*rows, addrs)
+
+    def new_chunk():
+        blk, staged = GR.gather_bracketed(words, heap, idxs, addrs,
+                                          rows=6, with_index=True)
+        mirror.select(idxs, addrs, base, dev_idx=staged, out=blk[4:])
+        host = blk.cpu().numpy()
+        return host[:2], host[4], host[5] != 0
+
+    def previous_chunk():
+        blk = GR.gather_bracketed(words, heap, idxs, addrs)
+        rows = _previous_mirror_gather(mirror, blk[3], base)
+        w, *rows = _lib.to_host([blk[:2], *rows])
+        return (w, *_previous_resolve(*rows, addrs))
+
+    for new, old in ((new_mirror(), previous_mirror()),
+                     (new_chunk()[1:], previous_chunk()[1:])):
+        check(np.array_equal(new[1], old[1])
+              and np.array_equal(new[0][new[1]], old[0][old[1]]),
+              "the mirror resolve differs from the path it replaced")
+    check(0 < int(new_mirror()[1].sum()) < n,
+          "the timed chunk resolves none or all of its elements")
+    def param_fill():
+        p = np.empty(VS.PARAM_IDX, np.int32)
+        p[:n] = idxs
+        return p
+
+    pidx = param_fill()
+    parts = {
+        "previous.seq_gather": lambda: mirror._seq[i_t],
+        "previous.addr_gather": lambda: mirror._addr[i_t],
+        "previous.slot_gather": lambda: mirror._tsdata[:, i_t],
+        "previous.version_select": lambda: VS.version_select(
+            td[0, :n].reshape(-1, 4), td[1, :n].reshape(-1, 4), base),
+        "previous.gather": lambda: _previous_mirror_gather(mirror, i_t,
+                                                           base),
+        "previous.to_host": lambda: _lib.to_host(
+            list(_previous_mirror_gather(mirror, i_t, base))),
+        "previous.whole": previous_mirror,
+        "new.host_index_two": lambda: (_lib.host_index(idxs),
+                                       _lib.host_index(addrs)),
+        "new.bounds": lambda: _lib.check_addr_bounds(idxs, 1 << 16),
+        "new.param_fill": param_fill,
+        "new.c_call": lambda: _lib.launch(
+            "mirror_select_i64", dev, seq.data_ptr(), addr.data_ptr(),
+            td.data_ptr(), 1 << 16, 2, 4, 1, None, pidx.ctypes.data,
+            addrs.ctypes.data, n, base, m_out.data_ptr()),
+        "new.wrapper": lambda: mirror.select(idxs, addrs, base, out=m_out),
+        "new.copy_back": lambda: m_out.cpu(),
+        "new.whole": new_mirror,
+        "chunk.previous": previous_chunk,
+        "chunk.new": new_chunk,
+    }
+    emit({"host_split": "versioned_chunk",
+          "shape": f"N={n}, 2^16-row mirror (2 ways x 4), 2^16 lock words",
+          "ns_per_call": run_split(torch, parts, 1000)})
+    runs = in_turns(torch, {"new": new_mirror, "previous": previous_mirror,
+                            "chunk_new": new_chunk,
+                            "chunk_previous": previous_chunk})
+    out["versioned_chunk_256"] = _paired(
+        runs, "new", "previous", shape=f"N={n}: lock indices and addresses "
+        "to host (values, ok), 2^16-row mirror",
+        chunk=_paired(runs, "chunk_new", "chunk_previous",
+                      shape="the chunk with its bracketed gather"))
+
+    # the write-back and the release at N=1024
+    m = 1024
+    ah = AH.ArrayHeap(1 << 20, device=dev)
+    ah.alloc(1 << 20, 0)
+    w_addrs = rng.permutation(1 << 20)[:m].astype(np.int64)
+    w_vals = rng.integers(-(1 << 62), 1 << 62, m).tolist()
+    locks = AH.ArrayLockTable(16, device=dev)
+    l_idxs = rng.integers(0, 1 << 16, m).astype(np.int64)
+    version = (1 << 40) + 7
+    word = (version << 18) | AH.pack_lock(AH.LockState(False, 0, -1, False))
+
+    def previous_writeback():
+        a = _lib.host_index(w_addrs)
+        with ah._lock:
+            _previous_scatter(ah._buf[:ah._len], a, w_vals)
+
+    def previous_release():
+        arr = np.asarray(l_idxs, np.int64)
+        stripes = locks._stripes.for_indices(arr)
+        for st in stripes:
+            st.acquire()
+        try:
+            _previous_scatter(locks.row, arr, np.full(arr.size, word,
+                                                      np.int64))
+        finally:
+            for st in stripes:
+                st.release()
+
+    for target, new_fn, old_fn in (
+            (ah.live(), lambda: ah.scatter(w_addrs, w_vals),
+             previous_writeback),
+            (locks.row, lambda: locks.unlock_bulk(l_idxs, version),
+             previous_release)):
+        target.copy_(_lib.to_device(rng.integers(0, 1 << 62,
+                                                 target.numel()), dev))
+        start = target.clone()
+        new_fn()
+        got = target.clone()
+        target.copy_(start)
+        old_fn()
+        check(equal(torch, got, target) and not equal(torch, got, start),
+              "a scatter differs from the path it replaced")
+    buf = np.empty(2 * m, np.int64)
+    parts = {
+        "previous.as_values_and_stage": lambda: _lib.to_device(
+            np.asarray(w_vals), dev),
+        "previous.index_stage": lambda: _lib.to_device(w_addrs, dev),
+        "previous.whole": previous_writeback,
+        "new.checks": lambda: (_lib.check_row(ah.live()),
+                               _lib.check_addr_bounds(w_addrs, ah._len)),
+        "new.pack": lambda: SW.pack_pairs(buf, w_addrs, w_vals),
+        "new.c_call": lambda: _lib.launch(
+            "scatter_pairs_i64", dev, ah.live().data_ptr(), ah._len,
+            buf.ctypes.data, None, None, None, m, 0, 0),
+        "new.whole": lambda: ah.scatter(w_addrs, w_vals),
+        "release.previous": previous_release,
+        "release.new": lambda: locks.unlock_bulk(l_idxs, version),
+    }
+    emit({"host_split": "scatter_host_columns",
+          "shape": f"N={m} (list values) into 2^20 heap words; release "
+                   f"at a version over 2^16 lock words",
+          "ns_per_call": run_split(torch, parts, 1000)})
+    runs = in_turns(torch, {
+        "writeback_new": lambda: ah.scatter(w_addrs, w_vals),
+        "writeback_previous": previous_writeback,
+        "release_new": lambda: locks.unlock_bulk(l_idxs, version),
+        "release_previous": previous_release})
+    out["writeback_1024"] = _paired(
+        runs, "writeback_new", "writeback_previous",
+        shape=f"ArrayHeap.scatter, N={m} list values, 2^20 words")
+    out["release_1024"] = _paired(
+        runs, "release_new", "release_previous",
+        shape=f"ArrayLockTable.unlock_bulk at a version, N={m}, 2^16 words")
+
+    # operation counts from a profiler trace
+    tm = _make("multiverse", 2, MultiverseParams(lock_table_bits=16))
+    eng = tm.raw
+    b0 = tm.alloc(4096, INITIAL)
+    chunk = np.arange(b0, b0 + n, dtype=np.int64)
+    row = heap.clone()
+    h_idx = rng.permutation(heap.numel())[:4096].astype(np.int64)
+    h_vals = rng.integers(0, 1 << 40, 4096)
+    counts = {
+        "versioned_chunk_256": op_counts(torch, lambda: B.gather_versioned(
+            eng, chunk, eng.policy.vlt.mirror, eng.clock.load())),
+        "scatter_host_1024": op_counts(torch, lambda: SW.scatter_write(
+            row, h_idx[:1024], h_vals[:1024])),
+        "scatter_host_4096": op_counts(torch, lambda: SW.scatter_write(
+            row, h_idx, h_vals)),
+        "writeback_1024": op_counts(torch, lambda: ah.scatter(
+            w_addrs, w_vals)),
+        "release_1024": op_counts(torch, lambda: locks.unlock_bulk(
+            l_idxs, version)),
+    }
+    tm.stop()
+    emit({"op_counts": counts})
+    one = {"scatter_pairs_kernel": 1.0}
+    check(counts["versioned_chunk_256"] == {
+        "gather_bracketed_kernel": 1.0, "memcpy_DtoH": 1.0,
+        "mirror_select_kernel": 1.0},
+        f"a versioned chunk is not two kernels and one copy: "
+        f"{counts['versioned_chunk_256']}")
+    for k in ("scatter_host_1024", "writeback_1024", "release_1024"):
+        check(counts[k] == one, f"{k} is not one kernel: {counts[k]}")
+    check(counts["scatter_host_4096"] == {"memcpy_HtoD": 1.0, **one},
+          f"a staged scatter is not one copy and one kernel: "
+          f"{counts['scatter_host_4096']}")
+    return {"host_paths": out}
+
+
+def _paired(runs, new, old, **rest):
+    """A timing row from ``in_turns`` runs: both paths' medians and the
+    median of the per-turn ratios new / old."""
+    ratios = [a / b for a, b in zip(runs[new], runs[old])]
+    return dict(ms=float(np.median(runs[new])), ms_runs=runs[new],
+                previous_ms=float(np.median(runs[old])),
+                previous_ms_runs=runs[old],
+                paired_ratio_to_previous=float(np.median(ratios)), **rest)
 
 
 def _words(ver, own, meta):
@@ -2225,6 +2739,7 @@ def longread_trial(torch, name, scan, lock_bits, duration_s, warmup_s,
     """1 scanner + 2 transfer updaters (eval/workloads.py longread).
     Multiverse must finish scans; the other backends must make progress
     in updates (an unversioned scan may starve: the paper's result)."""
+    from repro_torch import kernels as K
     from repro_torch.api import MaxRetriesExceeded, run
     from repro_torch.configs.paper_stm import MultiverseParams
 
@@ -2288,7 +2803,13 @@ def longread_trial(torch, name, scan, lock_bits, duration_s, warmup_s,
     t_start = time.perf_counter()
     tot, dt = run_trial([scanner, updater(1), updater(2)], duration_s,
                         warmup_s, done, probe)
+    window = K.launch_counts()
     per_chunk = chunk_launches(tm, base, min(scan, 16 * chunk), chunk)
+    # multiverse's versioned path: a reader made versioned, as the
+    # tests make one (the count scan runs alone, so none aborts into it)
+    per_vchunk = (chunk_launches(tm, base, min(scan, 16 * chunk), chunk,
+                                 versioned=True)
+                  if backend == "multiverse" else None)
     final = run(tm, lambda tx: _sum(tx.read_bulk(range(base, base + scan))),
                 tid=0)
     stats = tm.stats()
@@ -2306,7 +2827,9 @@ def longread_trial(torch, name, scan, lock_bits, duration_s, warmup_s,
            "violations": tot["violations"],
            "mode_transitions": stats["mode_transitions"],
            "final_mode": stats["mode"],
-           "launches_per_chunk": per_chunk}
+           "launches_per_chunk": per_chunk,
+           "launches_per_versioned_chunk": per_vchunk,
+           "window_launches": window}
     check(tot["updates"] > 0 and (tot["scans"] > 0
                                   or backend != "multiverse"),
           f"{name}: no progress ({dict(tot)})")
@@ -2314,20 +2837,32 @@ def longread_trial(torch, name, scan, lock_bits, duration_s, warmup_s,
         check(per_chunk["gather_read"] == per_chunk["gather_bracketed"] == 1,
               f"{name}: a scanned chunk did not take one bracketed gather "
               f"({per_chunk})")
+    if per_vchunk is not None:
+        check(per_chunk["version_select"] == per_chunk["mirror_select"] == 0
+              and per_vchunk == {"gather_read": 1, "gather_bracketed": 1,
+                                 "version_select": 1, "mirror_select": 1,
+                                 "validate": 0},
+              f"{name}: a versioned chunk did not take one bracketed gather "
+              f"and one mirror_select ({per_vchunk}; unversioned "
+              f"{per_chunk})")
     return row
 
 
-def chunk_launches(tm, base, words, chunk):
+def chunk_launches(tm, base, words, chunk, versioned=False):
     """Kernel launches per scanned chunk: one read-only scan of ``words``
     words in ``chunk``-word ``read_bulk`` calls once the trial's workers
     have stopped, the launch counts read at the start and at the end of
-    the transaction's body (the attempt that commits)."""
+    the transaction's body (the attempt that commits).  ``versioned``:
+    the reader is made versioned first (multiverse's versioned read
+    path)."""
     from repro_torch import kernels as K
     from repro_torch.api import run
 
     seen = {}
 
     def scan_tx(tx):
+        if versioned:
+            tx._ctx.versioned = True
         before = K.launch_counts()
         for off in range(0, words, chunk):
             tx.read_bulk(range(base + off, base + min(off + chunk, words)))
@@ -2338,7 +2873,7 @@ def chunk_launches(tm, base, words, chunk):
     chunks = -(-words // chunk)
     return {k: v / chunks for k, v in seen.items()
             if k in ("gather_read", "gather_bracketed", "version_select",
-                     "validate")}
+                     "mirror_select", "validate")}
 
 
 def revalidation_launches(tm, base, words):
@@ -3289,12 +3824,18 @@ def main_path(torch):
     for k in ("commit_fused", "snapshot_select", "gather_read"):
         check(rows["mvstore_1M"]["launches"][k] > 0,
               f"mvstore_1M launched no {k}")
-    if totals["version_select"] == 0:
-        # the natural runs never resolved a versioned read through the
+    natural = sum(r.get("window_launches", r["launches"])["mirror_select"]
+                  for r in rows.values())
+    if natural == 0:
+        # the trials' windows never resolved a versioned read through the
         # mirror: pin Mode U (api/registry.py forced_mode) so they do
         one(lambda: longread_trial(torch, "longread_scan4096_forcedU", 4096,
                                    12, duration_s=6.0, warmup_s=1.0,
                                    forced_mode="U"))
+        natural = rows["longread_scan4096_forcedU"]["window_launches"][
+            "mirror_select"]
+    check(natural > 0, "no trial window resolved a versioned read through "
+                       "mirror_select")
     return totals
 
 
@@ -3374,6 +3915,8 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     t0 = time.perf_counter()
     timings = kernel_checks(torch, dev, rng)
+    for name, row in timings.pop("host_paths").items():
+        emit({"host_path": name, **row})
     for name, by_n in timings.items():
         for n, row in by_n.items():
             emit({"kernel": name, "n": n, "bound_by": "bytes", **row,

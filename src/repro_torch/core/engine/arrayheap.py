@@ -203,25 +203,25 @@ class ArrayHeap:
         with self._lock:
             return GR.gather_read(self._live, a)
 
-    def gather_bracketed(self, words: torch.Tensor, idxs, addrs):
+    def gather_bracketed(self, words: torch.Tensor, idxs, addrs, **kw):
         """A bulk read's bracketed gather, ``out`` [4, N]:
         ``words[idxs]`` before and after, the live ``heap[addrs]`` and
         the lock indices in one ``gather_read`` launch
-        (``GR.gather_bracketed``), enqueued under the heap lock like
-        ``gather``; ``words`` is the lock table's row
-        (``ArrayLockTable.row``)."""
+        (``GR.gather_bracketed``, which takes ``kw``: more rows, the
+        staged indices), enqueued under the heap lock like ``gather``;
+        ``words`` is the lock table's row (``ArrayLockTable.row``)."""
         with self._lock:
-            return GR.gather_bracketed(words, self._live, idxs, addrs)
+            return GR.gather_bracketed(words, self._live, idxs, addrs, **kw)
 
     def scatter(self, addrs, values) -> None:
-        """Batched write-back: one in-place ``scatter_write`` launch
-        under the heap lock.  Bounds are checked against the frontier;
-        values coerce through int64 like the scalar ``int(value)``.
-        Addresses must be unique (write sets are dict-keyed)."""
+        """Batched write-back: one in-place ``scatter_write`` call under
+        the heap lock (host values: one C call and one launch).  Bounds
+        are checked against the frontier; values coerce through int64
+        like the scalar ``int(value)``.  Addresses must be unique (write
+        sets are dict-keyed)."""
         a = host_index(addrs)
-        vals = SW.as_values(values, a.size, self.device)
         with self._lock:
-            SW.scatter_write(self._buf[:self._len], a, vals)
+            SW.scatter_write(self._live, a, values)
 
 
 class ArrayLockTable(LockTable):
@@ -407,9 +407,9 @@ class ArrayLockTable(LockTable):
         return _hold()
 
     def store_words(self, idxs, words) -> None:
-        """Raw word scatter (one ``scatter_write`` launch).  Caller MUST
-        hold ``striped(idxs)`` (or the words must be claim words only
-        this thread may release)."""
+        """Raw word scatter (one ``scatter_write`` call and launch).
+        Caller MUST hold ``striped(idxs)`` (or the words must be claim
+        words only this thread may release)."""
         SW.scatter_write(self._words, host_index(idxs), words)
 
     def claim_words(self, words: np.ndarray, tids) -> np.ndarray:
@@ -436,10 +436,11 @@ class ArrayLockTable(LockTable):
             if version is None:
                 w = self._host_words(arr)
                 new = ((w >> _VER_SHIFT) << _VER_SHIFT) | _UNLOCKED_WORD
+                SW.scatter_write(self._words, arr, new)
             else:
-                new = np.full(arr.size, (version << _VER_SHIFT)
-                              | _UNLOCKED_WORD, np.int64)
-            SW.scatter_write(self._words, arr, new)
+                # every word the same: the fill form, indices alone
+                SW.scatter_fill(self._words, arr, (version << _VER_SHIFT)
+                                | _UNLOCKED_WORD)
         finally:
             for s in stripes:
                 s.release()

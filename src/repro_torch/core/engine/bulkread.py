@@ -38,10 +38,12 @@ through the policy's scalar path, which spins/extends/aborts with the
 policy's exact semantics.
 
 Multiverse's VERSIONED readers add a vectorized middle tier between the
-batch and the scalar walk: the failed elements resolve through ONE
-``PackedVLT.select`` over the device mirror (the ``version_select``
-kernel), and only what the mirror cannot represent walks the version
-lists (``MultiversePolicy._bulk_versioned_gather``).
+batch and the scalar walk: ``gather_versioned`` enqueues ONE
+``PackedVLT.select`` (one ``mirror_select`` launch) right behind the
+bracketed gather, into the same output block, and brings the lock words
+and the mirror's answer home in one copy; the failed elements take the
+mirror's answer, and only what the mirror cannot represent walks the
+version lists (``MultiversePolicy._bulk_versioned_gather``).
 
 Own writes: encounter-time policies see their in-place values in the
 heap gather already, but those addresses skip validation and the read
@@ -59,7 +61,8 @@ from repro_torch.kernels import gather_read as GR
 from repro_torch.kernels._lib import to_device
 
 __all__ = ["as_addr_array", "bulk_read_lockver", "finish_with_scalar",
-           "gather_lockver", "gather_row", "heap_gather", "lockver_verdict"]
+           "gather_lockver", "gather_row", "gather_versioned", "heap_gather",
+           "lockver_verdict"]
 
 
 def as_addr_array(addrs: Sequence[int]) -> np.ndarray:
@@ -125,6 +128,39 @@ def gather_lockver(eng, addrs: np.ndarray):
     vals = heap_gather(eng.heap, addrs)             # heap gather
     locks.words_at(idxs, idx_dev, out=words[1])     # post-gather
     return idxs, idx_dev, words, vals
+
+
+def gather_versioned(eng, addrs: np.ndarray, mirror, r_clock: int):
+    """A versioned bulk read's device work: the bracketed gather, then
+    ONE ``mirror.select`` over every element behind it on the one stream
+    (the post-gather is the lock gate the mirror rows need), both into
+    one output block, and ONE copy back of that block.
+
+    On an ``ArrayHeap`` the block is [6, N] (``gather_bracketed``'s four
+    rows, then the mirror's values and codes) and the mirror takes the
+    index copy the gather staged for a long chunk; on an ``ObjectHeap``
+    it is [4, N] (the two lock snapshots around the host gather, then the
+    mirror's rows), both index sets staged once.  Returns ``(idxs, words,
+    mirror_rows, vals)``: the host lock indices, the two lock snapshots
+    and the mirror's [2, N] (values, codes), both on the host, and the
+    gathered values (a row of the block on an ``ArrayHeap``)."""
+    locks = eng.locks
+    idxs = locks.index_bulk(addrs)
+    if isinstance(eng.heap, ArrayHeap):
+        block, staged = eng.heap.gather_bracketed(locks.row, idxs, addrs,
+                                                  rows=6, with_index=True)
+        mirror.select(idxs, addrs, r_clock, dev_idx=staged, out=block[4:])
+        host = block.cpu().numpy()
+        return idxs, host[:2], host[4:], block[2]
+    n = addrs.size
+    both = to_device(np.concatenate((idxs, addrs)), eng.device)
+    block = torch.empty((4, n), dtype=torch.int64, device=eng.device)
+    locks.words_at(idxs, both[:n], out=block[0])     # pre-gather
+    vals = heap_gather(eng.heap, addrs)             # heap gather
+    locks.words_at(idxs, both[:n], out=block[1])     # post-gather
+    mirror.select(idxs, addrs, r_clock, dev_idx=both, out=block[2:])
+    host = block.cpu().numpy()
+    return idxs, host[:2], host[2:], vals
 
 
 def lockver_verdict(eng, d, addrs: np.ndarray, idxs: np.ndarray,

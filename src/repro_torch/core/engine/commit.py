@@ -205,7 +205,7 @@ def scatter_row(row: torch.Tensor, addrs, values) -> torch.Tensor:
     a = _lib.host_index(addrs)
     _lib.check_addr_bounds(a, row.shape[0])
     out = row.clone()
-    SW.scatter_write(out, a, SW.as_values(values, a.size, row.device))
+    SW.scatter_write(out, a, values)
     return out
 
 

@@ -51,7 +51,7 @@ from repro_torch.core.engine import (
     TransactionEngine,
 )
 from repro_torch.core.vlt import DELETED_TS, VLT, VersionList, VListNode
-from repro_torch.kernels._lib import to_device, to_host
+from repro_torch.kernels import scatter_write as SW
 from repro_torch.reliability import faultpoints as FP
 
 __all__ = ["AbortTx", "MaxRetriesExceeded", "Multiverse",
@@ -426,27 +426,27 @@ class MultiversePolicy(PolicyBase):
         element that was free and unchanged across the two lock gathers,
         whatever its version (``_bulk_lock_freeze``).  Then the
         recently-written minority (version at or past the snapshot,
-        locked, or mid-versioning) resolves through ONE gather of the
-        packed VLT mirror (`PackedVLT.gather`: the newest committed
-        version strictly below the snapshot, the `version_select` kernel
-        on the device), and only what the mirror cannot represent
-        (colliding buckets, torn rows, versions deeper than the mirror)
-        walks the version lists through the mode's scalar read.  This is
-        what makes the paper's long-running read an array operation end
-        to end: the stable majority moves in the heap gather, the
-        written minority in the mirror gather, and the scalar walk
-        handles a residue that is empty in the common case.
+        locked, or mid-versioning) resolves through the packed VLT
+        mirror (`PackedVLT.select`: the newest committed version strictly
+        below the snapshot, ONE `mirror_select` launch on the device,
+        enqueued with the bracketed gather by `bulkread.gather_versioned`
+        and brought home in the same copy), and only what the mirror
+        cannot represent (colliding buckets, torn rows, versions deeper
+        than the mirror) walks the version lists through the mode's
+        scalar read.  This is what makes the paper's long-running read an
+        array operation end to end: the stable majority moves in the heap
+        gather, the written minority in the mirror launch, and the scalar
+        walk handles a residue that is empty in the common case.
         """
         if not d.versioned:
             vals, ok, _ = B.bulk_read_lockver(eng, d, addrs,
                                               inclusive=False)
             return B.finish_with_scalar(eng, d, addrs, vals, ok, self.read)
-        idxs, idx_dev, words, vals = B.gather_lockver(eng, addrs)
-        # the mirror rows are gathered right behind the post-gather,
-        # which is the lock gate they need (_bulk_versioned_gather);
-        # lock words and rows come back in one copy
-        rows = self.vlt.mirror.gather(idx_dev, d.r_clock)
-        words, *rows = to_host([words, *rows])
+        # the mirror is resolved right behind the post-gather, which is
+        # the lock gate it needs (_bulk_versioned_gather); lock words
+        # and the mirror's answer come back in one copy
+        idxs, words, rows, vals = B.gather_versioned(
+            eng, addrs, self.vlt.mirror, d.r_clock)
         ok, frozen = B.lockver_verdict(eng, d, addrs, idxs, words,
                                        inclusive=False, track=False)
         if d.local_mode == M.MODE_U:
@@ -490,42 +490,43 @@ class MultiversePolicy(PolicyBase):
 
         Elements the lock-version predicate rejected are exactly the
         recently-written ones a versioned reader serves from version
-        lists (paper SS4.2); the packed mirror rows (``rows``, from
-        ``PackedVLT.gather``) answer them.  SOUNDNESS needs a lock gate
-        in front of the row gather: a commit that could still land BELOW
-        this snapshot (its commit clock was loaded before we began — the
-        deferred clock can advance in between) holds its address locks
-        for its entire version-publish window, so requiring the lock
-        word to be free in a gather issued BEFORE the rows excludes every
-        such in-flight commit.  The gate here is the batch's post-gather
-        (``gate``, host lock words), issued after this reader began and
-        right before the rows on the one stream.  A writer who takes the
-        lock after the gate commits at/above our snapshot and is skipped
-        by the strict ``ts < r_clock`` acceptance anyway, and an accepted
-        row is a seqlock-stable snapshot of the address's newest
-        committed versions, so acceptance equals the scalar traverse's
-        result.  Unresolved elements keep ``ok=False`` and take the
+        lists (paper SS4.2); the mirror's answer (``rows``: values and
+        codes from ``PackedVLT.select``, host) resolves them.  SOUNDNESS
+        needs a lock gate in front of the mirror's row reads: a commit
+        that could still land BELOW this snapshot (its commit clock was
+        loaded before we began — the deferred clock can advance in
+        between) holds its address locks for its entire version-publish
+        window, so requiring the lock word to be free in a gather issued
+        BEFORE the mirror launch excludes every such in-flight commit.
+        The gate here is the batch's post-gather (``gate``, host lock
+        words), issued after this reader began and right before the
+        ``mirror_select`` launch on the one stream.  A writer who takes
+        the lock after the gate commits at/above our snapshot and is
+        skipped by the strict ``ts < r_clock`` acceptance anyway, and an
+        accepted row (nonzero code) is a seqlock-stable snapshot of the
+        address's newest committed versions, so acceptance equals the
+        scalar traverse's result.  The hits are written into the
+        gathered values with one ``scatter_write`` call (host columns:
+        one launch).  Unresolved elements keep ``ok=False`` and take the
         scalar walk.
         """
         if bool(ok.all()):
             return vals, ok
         bad = np.nonzero(~ok)[0]
-        s1, s2, rows_addr, mvals, found = rows
-        mvals, mok = self.vlt.mirror.resolve(
-            s1[bad], s2[bad], rows_addr[bad], mvals[bad], found[bad],
-            addrs[bad])
+        codes = rows[1][bad]
+        mok = codes != 0
+        self.vlt.mirror.count_way_hits(codes[mok])
         _, _, meta = eng.locks.host_fields(gate[bad])
         mok &= (meta & 3) == 0             # unlocked AND unflagged
         hit = bad[mok]
         if hit.size == 0:
             return vals, ok
         self.stats_version_gather_hits += int(hit.size)
-        picked = mvals[mok]
+        picked = rows[0][hit]
         if isinstance(vals, torch.Tensor):
-            # the gathered batch is a fresh writable device tensor (the
-            # reference had to copy its read-only kernel output here)
-            put = to_device(np.stack((hit, picked)), vals.device)
-            vals.index_put_((put[0],), put[1])
+            # the gathered batch is a row of a fresh writable device block
+            # (the reference had to copy its read-only kernel output here)
+            SW.scatter_write(vals, hit, picked)
         else:
             for i, v in zip(hit.tolist(), picked.tolist()):
                 vals[i] = v

@@ -16,11 +16,11 @@ each bucket's newest ``depth`` COMMITTED ``(timestamp, data)`` pairs,
 maintained under the same address lock that protects the list mutations
 and bracketed by a per-row seqlock for lock-free readers.  A versioned
 bulk read resolves its recently-written minority through ONE
-``PackedVLT.gather`` (the ``version_select`` kernel over the gathered
-rows) and ``resolve`` instead of walking version lists node by node.  Rows the mirror
-cannot represent (hash-colliding addresses beyond the ways, non-integer
-payloads, versions deeper than ``depth``) fail ``resolve`` and fall back
-to the exact scalar traversal.
+``PackedVLT.select`` (one ``mirror_select`` launch: bracket, way match
+and selection) instead of walking version lists node by node.  Rows the
+mirror cannot represent (hash-colliding addresses beyond the ways,
+non-integer payloads, versions deeper than ``depth``) come back with
+code 0 and fall back to the exact scalar traversal.
 """
 from __future__ import annotations
 
@@ -95,9 +95,8 @@ class PackedVLT:
 
     WRITERS mutate a row only while holding the row's address lock,
     bumping ``seq`` odd before and even after.  READERS hold nothing:
-    ``gather`` brackets its row gathers with two ``seq`` gathers and
-    ``resolve`` accepts only rows that were stable and even across the
-    window.  On
+    ``select`` brackets each row's reads with two ``seq`` reads and
+    accepts only rows that were stable and even across the window.  On
     the device the bracket holds because writers and readers issue on
     the one default stream, which runs their operations in issue order.
 
@@ -124,13 +123,17 @@ class PackedVLT:
         #: version publish never waits on the card (readers gather the
         #: device copy inside their seqlock bracket)
         self._ways = np.full((size, ways), self.NO_ADDR, np.int64)
-        # ts and data side by side, so one row gather fetches both
+        # ts and data side by side: one block, a way's data at a fixed
+        # offset from its ts (what mirror_select reads)
         self._tsdata = torch.zeros((2, size, ways, depth), **kw)
         self._ts, self._data = self._tsdata[0], self._tsdata[1]
         self._ts.fill_(EMPTY_TS)
         #: reads served per way (way_hits[1:] are the collision wins the
         #: multi-way layout buys)
         self.way_hits = [0] * ways
+        #: the tensors ``select`` reads, checked once (``load`` copies into
+        #: them, so they stay the same tensors)
+        self._tables = VS.mirror_tables(self._seq, self._addr, self._tsdata)
 
     def _way_of(self, bucket: int, addr: int) -> Optional[int]:
         w = np.nonzero(self._ways[bucket] == addr)[0]
@@ -220,40 +223,30 @@ class PackedVLT:
         self._seq[bucket].add_(1)
 
     # -- reader side (lock-free) -----------------------------------------
-    def gather(self, idx: torch.Tensor,
-               r_clock: int) -> Tuple[torch.Tensor, ...]:
-        """Enqueue the seqlock-bracketed row gather for lock indices
-        ``idx`` (a device tensor) and one ``version_select`` launch over
-        every way of every row.  Returns device tensors ``(seq_before,
-        seq_after, rows_addr [N, ways], values [N, ways], found [N,
-        ways])`` for ``resolve``; nothing is copied back here, so the
-        caller can bring them home in one transfer with its own reads."""
-        n, ways, depth = idx.numel(), self.ways, self.depth
-        s1 = self._seq[idx]
-        rows_addr = self._addr[idx]                    # [N, ways]
-        td = self._tsdata[:, idx]                      # [2, N, ways, depth]
-        s2 = self._seq[idx]
-        vals, found = VS.version_select(td[0].reshape(n * ways, depth),
-                                        td[1].reshape(n * ways, depth),
-                                        r_clock)
-        return s1, s2, rows_addr, vals.view(n, ways), found.view(n, ways)
+    def select(self, idxs, addrs, r_clock: int,
+               dev_idx: Optional[torch.Tensor] = None,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Enqueue the batched version resolution for host lock indices
+        ``idxs`` and addresses ``addrs``: ONE ``mirror_select`` launch on
+        the card (the plain version on the CPU) that brackets its row
+        reads with two ``seq`` reads, matches the way and selects the
+        newest committed version strictly below ``r_clock``.  Returns the
+        device block ``[2, N]`` (``out`` when given): row 0 the values,
+        row 1 the codes — way + 1 where the row was stable and even,
+        tracked the address and held such a version, else 0.  Nothing is
+        copied back here, so the caller brings the block home with its
+        own reads in one transfer.  ``dev_idx``: both index sets already
+        on the card (``gather_bracketed``'s staged copy)."""
+        return VS.mirror_select_on(self._tables, idxs, addrs, r_clock,
+                                   dev_idx, out)
 
-    def resolve(self, s1, s2, rows_addr, vals, found,
-                addrs) -> Tuple[np.ndarray, np.ndarray]:
-        """``gather``'s results, on the host, for the rows of ``addrs``:
-        ``(values int64[N], ok bool[N])``.  A row counts only if its
-        seqlock was even and unchanged across the gather and one of its
-        ways tracks the address (the first such way is taken)."""
-        stable = (s1 == s2) & ((s1 & 1) == 0)
-        match = rows_addr == np.asarray(addrs, np.int64)[:, None]
-        way = np.argmax(match, axis=1)                 # first (only) match
-        rows = np.arange(way.size)
-        ok = stable & match.any(axis=1) & (found[rows, way] != 0)
+    def count_way_hits(self, codes: np.ndarray) -> None:
+        """Count the reads each way beyond the first served, from the
+        codes ``select`` wrote (host, nonzero codes only)."""
         for w in range(1, self.ways):
-            hits = int((ok & (way == w)).sum())
+            hits = int((codes == w + 1).sum())
             if hits:
                 self.way_hits[w] += hits
-        return vals[rows, way], ok
 
     # -- state carry-across (api/state.py) --------------------------------
     def arrays(self) -> Tuple[torch.Tensor, ...]:

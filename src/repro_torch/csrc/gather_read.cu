@@ -17,8 +17,10 @@
 // word, then its heap word, then its lock word again, and writes them to
 // rows 0 (pre), 2 (heap) and 1 (post) of one [4, N] int64 output: the two
 // lock snapshots are adjacent, so the [2, N] pair the host verdict copies
-// back is one contiguous view; row 3 receives the lock indices, which
-// the versioned reader's mirror gather takes next on the card.  Why one
+// back is one contiguous view; row 3 receives the lock indices (the
+// device index set bulkread.gather_lockver hands out); a versioned read's
+// block has two more rows, which mirror_select (version_select.cu) fills
+// behind this launch.  Why one
 // launch is as sound as three: every device write of the STM's state —
 // lock CAS and unlock, scatters, publishes — is a launch or copy on the
 // one default stream (kernels/_lib.py), so no write can land while this

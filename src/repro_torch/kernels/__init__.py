@@ -8,9 +8,13 @@ other.
 
     gather_read     out[i] = row[idx[i]]     (heap, lock words, MVStore rows);
                     a bulk read's pre/heap/post gathers in one launch
-    scatter_write   row[idx[i]] = val[i], in place    (heap, lock words)
+    scatter_write   row[idx[i]] = val[i], in place    (heap, lock words);
+                    from host columns in one C call, pairs in the
+                    launch's parameters up to 1024
     validate        read-set predicate + all-valid flag
-    version_select  newest mirror slot below a snapshot
+    version_select  newest mirror slot below a snapshot; a versioned
+                    bulk read's mirror resolve (seqlock bracket, way
+                    match, selection) in one launch
     commit_fused    group verdict + scatter + release words (group commit,
                     MVStore publish with its ring refresh)
     snapshot_select newest ring slot at/below a clock, copied (MVStore)
@@ -44,6 +48,10 @@ COUNTERS = {m.launches.name: m.launches
 #: the bracketed bulk-read gathers, also counted under ``gather_read``
 COUNTERS[gather_read.bracketed_launches.name] = \
     gather_read.bracketed_launches
+#: the versioned reads' mirror resolves, also counted under
+#: ``version_select``
+COUNTERS[version_select.mirror_launches.name] = \
+    version_select.mirror_launches
 
 
 def reset_launch_counts() -> None:

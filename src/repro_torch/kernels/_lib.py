@@ -70,6 +70,9 @@ SIGNATURES = {
     "validate_words_i64": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
                            _P),
     "version_select_i64": (_P, _P, _I, _I, _I, _P, _P, _P),
+    "mirror_select_i64": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _I,
+                          _P, _P),
+    "scatter_pairs_i64": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _P),
     "gather_bracketed_i64": (_P, _I, _P, _I, _P, _P, _I, _P, _P),
     "commit_fused_i64": (_P, _P),
     "commit_rows_i64": (_P, _P),
@@ -245,11 +248,19 @@ class PinnedStaging:
     column region after them as uint8 and int64 views (its address is
     ``ptr + STAGING_HEAD``).  A block is written only while no copy out
     of it is pending (``StagingPool`` checks), so growing drops nothing
-    in flight."""
+    in flight.
+
+    ``scratch(nbytes)`` is the block's device scratch, for a C call that
+    copies the block there, runs its kernel over the copy and records
+    the block's event behind the kernel (``scatter_pairs_i64``): the
+    scratch is free whenever the block is, so it is allocated only when
+    it grows."""
 
     def __init__(self, device: torch.device):
+        self.device = device
         self.host: Optional[torch.Tensor] = None
         self.head = self.u8 = self.i64 = None
+        self.dev: Optional[torch.Tensor] = None
         self.ptr = 0
         self.busy = False
         ev = _P()
@@ -278,6 +289,16 @@ class PinnedStaging:
             self.i64 = self.u8.view(np.int64)
             self.ptr = self.host.data_ptr()
         return self.head, self.u8, self.i64
+
+    def scratch(self, nbytes: int) -> int:
+        """The device address of at least ``nbytes`` of the block's
+        device scratch."""
+        if self.dev is None or self.dev.numel() < nbytes:
+            old = 0 if self.dev is None else self.dev.numel()
+            self.dev = torch.empty(max(-(-nbytes // 16) * 16, 2 * old,
+                                       1 << 16),
+                                   dtype=torch.uint8, device=self.device)
+        return self.dev.data_ptr()
 
 
 class StagingPool:

@@ -23,7 +23,8 @@ lock words, the heap words, the lock words again (``core/engine/
 bulkread.py``) — as ONE launch of the second kernel in the same source,
 ``gather_bracketed_i64``: each thread reads its pre word, its heap word
 and its post word, into one [4, N] int64 output (rows: pre, post, heap,
-and the lock indices for the mirror gather that may follow).  One
+and the lock indices; a versioned read asks for two more rows, which
+``version_select.mirror_select`` fills).  One
 launch is as sound as three under the one-stream rule: every device
 write of the STM's state is a launch or copy on the default stream, so
 no write lands while the kernel runs (``csrc/gather_read.cu`` has the
@@ -116,22 +117,28 @@ def gather_lockver_plain(words: torch.Tensor, heap: torch.Tensor,
 
 
 def gather_bracketed(words: torch.Tensor, heap: torch.Tensor, idxs,
-                     addrs) -> torch.Tensor:
-    """``out`` [4, N] int64 on the rows' device: ``words[idxs]`` before,
-    ``words[idxs]`` after (rows 0 and 1) and ``heap[addrs]`` (row 2) of
-    one bracketed read, and the lock indices (row 3).
+                     addrs, rows: int = 4, with_index: bool = False):
+    """``out`` [rows, N] int64 on the rows' device: ``words[idxs]``
+    before, ``words[idxs]`` after (rows 0 and 1) and ``heap[addrs]``
+    (row 2) of one bracketed read, and the lock indices (row 3); rows
+    past 4 are left for the caller (a versioned read's ``mirror_select``
+    writes rows 4 and 5).
 
     ``words`` (packed lock words) and ``heap`` are contiguous 1-D int64
     rows on one device; ``idxs``/``addrs`` are host arrays of one length,
     each index inside its row, or ``IndexError`` is raised before
     anything is launched.  Up to ``PARAM_IDX`` elements the indices ride
     in the launch's parameters; a longer batch copies both index sets to
-    the device at once.
+    the device at once.  ``with_index``: return ``(out, staged)``, where
+    ``staged`` is that device copy ([2N] int64: the lock indices, then
+    the addresses) or None when the indices rode in the parameters.
     """
     _lib.check_row(words)
     _lib.check_row(heap)
     if words.get_device() != heap.get_device():
         raise ValueError("gather_bracketed: words and heap on two devices")
+    if rows < 4:
+        raise ValueError("gather_bracketed: the output has >= 4 rows")
     i, a = _lib.host_index(idxs), _lib.host_index(addrs)
     n = a.size
     if i.size != n:
@@ -140,13 +147,15 @@ def gather_bracketed(words: torch.Tensor, heap: torch.Tensor, idxs,
     n_w, n_h = words.numel(), heap.numel()
     _lib.check_addr_bounds(i, n_w)
     _lib.check_addr_bounds(a, n_h)
+    out = torch.empty((rows, n), dtype=torch.int64, device=heap.device)
+    both = None
     if not heap.is_cuda:
         _lib.device_kind(heap)
-        return gather_lockver_plain(words, heap, torch.from_numpy(i.copy()),
-                                    torch.from_numpy(a.copy()))
-    dev = heap.device
-    out = torch.empty((4, n), dtype=torch.int64, device=dev)
-    if n:
+        out[:4] = gather_lockver_plain(words, heap,
+                                       torch.from_numpy(i.copy()),
+                                       torch.from_numpy(a.copy()))
+    elif n:
+        dev = heap.device
         if n <= PARAM_IDX and n_w <= 1 << 31 and n_h <= 1 << 31:
             pidx = np.empty(2 * PARAM_IDX, np.int32)
             pidx[:n] = i
@@ -160,7 +169,7 @@ def gather_bracketed(words: torch.Tensor, heap: torch.Tensor, idxs,
                     out.data_ptr())
         launches.add()
         bracketed_launches.add()
-    return out
+    return (out, both) if with_index else out
 
 
 __all__ = ["bracketed_launches", "gather_bracketed", "gather_lockver_plain",
