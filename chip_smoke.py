@@ -58,7 +58,8 @@ failure exits non-zero and no result line is printed:
      .py`` tolerance);
   4. the main path: ``make_tm(b, n, array_heap=True)`` on the card drives
      the longread (scan4096 on every backend, scan1M on multiverse) and
-     rwmix (w1024, every backend) traffic in threads; TL2 and DCTL
+     rwmix (w1024, every backend) traffic in threads (3 s windows); TL2
+     and DCTL
      commit 1024-word rotations in groups of 8 through ``CommitBatcher``
      over a 1,000,000-word heap; and the MVStore serves 1,000,000-word
      snapshots beside 2-word transfers, then resolves every clock of its
@@ -95,7 +96,20 @@ failure exits non-zero and no result line is printed:
      the losses must be finite and fall; and a supervisor drill at the
      reduced config (a failure injected at step 3, checkpoints every 2
      steps) must finish with the losses of an uninterrupted run;
-  5. the card's idle share: four of the trials, the two servers and the
+  5. the eval and the structures: ``repro_torch.eval.run_eval`` runs the
+     longread, rwmix and structrq workloads at their full variants on the
+     card (every backend of each workload's default set): every row must
+     see its invariant and make progress, and each run must launch its
+     path's kernels (the MVStore backend's aborts are counted by cause);
+     then each structure of ``repro_torch.structs`` at scale on
+     multiverse (``AT_SCALE``: a 65,536-key hashmap serving whole-map
+     size queries beside an updater that moves keys, 16,384-key trees
+     serving 10,000-key range queries beside an updater that moves value
+     within fixed key pairs), and one quiescent query of each under a
+     profiler trace: one ``gather_bracketed`` launch and at most two
+     device-to-host copies per traversal round, no copy or wait inside
+     ``expand``/``advance``, and the round's host time split;
+  6. the card's idle share: four of the trials, the two servers and the
      trainer run again for a 3 s window under a profiler trace of their
      GPU activity (the trainer's while it is still up after phase 4).
 
@@ -104,6 +118,8 @@ The last two lines are the kernels summary and
 """
 from __future__ import annotations
 
+import bisect
+import contextlib
 import dataclasses
 import gc
 import json
@@ -114,6 +130,7 @@ import subprocess
 import sys
 import threading
 import time
+import warnings
 from collections import defaultdict
 from itertools import chain
 
@@ -3698,7 +3715,7 @@ def train_trial(torch, launches):
           f"train: {counts['flash_attention']} flash_attention launches")
     check(counts["snapshot_select"] > 0, "train: no snapshot_select launch")
 
-    # phase 5's window, taken while the trainer is up
+    # phase 6's window, taken while the trainer is up
     prof = torch.profiler.profile(activities=[ProfilerActivity.CUDA])
     prof.start()
     t0, n, enqueue = time.perf_counter(), 0, 0.0
@@ -3774,31 +3791,548 @@ def supervisor_drill(torch):
     return row
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the eval and the transactional structures
+# ---------------------------------------------------------------------------
+
+EVAL_WORKLOADS = ("longread", "rwmix", "structrq")
+#: the at-scale structure trial (the paper's WorkloadConfig holds 1,000,000
+#: keys in a 2,000,000 range; prefilled through the insert path, which is
+#: host-bound, the run's time limit cuts it to these sizes)
+AT_SCALE = {"hashmap": {"keys": 65_536, "key_range": 131_072,
+                        "n_buckets": 1 << 16},
+            "extbst": {"keys": 16_384, "key_range": 32_768},
+            "abtree": {"keys": 16_384, "key_range": 32_768}}
+RQ_SIZE = 10_000               # the paper's range-query size
+PREFILL_PER_TXN = 256
+
+
+class _AbortCauses:
+    """Counts the MVStore backend's aborts by cause while it is entered:
+    ``MVStoreHandle._abort_ctx`` is wrapped and each abort is classified
+    by the method that raised it (a ring read that left the window or
+    lost the seqlock race, an unversioned read that saw the clock
+    advance, a versioned transaction that wrote, a commit that lost
+    validation).  ``take()`` returns the counts since the last call."""
+
+    CAUSES = {"read": "clock_advanced", "read_bulk": "clock_advanced",
+              "write": "versioned_write", "write_bulk": "versioned_write",
+              "commit": "commit_conflict", "abort": "rollback"}
+
+    def __init__(self):
+        self.counts = defaultdict(int)
+
+    def __enter__(self):
+        from repro_torch.api.mvhandle import MVStoreHandle, _RACED
+
+        inner, counts, causes = MVStoreHandle._abort_ctx, self.counts, \
+            self.CAUSES
+
+        def counted(handle, ctx):
+            caller = sys._getframe(1)
+            name = caller.f_code.co_name
+            if name == "_versioned_read":
+                cause = ("ring_seqlock_race"
+                         if caller.f_locals.get("out") is _RACED
+                         else "ring_window")
+            else:
+                cause = causes.get(name, name)
+            counts[cause] += 1
+            return inner(handle, ctx)
+
+        self._cls, self._inner = MVStoreHandle, inner
+        MVStoreHandle._abort_ctx = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._cls._abort_ctx = self._inner
+
+    def take(self):
+        out = dict(self.counts)
+        self.counts.clear()
+        return out
+
+
+def _eval_row(row, causes):
+    """An eval row as printed: its keys but the stats, the abort counts of
+    ``stm_stats`` and, for the MVStore, the abort causes."""
+    st = row["stm_stats"]
+    out = {k: v for k, v in row.items() if k != "stm_stats"}
+    out["stm_aborts"] = st["aborts"]
+    out["stm_commits"] = st["commits"]
+    out["stm_ro_commits"] = st["ro_commits"]
+    out["stm_versioned_commits"] = st["versioned_commits"]
+    out["stm_mode"] = st["mode"]
+    if row["backend"] == "mvstore":
+        out["abort_causes"] = causes
+    return out
+
+
+def _progress(row):
+    """Did the trial commit work on both sides?  Updaters must commit on
+    every backend; the long read must complete on the versioned backends
+    (an unversioned scan may starve: the paper's result)."""
+    versioned = row["backend"] in ("multiverse", "mvstore")
+    if "scans_per_sec" in row:
+        return row["updates_per_sec"] > 0 and (
+            row["scans_per_sec"] > 0 or not versioned)
+    if "checks_per_sec" in row:
+        return row["updates_per_sec"] > 0 and row["checks_per_sec"] > 0
+    return row["updates_per_sec"] > 0 and row["rq_solo_per_sec"] > 0 and (
+        row["rqs_per_sec"] > 0 or not versioned)
+
+
+def eval_phase(torch):
+    """``run_eval`` of longread, rwmix and structrq at their full variants
+    on the card (every backend of each workload's default set), the launch
+    counts read around each run: every row must see its invariant
+    (``violations == 0``) and make progress, and each run must launch the
+    kernels of its path.  Prints each row (failed scans and updates, the
+    abort counts, the MVStore's abort causes) and each headline."""
+    from repro_torch import kernels as K
+    from repro_torch.eval import (
+        longread_headline,
+        run_eval,
+        rwmix_headline,
+        structrq_headline,
+    )
+
+    headline = {"longread": longread_headline, "rwmix": rwmix_headline,
+                "structrq": structrq_headline}
+    #: the kernels each workload's run must launch (the MVStore publishes
+    #: through commit_fused; structrq's defaults do not include it)
+    needs = {"longread": ("gather_read", "gather_bracketed", "scatter_write",
+                          "commit_fused"),
+             "rwmix": ("gather_read", "gather_bracketed", "scatter_write",
+                       "validate", "commit_fused"),
+             "structrq": ("gather_read", "gather_bracketed",
+                          "scatter_write")}
+    totals = defaultdict(int)
+    with _AbortCauses() as causes:
+        for w in EVAL_WORKLOADS:
+            rows = []
+            t0 = time.perf_counter()
+            K.reset_launch_counts()
+            run_eval(w, save=False,
+                     progress=lambda r: rows.append(
+                         _eval_row(r, causes.take())))
+            torch.cuda.synchronize()
+            launches = K.launch_counts()
+            for r in rows:
+                emit(r)
+                check(r["violations"] == 0,
+                      f"eval {w}/{r['variant']} {r['backend']}: violations")
+                check(_progress(r), f"eval {w}/{r['variant']} "
+                                    f"{r['backend']}: no progress")
+            emit({"eval": w, "seconds": time.perf_counter() - t0,
+                  "trials": len(rows), "launches": launches,
+                  "headline": headline[w](rows)})
+            for k in needs[w]:
+                check(launches[k] > 0, f"eval {w} launched no {k}")
+            for k, v in launches.items():
+                totals[k] += v
+    return totals
+
+
+class _Rounds:
+    """A transaction handle that counts a traversal's rounds (its
+    ``read_bulk`` calls) and the ``gather_bracketed`` launches each makes,
+    marks its scalar reads with a profiler range and counts the
+    synchronizing operations they make (``scalar_syncs``, read off a
+    ``_SyncLog``), and times its ``read_bulk`` calls (``read_bulk_s``)."""
+
+    def __init__(self, tx, torch, syncs):
+        self._tx, self._ctx, self._torch = tx, tx._ctx, torch
+        self._syncs = syncs
+        self.per_round, self.reads, self.read_bulk_s = [], 0, 0.0
+        self.scalar_syncs = 0
+
+    def read(self, addr):
+        self.reads += 1
+        n0 = len(self._syncs)
+        with self._torch.profiler.record_function("scalar_read"):
+            out = self._tx.read(addr)
+        self.scalar_syncs += len(self._syncs) - n0
+        return out
+
+    def read_bulk(self, addrs):
+        from repro_torch import kernels as K
+
+        before = K.launch_counts()["gather_bracketed"]
+        t0 = time.perf_counter()
+        out = self._tx.read_bulk(addrs)
+        self.read_bulk_s += time.perf_counter() - t0
+        self.per_round.append(K.launch_counts()["gather_bracketed"]
+                              - before)
+        return out
+
+
+@contextlib.contextmanager
+def _wrapped(wrap_callback, wrap_copy=None):
+    """The structures' traversals with every ``expand``/``advance`` as
+    ``wrap_callback(fn)`` and, given ``wrap_copy``, the round's copy home
+    (``traverse.host_words``, the hashmap's head copy) as
+    ``wrap_copy(host_words)``."""
+    from repro_torch.core.engine import traverse
+    from repro_torch.structs import abtree, extbst, hashmap
+
+    saved = (extbst.traverse_bulk, abtree.traverse_bulk, hashmap.chase_bulk,
+             traverse.host_words, hashmap.host_words)
+    trav, chase, copy = saved[0], saved[2], saved[3]
+    extbst.traverse_bulk = abtree.traverse_bulk = \
+        lambda tx, roots, expand, **kw: trav(tx, roots,
+                                             wrap_callback(expand), **kw)
+    hashmap.chase_bulk = lambda tx, cursors, advance: chase(
+        tx, cursors, wrap_callback(advance))
+    if wrap_copy is not None:
+        traverse.host_words = hashmap.host_words = wrap_copy(copy)
+    try:
+        yield
+    finally:
+        (extbst.traverse_bulk, abtree.traverse_bulk, hashmap.chase_bulk,
+         traverse.host_words, hashmap.host_words) = saved
+
+
+def _within(events, ranges):
+    """The ``events`` (trace events with ``ts`` and ``tid``) that start
+    inside one of ``ranges`` (same-named trace events) on their thread."""
+    by_tid = defaultdict(list)
+    for e in ranges:
+        by_tid[e.get("tid")].append((e["ts"], e["ts"] + e["dur"]))
+    for spans in by_tid.values():
+        spans.sort()
+    starts = {t: [lo for lo, _ in spans] for t, spans in by_tid.items()}
+    out = []
+    for e in events:
+        spans = by_tid.get(e.get("tid"))
+        if not spans:
+            continue
+        i = bisect.bisect_right(starts[e.get("tid")], e["ts"]) - 1
+        if i >= 0 and e["ts"] < spans[i][1]:
+            out.append(e)
+    return out
+
+
+class _SyncLog:
+    """The warnings recorded while ``torch.cuda.set_sync_debug_mode`` warns
+    on every synchronizing operation (``records`` is the recording list
+    while one is open); ``len()`` counts them."""
+
+    def __init__(self):
+        self.records = []
+
+    def __len__(self):
+        return len(self.records)
+
+
+def traversal_trace(torch, tm, query):
+    """Three quiescent runs of ``query(tx)`` (a tree range query or the
+    hashmap's size query), on one thread (the caller stopped every
+    other):
+
+      1. under ``torch.cuda.set_sync_debug_mode("warn")``, each
+         synchronizing operation (a copy home, ``.item()``, a wait)
+         recorded as its warning: the rounds, the ``gather_bracketed``
+         launches of each (the wrapper's count), the synchronizing
+         operations per round outside the scalar reads (the round's
+         copies home) and inside the ``expand``/``advance`` calls;
+      2. under a ``torch.profiler`` trace of the host and the card, the
+         query and its scalar reads in profiler ranges: the
+         ``gather_bracketed`` kernels and the device-to-host copies
+         outside the scalar reads that the trace holds (a trace can miss
+         GPU records, so both are read as upper bounds);
+      3. timed by the host clock alone, its time split into the rounds'
+         ``read_bulk`` calls (the bracketed gather, the copy of the lock
+         words home and the verdict), their copies home and the
+         ``expand``/``advance`` calls.
+    """
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.api import run
+
+    log, counted = _SyncLog(), []
+
+    def body(tx):
+        c = _Rounds(tx, torch, log)
+        n0 = len(log)
+        with torch.profiler.record_function("query"):
+            t0 = time.perf_counter()
+            out = query(c)
+            c.query_s = time.perf_counter() - t0
+        c.syncs = len(log) - n0
+        counted.append(c)
+        return out
+
+    run(tm, body, tid=0)                     # warm
+
+    inside = [0, 0]                          # expand calls, their syncs
+
+    def watched(fn):
+        def call(*args):
+            n0 = len(log)
+            try:
+                return fn(*args)
+            finally:
+                inside[0] += 1
+                inside[1] += len(log) - n0
+        return call
+
+    with warnings.catch_warnings(record=True) as caught, _wrapped(watched):
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        log.records = caught
+        try:
+            result = run(tm, body, tid=0)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            log.records = []
+    synced = counted[-1]
+    rounds = len(synced.per_round)
+
+    for attempt in range(3):                 # a trace may miss GPU work
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run(tm, body, tid=0)
+            torch.cuda.synchronize()
+        os.makedirs(TRACE_DIR, exist_ok=True)
+        path = os.path.join(TRACE_DIR, f"traverse_{os.getpid()}.json")
+        prof.export_chrome_trace(path)
+        try:
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+        finally:
+            os.remove(path)
+        kernels = sum(1 for e in events if e.get("cat") == "kernel"
+                      and "gather_bracketed_kernel" in e.get("name", ""))
+        if kernels:
+            break
+    named = defaultdict(list)
+    for e in events:
+        if e.get("cat") == "user_annotation" and "dur" in e:
+            named[e["name"]].append(e)
+    dtoh = {e["args"]["correlation"] for e in events
+            if e.get("cat") == "gpu_memcpy" and "DtoH" in e.get("name", "")}
+    copies = [e for e in events if e.get("cat") == "cuda_runtime"
+              and e.get("args", {}).get("correlation") in dtoh]
+    in_query = _within(copies, named["query"])
+    scalar = _within(in_query, named["scalar_read"])
+
+    spent = defaultdict(float)
+
+    def timed(key):
+        def wrap(fn):
+            def call(*args):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*args)
+                finally:
+                    spent[key] += time.perf_counter() - t0
+            return call
+        return wrap
+
+    with _wrapped(timed("expand"), timed("copy_home")):
+        run(tm, body, tid=0)
+    c = counted[-1]
+    split = {"query_ms": c.query_s * 1e3,
+             "read_bulk_ms": c.read_bulk_s * 1e3,
+             "copy_home_ms": spent["copy_home"] * 1e3,
+             "expand_ms": spent["expand"] * 1e3}
+    split["rest_ms"] = split["query_ms"] - sum(
+        split[k] for k in ("read_bulk_ms", "copy_home_ms", "expand_ms"))
+    return {"result": result, "rounds": rounds,
+            "gather_bracketed_per_round": synced.per_round,
+            "scalar_reads": synced.reads,
+            "syncs": synced.syncs,
+            "syncs_in_scalar_reads": synced.scalar_syncs,
+            "syncs_per_round": (synced.syncs - synced.scalar_syncs)
+            / max(rounds, 1),
+            "expand_calls": inside[0], "expand_syncs": inside[1],
+            "traced_gather_bracketed": kernels,
+            "traced_dtoh_copies": len(in_query) - len(scalar),
+            "trace_attempts": attempt + 1,
+            "host_split": split}
+
+
+def at_scale_trial(torch, kind, window_s=4.0, warmup_s=0.5):
+    """One structure at the size ``AT_SCALE`` gives, on multiverse on the
+    card, prefilled through its insert path ``PREFILL_PER_TXN`` keys to a
+    transaction, then one reader beside one updater:
+
+      * a tree serves ``RQ_SIZE``-key range queries from seeded ``lo``
+        while the updater moves value between the keys of fixed adjacent
+        pairs (key ``2j`` and ``2j + 1`` in key order, each starting at
+        ``INITIAL``): a completed query must return exactly the
+        ``RQ_SIZE`` keys at and after ``lo`` and see every whole pair
+        sum to ``2 * INITIAL`` (a torn snapshot breaks a pair);
+      * the hashmap serves whole-map size queries while the updater moves
+        keys (structrq's size-preserving move): a completed query must
+        count exactly the prefill.
+
+    Then one quiescent query under a profiler trace
+    (``traversal_trace``)."""
+    from repro_torch.api import MaxRetriesExceeded, run
+    from repro_torch.configs.paper_stm import MultiverseParams
+    from repro_torch.structs import STRUCTS
+
+    cfg = AT_SCALE[kind]
+    n, key_range = cfg["keys"], cfg["key_range"]
+    tm = _make("multiverse", 2, MultiverseParams(k1=2, k2=3, k3=3,
+                                                 lock_table_bits=16))
+    s = STRUCTS[kind](tm, **({"n_buckets": cfg["n_buckets"]}
+                             if kind == "hashmap" else {}))
+    rnd = random.Random(SEED * 7919 + 11)
+    keys = rnd.sample(range(key_range), n)
+    t0 = time.perf_counter()
+    for i in range(0, n, PREFILL_PER_TXN):
+        run(tm, lambda tx, ks=keys[i:i + PREFILL_PER_TXN]: [
+            s.insert(tx, k, INITIAL) for k in ks], tid=0)
+    prefill_s = time.perf_counter() - t0
+    order = sorted(keys)
+
+    if kind == "hashmap":
+        def query(tx, r):
+            return s.size_query(tx)
+
+        def verify(got, _):
+            return got == n
+
+        def update(tx, r):
+            ka, kb = r.randrange(key_range), r.randrange(key_range)
+            if s.delete(tx, ka):
+                if not s.insert(tx, kb, INITIAL):
+                    s.insert(tx, ka, INITIAL)
+    else:
+        def query(tx, r):
+            i = r.randrange(n - RQ_SIZE)
+            return i, s.range_query(tx, order[i], RQ_SIZE)
+
+        def verify(got, _):
+            i, pairs = got
+            ks = [int(k) for k, _ in pairs]
+            vs = [int(v) for _, v in pairs]
+            if ks != order[i:i + RQ_SIZE]:
+                return False
+            first = i + (i & 1)              # the first whole pair
+            return all(vs[g - i] + vs[g + 1 - i] == 2 * INITIAL
+                       for g in range(first, i + RQ_SIZE - 1, 2))
+
+        def update(tx, r):
+            j = 2 * r.randrange(n // 2)
+            ka, kb = (order[j], order[j + 1]) if r.random() < 0.5 else \
+                (order[j + 1], order[j])
+            s.insert(tx, ka, s.search(tx, ka) - AMOUNT)
+            s.insert(tx, kb, s.search(tx, kb) + AMOUNT)
+
+    def reader(stop, c):
+        r = random.Random(SEED * 10007 + 500)
+        while not stop.is_set():
+            try:
+                got = run(tm, lambda tx: query(tx, r), tid=0,
+                          max_retries=60)
+            except MaxRetriesExceeded:
+                c["failed_queries"] += 1
+                continue
+            c["queries"] += 1
+            if not verify(got, r):
+                c["violations"] += 1
+
+    def updater(stop, c):
+        r = random.Random(SEED * 10007 + 600)
+        while not stop.is_set():
+            try:
+                run(tm, lambda tx: update(tx, r), tid=1, max_retries=2000)
+                c["updates"] += 1
+            except MaxRetriesExceeded:
+                c["failed_updates"] += 1
+
+    tot, dt = run_trial([reader, updater], window_s, warmup_s)
+    tm.raw.stop()                # the background thread: one thread left
+    r = random.Random(SEED + 3)
+    trace = traversal_trace(torch, tm, lambda tx: query(tx, r))
+    result = trace.pop("result")
+    stats = tm.stats()
+    tm.stop()
+    row = {"trial": f"at_scale_{kind}", "backend": "multiverse",
+           "structure": kind, "keys": n, "key_range": key_range,
+           "rq_size": RQ_SIZE if kind != "hashmap" else None,
+           "prefill_per_txn": PREFILL_PER_TXN, "prefill_s": prefill_s,
+           "seconds": dt, "queries": tot["queries"],
+           "queries_per_s": tot["queries"] / dt,
+           "failed_queries": tot["failed_queries"],
+           "updates_per_s": tot["updates"] / dt,
+           "failed_updates": tot["failed_updates"],
+           "violations": tot["violations"],
+           "stm_aborts": stats["aborts"], "stm_mode": stats["mode"],
+           "mode_transitions": stats["mode_transitions"],
+           "trace": trace}
+    check(verify(result, None), f"at_scale_{kind}: the quiescent query's "
+                                "answer is wrong")
+    check(tot["queries"] > 0 and tot["updates"] > 0,
+          f"at_scale_{kind}: no progress ({dict(tot)})")
+    check(trace["rounds"] > 1 and all(
+        g == 1 for g in trace["gather_bracketed_per_round"])
+        and trace["traced_gather_bracketed"] <= trace["rounds"],
+        f"at_scale_{kind}: a traversal round did not take one "
+        f"gather_bracketed ({trace['gather_bracketed_per_round']}; "
+        f"{trace['traced_gather_bracketed']} traced)")
+    check(1 <= trace["syncs_per_round"] <= 2
+          and trace["traced_dtoh_copies"] <= 2 * trace["rounds"],
+          f"at_scale_{kind}: {trace['syncs']} synchronizing operations "
+          f"({trace['syncs_in_scalar_reads']} in scalar reads) and "
+          f"{trace['traced_dtoh_copies']} traced device-to-host copies "
+          f"over {trace['rounds']} rounds")
+    check(trace["expand_calls"] > 0 and trace["expand_syncs"] == 0,
+          f"at_scale_{kind}: {trace['expand_syncs']} synchronizing "
+          "operations inside expand/advance")
+    return row
+
+
+def structures_phase(torch):
+    """The at-scale trial of each structure, the launch counts read around
+    each: every one must launch ``gather_bracketed``."""
+    from repro_torch import kernels as K
+
+    totals = defaultdict(int)
+    for kind in AT_SCALE:
+        K.reset_launch_counts()
+        row = at_scale_trial(torch, kind)
+        torch.cuda.synchronize()
+        row["launches"] = K.launch_counts()
+        emit(row)
+        check(row["violations"] == 0, f"{row['trial']}: violations")
+        check(row["launches"]["gather_bracketed"] > 0,
+              f"{row['trial']} launched no gather_bracketed")
+        for k, v in row["launches"].items():
+            totals[k] += v
+    return totals
+
+
 def main_path(torch):
     from repro_torch import kernels as K
 
+    # 3 s windows after 0.5 s of warm-up (6 s after 1 s before the eval
+    # and structure phase joined the run; the eval drives the same
+    # traffic on every backend again)
+    win = dict(duration_s=3.0, warmup_s=0.5)
     trials = [
-        lambda: longread_trial(torch, "longread_scan4096", 4096, 12,
-                               duration_s=6.0, warmup_s=1.0),
+        lambda: longread_trial(torch, "longread_scan4096", 4096, 12, **win),
         # one scan of 1M words under two updaters took 25-76 s on the
         # card: the window runs until the first scan completes, capped at
         # 120 s (until 3 scans or 150 s before the trainer joined the
         # run, 240 s before the model server did)
         lambda: longread_trial(torch, "longread_scan1M", 1_000_000, 16,
                                duration_s=120.0, warmup_s=0.0, min_scans=1),
-        lambda: rwmix_trial(torch, "rwmix_w1024", 1024, duration_s=6.0,
-                            warmup_s=1.0),
+        lambda: rwmix_trial(torch, "rwmix_w1024", 1024, **win),
     ]
     for b in BACKENDS[1:]:
         trials.append(lambda b=b: longread_trial(
-            torch, f"longread_scan4096_{b}", 4096, 12, duration_s=6.0,
-            warmup_s=1.0, backend=b))
+            torch, f"longread_scan4096_{b}", 4096, 12, backend=b, **win))
         trials.append(lambda b=b: rwmix_trial(
-            torch, f"rwmix_w1024_{b}", 1024, duration_s=6.0, warmup_s=1.0,
-            backend=b))
-    trials += [lambda: group_trial(torch, "group_tl2_1M", "tl2"),
-               lambda: group_trial(torch, "group_dctl_1M", "dctl"),
-               lambda: mvstore_trial(torch, "mvstore_1M")]
+            torch, f"rwmix_w1024_{b}", 1024, backend=b, **win))
+    trials += [lambda: group_trial(torch, "group_tl2_1M", "tl2", **win),
+               lambda: group_trial(torch, "group_dctl_1M", "dctl", **win),
+               lambda: mvstore_trial(torch, "mvstore_1M", **win)]
     totals = defaultdict(int)
     rows = {}
 
@@ -3830,8 +4364,7 @@ def main_path(torch):
         # the trials' windows never resolved a versioned read through the
         # mirror: pin Mode U (api/registry.py forced_mode) so they do
         one(lambda: longread_trial(torch, "longread_scan4096_forcedU", 4096,
-                                   12, duration_s=6.0, warmup_s=1.0,
-                                   forced_mode="U"))
+                                   12, forced_mode="U", **win))
         natural = rows["longread_scan4096_forcedU"]["window_launches"][
             "mirror_select"]
     check(natural > 0, "no trial window resolved a versioned read through "
@@ -3940,6 +4473,11 @@ def main() -> int:
     free_card(torch)
     train_trial(torch, launches)
     supervisor_drill(torch)
+    t0 = time.perf_counter()
+    for part in (eval_phase(torch), structures_phase(torch)):
+        for k, v in part.items():
+            launches[k] += v
+    emit({"eval_and_structures_seconds": time.perf_counter() - t0})
     for k in KERNELS:
         check(launches[k] > 0, f"kernel {k} was never launched on the main "
                                "path")

@@ -86,14 +86,30 @@ class Txn:
         return [self._sub.read(self._ctx, int(a)) for a in addrs]
 
     def traverse_bulk(self, roots, expand, *, limit: Optional[int] = None):
-        """Ordered frontier-at-a-time traversal: not ported yet."""
-        raise NotImplementedError(
-            "traverse_bulk is not ported yet (the traverse + structs slice)")
+        """Ordered frontier-at-a-time traversal over ``read_bulk``.
+
+        ``roots`` is an iterable of ``(addr, span[, state])`` items;
+        ``expand(state, words, emit, push)`` turns each item's gathered
+        words into in-order emissions and child pushes.  Per round the
+        WHOLE pending frontier gathers in one ``read_bulk`` batch and
+        comes home in one copy, so a pointer-chasing long read costs one
+        batch per level instead of one scalar read per word — with each
+        backend's exact scalar semantics preserved per element (the
+        batch itself guarantees that).  See
+        ``repro_torch.core.engine.traverse`` for the full contract.
+        """
+        from repro_torch.core.engine.traverse import traverse_bulk
+        return traverse_bulk(self, roots, expand, limit=limit)
 
     def chase_bulk(self, cursors, advance) -> int:
-        """Vectorized pointer chase: not ported yet."""
-        raise NotImplementedError(
-            "chase_bulk is not ported yet (the traverse + structs slice)")
+        """Vectorized pointer chase for single-word frontiers (chains):
+        per round, ``read_bulk`` gathers the words at every cursor and
+        ``advance(cursors, values)`` returns the next cursor array —
+        accumulation lives in the caller's closure.  Returns the number
+        of rounds.  See ``repro_torch.core.engine.traverse.chase_bulk``.
+        """
+        from repro_torch.core.engine.traverse import chase_bulk
+        return chase_bulk(self, cursors, advance)
 
     def write(self, addr: int, value: Any) -> None:
         self._sub.write(self._ctx, addr, value)

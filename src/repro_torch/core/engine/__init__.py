@@ -9,6 +9,9 @@ algorithm itself is a ``TMPolicy`` object (``core/stm.py``,
     validation.py   commit-time revalidation (scalar + bulk kernel)
     bulkread.py     batched reads (Txn.read_bulk): three gather_read
                     launches + stability predicate, scalar fallback
+    traverse.py     frontier-at-a-time traversal (traverse_bulk /
+                    chase_bulk): pointer chases as per-level batches,
+                    each batch brought home in one copy
     commit.py       lock-acquire / write-back / release / rollback steps
     groupcommit.py  CommitBatcher: conflict-disjoint groups published at
                     one clock tick through the commit_fused kernel
@@ -41,6 +44,10 @@ from repro_torch.core.engine.errors import (  # noqa: F401
     MaxRetriesExceeded,
 )
 from repro_torch.core.engine.policy import PolicyBase, TMPolicy  # noqa: F401
+from repro_torch.core.engine.traverse import (  # noqa: F401
+    chase_bulk,
+    traverse_bulk,
+)
 from repro_torch.core.engine.validation import (  # noqa: F401
     BULK_MIN,
     V_EQ,
@@ -52,6 +59,6 @@ __all__ = [
     "ArrayHeap", "ArrayLockTable", "BULK_MIN", "COUNTER_KEYS",
     "MaxRetriesExceeded", "AbortTx", "ObjectHeap", "PolicyBase", "TMBase",
     "TMPolicy", "TransactionEngine", "TxnDescriptor", "V_EQ", "V_LE",
-    "V_LT", "as_addr_array", "bulk_read_lockver", "heap_gather",
-    "resolve_device",
+    "V_LT", "as_addr_array", "bulk_read_lockver", "chase_bulk",
+    "heap_gather", "resolve_device", "traverse_bulk",
 ]

@@ -81,14 +81,14 @@ class _Tx:
         return self._tm.tm_read_bulk(self._ctx, addrs)
 
     def traverse_bulk(self, roots, expand, *, limit: Optional[int] = None):
-        """Frontier-at-a-time traversal: not ported yet."""
-        raise NotImplementedError(
-            "traverse_bulk is not ported yet (the traverse + structs slice)")
+        """Frontier-at-a-time traversal (see ``engine/traverse.py``)."""
+        from repro_torch.core.engine.traverse import traverse_bulk
+        return traverse_bulk(self, roots, expand, limit=limit)
 
     def chase_bulk(self, cursors, advance) -> int:
-        """Vectorized single-word pointer chase: not ported yet."""
-        raise NotImplementedError(
-            "chase_bulk is not ported yet (the traverse + structs slice)")
+        """Vectorized single-word pointer chase (``engine/traverse.py``)."""
+        from repro_torch.core.engine.traverse import chase_bulk
+        return chase_bulk(self, cursors, advance)
 
     def write(self, addr: int, value: Any) -> None:
         self._tm.tm_write(self._ctx, addr, value)

@@ -1,8 +1,8 @@
 """The port stands alone: no module of ``src/repro_torch`` and not
 ``chip_smoke.py`` imports JAX or the JAX package, every port module
 imports with both made unimportable, and the entry points (``make_tm``,
-the model server, the trainer and their command lines) refuse to fall
-back to the CPU when no card is there."""
+the model server, the trainer, the eval and their command lines) refuse
+to fall back to the CPU when no card is there."""
 import ast
 import os
 import pkgutil
@@ -129,14 +129,40 @@ def test_the_trainer_defaults_to_the_card(entry, tmp_path):
     assert trainer.state.opt.count.device.type == "cpu"
 
 
+@pytest.mark.parametrize("entry", ["run_eval", "main"])
+def test_the_eval_defaults_to_the_card(entry):
+    """``repro_torch.eval.run_eval`` and ``python -m repro_torch.eval`` run
+    on the card unless told otherwise; without one they raise before any
+    trial runs."""
+    from repro_torch.eval import run_eval
+    from repro_torch.eval.__main__ import main
+
+    if torch.cuda.is_available():
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        if entry == "run_eval":
+            run_eval("structrq", quick=True, save=False)
+        else:
+            main(["--workload", "longread", "--quick", "--no-save"])
+    if entry == "main":
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.eval", "--workload",
+             "rwmix", "--quick", "--no-save"],
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+            capture_output=True, text=True, timeout=120)
+        assert out.returncode != 0
+        assert "CUDA is not available" in out.stderr
+        assert "rwmix/" not in out.stdout
+
+
 def test_unported_backends_say_so():
     from repro_torch.api import make_tm
 
     for name in ("shardstore",):
         with pytest.raises(ValueError, match="not ported yet"):
             make_tm(name, device="cpu")
-    tm = make_tm("multiverse", 1, device="cpu", start_bg=False)
-    with pytest.raises(NotImplementedError):
-        with tm.txn(0) as tx:
-            tx.traverse_bulk([], None)
-    tm.stop()
+    from repro_torch.eval import run_eval
+
+    for workload in ("shardscale", "serving", "reliability", "durability"):
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            run_eval(workload, device="cpu", save=False)
