@@ -109,7 +109,19 @@ failure exits non-zero and no result line is printed:
      profiler trace: one ``gather_bracketed`` launch and at most two
      device-to-host copies per traversal round, no copy or wait inside
      ``expand``/``advance``, and the round's host time split;
-  6. the card's idle share: four of the trials, the two servers and the
+  6. the sharded store: the JAX package's seeded shard histories through
+     ``make_tm("shardstore", n_shards=n)`` for n = 1, 2, 4 on the card
+     and on the CPU must leave identical heaps, rings, clocks, epochs and
+     counters, and shardstore(1) must equal mvstore on the card; a
+     1,000,000-word store (spans of 8,192, every block versioned, 8-slot
+     rings) at 1, 2 and 4 shards serves a whole-heap checker beside 2
+     updaters on disjoint spans (one transfer in 16 across shards):
+     violations 0, the epoch equal to the cross-shard commits, and one
+     ``commit_fused`` launch per shard clock tick; eight blind writers
+     publish through ``ShardedCommitBatcher`` as one launch and one tick
+     (card against CPU); and ``run_eval("shardscale")`` at its full
+     variants holds its 1-shard parity with no violation;
+  7. the card's idle share: four of the trials, the two servers and the
      trainer run again for a 3 s window under a profiler trace of their
      GPU activity (the trainer's while it is still up after phase 4).
 
@@ -2682,9 +2694,11 @@ class _Stopped(Exception):
     """Raised inside a long transaction once the trial window closed."""
 
 
-def run_trial(workers, duration_s, warmup_s=0.0, done=None, probe=None):
+def run_trial(workers, duration_s, warmup_s=0.0, done=None, probe=None,
+              min_s=0.0):
     """Run ``workers[i](stop, counters[i])`` threads.  The window closes
-    after ``duration_s`` — or earlier once ``done(totals)`` holds.
+    after ``duration_s`` — or earlier, once ``min_s`` has passed and
+    ``done(totals)`` holds.
     Returns (counter deltas after the warmup, seconds measured); the
     violations count is the raw total.  A ``probe`` (a ``torch.profiler``
     run) is started and stopped with the window."""
@@ -2713,7 +2727,8 @@ def run_trial(workers, duration_s, warmup_s=0.0, done=None, probe=None):
         t0 = time.perf_counter()
         while time.perf_counter() - t0 < duration_s and not stop.is_set():
             time.sleep(0.05)
-            if done is not None and done(_totals(counters, baseline)):
+            if (done is not None and time.perf_counter() - t0 >= min_s
+                    and done(_totals(counters, baseline))):
                 break
         dt = time.perf_counter() - t0
         if probe is not None:
@@ -3715,7 +3730,7 @@ def train_trial(torch, launches):
           f"train: {counts['flash_attention']} flash_attention launches")
     check(counts["snapshot_select"] > 0, "train: no snapshot_select launch")
 
-    # phase 6's window, taken while the trainer is up
+    # phase 7's window, taken while the trainer is up
     prof = torch.profiler.profile(activities=[ProfilerActivity.CUDA])
     prof.start()
     t0, n, enqueue = time.perf_counter(), 0, 0.0
@@ -4308,6 +4323,363 @@ def structures_phase(torch):
     return totals
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the sharded store
+# ---------------------------------------------------------------------------
+
+SHARD_COUNTS = (1, 2, 4)
+#: the at-scale store: the words phase 4's mvstore_1M trial holds, striped
+#: over the shards in spans of SHARD_SPAN
+SHARD_WORDS, SHARD_SPAN = 1_000_000, 8192
+#: ring depths: mvstore_1M's 8 slots, in which a whole-heap read across
+#: shards beside the two updaters completed no check on the card (each
+#: attempt outlasts 8 commits of a shard), and 128, in which it completes
+#: at every shard count
+SHARD_RINGS = (8, 128)
+CROSS_EVERY = 16               # one update in 16 spans two shards
+
+
+def seeded_history(seed, n_words, n_ops=40):
+    """A deterministic mixed scalar/bulk history over [0, n_words): the
+    JAX package's ``tests/test_shardstore.py`` history."""
+    r = np.random.RandomState(seed)
+    ops = []
+    for _ in range(n_ops):
+        kind = r.randint(3)
+        if kind == 0:                                  # scalar write
+            ops.append(("w", int(r.randint(n_words)), int(r.randint(100))))
+        elif kind == 1:                                # bulk rotate
+            lo = int(r.randint(n_words - 4))
+            ln = int(r.randint(2, min(16, n_words - lo) + 1))
+            ops.append(("rot", lo, ln))
+        else:                                          # bulk stamp
+            lo = int(r.randint(n_words - 4))
+            ln = int(r.randint(2, min(16, n_words - lo) + 1))
+            ops.append(("stamp", lo, ln, int(r.randint(1000))))
+    return ops
+
+
+def _host(vals):
+    """A read's values as a host int64 array (tensor or list)."""
+    from repro_torch.core.engine.traverse import host_words
+
+    return np.asarray(host_words(vals), np.int64)
+
+
+def _shard_state(st):
+    """The sharded store as numpy: each shard's clock, block stamps,
+    block and ring, the clock vector, the epoch and the counters."""
+    out = {"clocks": st.clocks, "epoch": st.epoch,
+           "epoch_seq": st._epoch_seq.load()}
+    stats = st.stats()
+    for k in ("commits", "aborts", "ro_commits", "cross_shard_commits"):
+        out[k] = stats[k]
+    for i, sh in enumerate(st._shards):
+        s = sh.state
+        out[f"s{i}.clock"] = s.clock
+        out[f"s{i}.block_clocks"] = sorted((s.block_clocks or {}).items())
+        out[f"s{i}.heap"] = _host(s.live["heap"])
+        for k in s.ring:
+            out[f"s{i}.ring{k}"] = _host(s.ring[k])
+            out[f"s{i}.ring_ts{k}"] = _host(s.ring_ts[k])
+    return out
+
+
+def _same_state(what, got, want):
+    check(set(got) == set(want), f"{what}: state keys differ")
+    for k in want:
+        check(np.array_equal(np.asarray(got[k]), np.asarray(want[k])),
+              f"{what}: {k} differs ({got[k]} vs {want[k]})"
+              if np.ndim(want[k]) == 0 else f"{what}: {k} differs")
+
+
+def shard_parity_check(torch):
+    """The JAX package's seeded shard histories (``tests/test_shardstore
+    .py``) through ``make_tm("shardstore", n_shards=n, span=8)`` on the
+    card and on the CPU: final reads, heaps, rings, clocks, epoch and
+    counters must be bit-identical; and ``_shard_parity_check``
+    (shardstore(1) against mvstore) must hold on the card."""
+    from repro_torch.api import make_tm
+    from repro_torch.configs.paper_stm import MultiverseParams
+    from repro_torch.eval.workloads import _shard_parity_check
+
+    n_words = 64
+    for n in SHARD_COUNTS:
+        for seed in (0, 1):
+            ops = seeded_history(seed, n_words)
+            out = {}
+            for device in ("cuda", "cpu"):
+                st = make_tm("shardstore", 4, n_shards=n, span=8,
+                             start_bg=False, device=device,
+                             params=MultiverseParams(k1=2, k2=50, k3=50,
+                                                     lock_table_bits=8))
+                base = st.alloc(n_words, 7)
+                for op in ops:
+                    with st.txn(tid=0) as tx:
+                        if op[0] == "w":
+                            tx.write(base + op[1], op[2])
+                        elif op[0] == "rot":
+                            lo, ln = base + op[1], op[2]
+                            vals = _host(tx.read_bulk(range(lo, lo + ln)))
+                            tx.write_bulk(range(lo, lo + ln),
+                                          np.roll(vals, 1))
+                        else:
+                            lo, ln, v = base + op[1], op[2], op[3]
+                            tx.write_bulk(range(lo, lo + ln),
+                                          np.arange(v, v + ln))
+                with st.txn(tid=0) as tx:
+                    final = _host(tx.read_bulk(range(base,
+                                                     base + n_words)))
+                out[device] = dict(_shard_state(st), final=final)
+                st.stop()
+            _same_state(f"shardstore n_shards={n} seed {seed}",
+                        out["cuda"], out["cpu"])
+            g = out["cuda"]
+            emit({"shard_parity": seed, "n_shards": n, "ops": len(ops),
+                  "clocks": list(g["clocks"]), "epoch": g["epoch"],
+                  "commits": g["commits"], "aborts": g["aborts"],
+                  "cross_shard_commits": g["cross_shard_commits"],
+                  "cuda_equals_cpu": True})
+            check(g["epoch"] == g["cross_shard_commits"],
+                  f"shardstore n_shards={n} seed {seed}: epoch "
+                  f"{g['epoch']} != {g['cross_shard_commits']} cross "
+                  "commits")
+    params = MultiverseParams(k1=30, k2=200, k3=200, lock_table_bits=16)
+    ok = _shard_parity_check(SEED, 512, 8, params, device="cuda")
+    emit({"shard_parity_vs_mvstore": ok, "device": "cuda"})
+    check(ok, "shardstore(1) and mvstore differ on the card")
+
+
+def shardstore_trial(torch, n_shards, ring_slots, duration_s=3.0,
+                     warmup_s=0.5, cap_s=30.0):
+    """The sharded store at the size of phase 4's ``mvstore_1M``: 1,000,000
+    int32 words in spans of 8,192 over ``n_shards`` shards, every block
+    versioned, rings of ``ring_slots``.  2 updaters commit 2-word transfers inside
+    one span — updater ``u`` owns the spans ``k`` with ``k % 2 == u``, so
+    from 2 shards up their footprints lie on disjoint shards — and, from
+    2 shards up, one transfer in 16 between two spans on different
+    shards (a cross-shard epoch); 1 checker reads the whole heap in one
+    read-only transaction (across every shard from 2 up).  Every
+    completed check must see ``words * INITIAL``; the epoch must equal
+    the cross-shard commits; every shard-local publish is one
+    ``commit_fused`` launch, so the launches equal the shards' clock
+    advances; and the checker's reads launch ``gather_read``.  Past the
+    first ring depth, checks must complete while the updaters run (the
+    window runs ``duration_s`` and on until the first one, at most
+    ``cap_s``); at the first, they are recorded."""
+    from repro_torch import kernels as K
+    from repro_torch.api import MaxRetriesExceeded, run
+    from repro_torch.configs.paper_stm import MultiverseParams
+
+    name = f"shardstore_1M_s{n_shards}_r{ring_slots}"
+    must_check = ring_slots != SHARD_RINGS[0]
+    words, span = SHARD_WORDS, SHARD_SPAN
+    h = _make("shardstore", 3, MultiverseParams(k1=2, k2=3, k3=3),
+              n_shards=n_shards, span=span, versioned="all",
+              ring_slots=ring_slots)
+    base = h.alloc(words, INITIAL)
+    expected = words * INITIAL
+    n_spans = -(-words // span)
+    bounds = [(k * span, min((k + 1) * span, words))
+              for k in range(n_spans)]
+    #: for each shard, the spans stored elsewhere
+    elsewhere = [[k for k in range(n_spans) if k % n_shards != s]
+                 for s in range(n_shards)]
+
+    def checker(stop, c):
+        def whole(tx):
+            return _sum(tx.read_bulk(range(base, base + words)))
+        while not stop.is_set():
+            try:
+                got = run(h, whole, tid=0, max_retries=60)
+                if got != expected:
+                    c["violations"] += 1
+                # a check that completes once the updaters stopped saw no
+                # concurrent commit: it is not progress under load
+                c["checks" if not stop.is_set() else "late_checks"] += 1
+            except MaxRetriesExceeded:
+                c["failed_checks"] += 1
+
+    def updater(u):
+        r = random.Random(SEED * 10007 + 500 + u)
+        mine = [k for k in range(n_spans) if k % 2 == u]
+
+        def transfer(tx):
+            k = r.choice(mine)
+            lo, hi = bounds[k]
+            if n_shards > 1 and r.randrange(CROSS_EVERY) == 0:
+                lo2, hi2 = bounds[r.choice(elsewhere[k % n_shards])]
+                i, j = r.randrange(lo, hi), r.randrange(lo2, hi2)
+            else:
+                i, j = r.sample(range(lo, hi), 2)
+            a = tx.read(base + i)
+            b = tx.read(base + j)
+            tx.write(base + i, a - AMOUNT)
+            tx.write(base + j, b + AMOUNT)
+
+        def work(stop, c):
+            while not stop.is_set():
+                try:
+                    run(h, transfer, tid=1 + u, max_retries=2000)
+                    c["updates"] += 1
+                except MaxRetriesExceeded:
+                    c["failed_updates"] += 1
+        return work
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    clocks0 = h.clocks
+    K.reset_launch_counts()
+    workers = [checker, updater(0), updater(1)]
+    if must_check:
+        tot, dt = run_trial(workers, cap_s, warmup_s, min_s=duration_s,
+                            done=lambda t: t["checks"] > 0)
+    else:
+        tot, dt = run_trial(workers, duration_s, warmup_s)
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    stats = h.stats()
+    clocks = h.clocks
+    h.stop()
+    advance = sum(clocks) - sum(clocks0)
+    row = {"trial": name, "backend": "shardstore", "n_shards": n_shards,
+           "span": span, "block_words": words, "ring_slots": ring_slots,
+           "seconds": dt, "updates_per_s": tot["updates"] / dt,
+           "checks_per_s": tot["checks"] / dt,
+           "failed_updates": tot["failed_updates"],
+           "failed_checks": tot["failed_checks"],
+           "checks_after_the_window": tot["late_checks"],
+           "violations": tot["violations"], "aborts": stats["aborts"],
+           "commits": stats["commits"],
+           "cross_shard_commits": stats["cross_shard_commits"],
+           "epoch": stats["epoch"], "clocks": list(clocks),
+           "clock_advance": advance,
+           "mode_transitions": stats["mode_transitions"],
+           "launches": launches,
+           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    emit(row)
+    check(row["violations"] == 0, f"{name}: violations")
+    check(tot["updates"] > 0 and (tot["checks"] > 0 or not must_check),
+          f"{name}: no progress ({dict(tot)})")
+    check(row["epoch"] == row["cross_shard_commits"],
+          f"{name}: epoch {row['epoch']} != "
+          f"{row['cross_shard_commits']} cross-shard commits")
+    check(n_shards == 1 or row["cross_shard_commits"] > 0,
+          f"{name}: no cross-shard commit")
+    check(launches["commit_fused"] == advance,
+          f"{name}: {launches['commit_fused']} commit_fused launches "
+          f"against {advance} shard clock ticks")
+    check(launches["gather_read"] > 0, f"{name} launched no gather_read")
+    return row
+
+
+def shard_batcher_check(torch):
+    """``ShardedCommitBatcher`` on the card: eight blind writers with
+    disjoint addresses on shard 0 publish as ONE group (one
+    ``commit_fused`` launch, one tick of shard 0's clock); a ninth that
+    overlaps the first falls back to a solo commit and aborts.  The
+    verdicts, the batcher's counts and the store must equal the CPU
+    run's."""
+    from repro_torch import kernels as K
+    from repro_torch.api import make_tm
+    from repro_torch.core.engine.groupcommit import ShardedCommitBatcher
+
+    span = 64
+    out = {}
+    for device in ("cuda", "cpu"):
+        st = make_tm("shardstore", 9, n_shards=2, span=span,
+                     start_bg=False, device=device)
+        base = st.alloc(16 * span, 1)
+        b = ShardedCommitBatcher(st)
+        for t in range(8):                 # span 2t lies on shard 0
+            lo = base + 2 * t * span
+            tx = st.begin(tid=t)
+            tx.write_bulk(range(lo, lo + span),
+                          np.arange(span) + 1000 * (t + 1))
+            b.add(tx)
+        tx = st.begin(tid=8)
+        tx.write(base + 3, -7)             # meets the first writer
+        b.add(tx)
+        K.reset_launch_counts()
+        ok = b.commit_all()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        out[device] = dict(_shard_state(st), ok=ok,
+                           launches=K.launch_counts()["commit_fused"],
+                           **{f"batcher.{k}": v for k, v in b.stats.items()})
+        st.stop()
+    g = out["cuda"]
+    launches = g.pop("launches")
+    out["cpu"].pop("launches")
+    _same_state("ShardedCommitBatcher", g, out["cpu"])
+    row = {"shard_batcher": "8 blind writers + 1 overlapping", "ok": g["ok"],
+           "clocks": list(g["clocks"]), "commit_fused_launches": launches,
+           "grouped": g["batcher.grouped"], "groups": g["batcher.groups"],
+           "solo": g["batcher.solo"], "failed": g["batcher.failed"],
+           "cuda_equals_cpu": True}
+    emit(row)
+    check(g["ok"] == [True] * 8 + [False],
+          f"ShardedCommitBatcher verdicts {g['ok']}")
+    check(launches == 1 and g["clocks"] == (1, 0),
+          f"ShardedCommitBatcher: {launches} launches, clocks "
+          f"{g['clocks']} (one group: 1 launch, one tick)")
+    check((g["batcher.grouped"], g["batcher.groups"], g["batcher.solo"])
+          == (8, 1, 1), "ShardedCommitBatcher counts")
+    return {"commit_fused": launches}
+
+
+def shard_phase(torch):
+    """Phase 6: the sharded store on the card (card against CPU, the 1M-word
+    trial at 1, 2 and 4 shards, the sharded group commit, and
+    ``run_eval("shardscale")`` at its full variants).  Returns the launch
+    counts of its main-path runs."""
+    from repro_torch import kernels as K
+    from repro_torch.eval import run_eval, shardscale_headline
+
+    t0 = time.perf_counter()
+    totals = defaultdict(int)
+    shard_parity_check(torch)
+    for ring in SHARD_RINGS:
+        rows = {n: shardstore_trial(torch, n, ring) for n in SHARD_COUNTS}
+        for row in rows.values():
+            for k, v in row["launches"].items():
+                totals[k] += v
+        base = rows[1]
+        emit({"shardstore_1M_scaling": {"ring_slots": ring, **{
+            f"ratio_{n}_to_1": {
+                "updates": rows[n]["updates_per_s"] / base["updates_per_s"],
+                "checks": (rows[n]["checks_per_s"] / base["checks_per_s"]
+                           if base["checks_per_s"] else None)}
+            for n in SHARD_COUNTS[1:]}}})
+    for k, v in shard_batcher_check(torch).items():
+        totals[k] += v
+    erows = []
+    K.reset_launch_counts()
+    run_eval("shardscale", save=False,
+             progress=lambda r: erows.append(
+                 {k: v for k, v in r.items() if k != "stm_stats"}))
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    head = shardscale_headline(erows)
+    for r in erows:
+        emit(r)
+        what = f"eval shardscale/{r['variant']}"
+        check(r["violations"] == 0, f"{what}: violations")
+        check(r["updates_per_sec"] > 0 and r["checks_per_sec"] > 0,
+              f"{what}: no progress")
+    emit({"eval": "shardscale", "trials": len(erows), "launches": launches,
+          "headline": head, "reference_expects_ratio_2_shards": 1.6})
+    check(erows[0]["parity_ok"] is True, "shardscale: parity at 1 shard")
+    check(head["parity_ok"] and head["violations"] == 0,
+          f"shardscale headline {head}")
+    for k in ("gather_read", "commit_fused"):
+        check(launches[k] > 0, f"eval shardscale launched no {k}")
+    for k, v in launches.items():
+        totals[k] += v
+    emit({"shard_phase_seconds": time.perf_counter() - t0})
+    return totals
+
+
 def main_path(torch):
     from repro_torch import kernels as K
 
@@ -4430,6 +4802,7 @@ def main() -> int:
         print(f"chip_smoke: the port is not importable here: {e}",
               file=sys.stderr)
         return 2
+    t_run = time.perf_counter()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -4478,6 +4851,8 @@ def main() -> int:
         for k, v in part.items():
             launches[k] += v
     emit({"eval_and_structures_seconds": time.perf_counter() - t0})
+    for k, v in shard_phase(torch).items():
+        launches[k] += v
     for k in KERNELS:
         check(launches[k] > 0, f"kernel {k} was never launched on the main "
                                "path")
@@ -4498,6 +4873,7 @@ def main() -> int:
             "bound_ms": row["bound_ms"],
             "bound_by": row.get("bound_by", "bytes"),
             "library_ms": row["library_ms"]})
+    emit({"run_seconds": time.perf_counter() - t_run})
     print(smi[0], flush=True)
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu",

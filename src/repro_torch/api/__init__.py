@@ -3,7 +3,7 @@
     from repro_torch.api import make_tm, atomic, run
 
     tm = make_tm("multiverse", n_threads=4, array_heap=True)   # the card
-    # or "tl2" / "dctl" / "norec" / "tinystm" / "mvstore"
+    # or "tl2" / "dctl" / "norec" / "tinystm" / "mvstore" / "shardstore"
     base = tm.alloc(100, 0)
 
     @atomic(tm)

@@ -6,23 +6,24 @@ One constructor for every substrate:
     make_tm("tl2", n_threads=8, array_heap=True)
     make_tm("dctl", n_threads=8, irrevocable_after=50)
     make_tm("mvstore", n_threads=4, ring_slots=16)
+    make_tm("shardstore", n_threads=4, n_shards=2, span=8192)
     make_tm("multiverse", n_threads=2, device="cpu")         # tests
 
 Every factory returns a `SubstrateBase` — the word-level TMs
 (``multiverse``, ``tl2``, ``dctl``, ``norec``, ``tinystm``) wrapped in
-`WordSubstrate`, the store-level MVStore as an `MVStoreHandle` — so the
-product always speaks `txn()/run()/atomic()/stats()/stop()` with the
-normalized stats schema.  The JAX package's ``shardstore`` is not ported
-yet and raises "not ported yet".
+`WordSubstrate`, the store-level MVStore as an `MVStoreHandle`, the
+sharded store as a `ShardStoreHandle` — so the product always speaks
+`txn()/run()/atomic()/stats()/stop()` with the normalized stats schema.
 
 `device` says where the heap, lock words, version mirror and store
 blocks live; ``None`` means the card, and without CUDA that raises (no
 silent CPU fallback).  `array_heap=True` puts a word backend's heap in
 the engine's int64 device tensor (the default object heap stores any
 Python value on the host); the MVStore block is always an int32 device
-tensor, so ``mvstore`` accepts the flag and needs nothing from it.
+tensor, so ``mvstore`` and ``shardstore`` accept the flag and need
+nothing from it.
 `forced_mode` pins the mode machinery for the Fig. 8 ablations on the
-backends that have one (multiverse, mvstore): "U" jumps the mode counter
+backends that have one (multiverse, mvstore, shardstore): "U" jumps the mode counter
 to Mode U and pins a sticky bit so the background thread stays there;
 "Q" disables the Q->QtoU CAS heuristics (K2/K3 -> inf).  The mode-less
 baselines ignore it.
@@ -38,9 +39,6 @@ from repro_torch.api.substrate import SubstrateBase
 __all__ = ["make_tm", "register_backend", "backend_names"]
 
 _BACKENDS: Dict[str, Callable[..., SubstrateBase]] = {}
-
-#: backends of the JAX package that this port does not provide yet
-NOT_PORTED = ("shardstore",)
 
 
 def register_backend(name: str, factory: Callable[..., SubstrateBase],
@@ -63,10 +61,6 @@ def make_tm(name: str, n_threads: int = 1, *,
     try:
         factory = _BACKENDS[name.lower()]
     except KeyError:
-        if name.lower() in NOT_PORTED:
-            raise ValueError(
-                f"backend {name!r} is not ported yet; ported: "
-                f"{backend_names()}") from None
         raise ValueError(
             f"unknown backend {name!r}; registered: {backend_names()}"
         ) from None
@@ -144,4 +138,31 @@ def _make_mvstore(n_threads: int, params=None, forced_mode=None,
 register_backend("multiverse", _make_multiverse)
 for _name in ("tl2", "dctl", "norec", "tinystm"):
     register_backend(_name, _make_baseline(_name))
+def _make_shardstore(n_threads: int, params=None, forced_mode=None,
+                     array_heap: bool = False, **kw) -> SubstrateBase:
+    """The sharded MVStore (`core/shardstore.ShardStoreHandle`).
+
+    `n_shards` / `span` pick the partitioning; `forced_mode` mirrors the
+    mvstore factory (the shards share ONE controller, so the pin applies
+    store-wide)."""
+    from repro_torch.configs.paper_stm import MultiverseParams
+    from repro_torch.core.shardstore import ShardStoreHandle
+
+    if "ring_slots" in kw:
+        from repro_torch.configs.base import MVStoreConfig
+        kw.setdefault("cfg", MVStoreConfig(ring_slots=kw.pop("ring_slots")))
+    if forced_mode == "Q":
+        params = dataclasses.replace(params or MultiverseParams(),
+                                     k2=1 << 30, k3=1 << 30)
+    h = ShardStoreHandle(n_threads, params=params, **kw)
+    if forced_mode == "U":
+        ctl = h.controller
+        ctl.mode_counter = 2                      # Q -> QtoU -> U
+        ctl.stats["mode_transitions"] += 2
+        ctl.first_obs_mode_u_ts = 0
+        ctl.reader().ann.sticky_mode_u = True
+    return h
+
+
 register_backend("mvstore", _make_mvstore)
+register_backend("shardstore", _make_shardstore)

@@ -62,7 +62,24 @@ from repro_torch.kernels._lib import to_device
 
 __all__ = ["as_addr_array", "bulk_read_lockver", "finish_with_scalar",
            "gather_lockver", "gather_row", "gather_versioned", "heap_gather",
-           "lockver_verdict"]
+           "lockver_verdict", "shard_partition"]
+
+
+def shard_partition(shard_ids: np.ndarray, n_shards: int):
+    """Group a routed address batch by shard: ``[(sid, positions)]``.
+
+    ``shard_ids[i]`` is the shard owning batch element ``i``
+    (``0 <= sid < n_shards``).  Returns one entry per shard actually
+    present, ``positions`` ascending (stable sort), so the caller runs
+    ONE gather/scatter per shard and reassembles order-preserving with
+    ``out[positions] = shard_vals`` — the routing layer between a
+    cross-shard bulk op and the per-shard kernel launches.
+    """
+    sid = np.asarray(shard_ids, np.int64)
+    order = np.argsort(sid, kind="stable")
+    bounds = np.searchsorted(sid[order], np.arange(n_shards + 1))
+    return [(s, order[bounds[s]:bounds[s + 1]])
+            for s in range(n_shards) if bounds[s] < bounds[s + 1]]
 
 
 def as_addr_array(addrs: Sequence[int]) -> np.ndarray:

@@ -69,7 +69,7 @@ from repro_torch.kernels._lib import to_host
 from repro_torch.kernels.commit_fused import np_commit_decide, pack_segments
 from repro_torch.reliability import faultpoints as FP
 
-__all__ = ["CommitBatcher", "partition_disjoint"]
+__all__ = ["CommitBatcher", "ShardedCommitBatcher", "partition_disjoint"]
 
 
 def partition_disjoint(write_sets: List[np.ndarray],
@@ -528,3 +528,102 @@ class CommitBatcher:
                 eng.policy.on_finish(eng, d)
             else:
                 eng._abort(d)
+
+
+class ShardedCommitBatcher:
+    """Group commit over the SHARDED store: one shard-local publish per
+    batch of blind single-shard writers.
+
+    ``add`` collects ready ``ShardStoreHandle`` transactions;
+    ``commit_all`` buckets the BLIND writers (no reads anywhere, writes
+    confined to one shard — the write-only ingest shape) per shard, and
+    each bucket whose write addresses are pairwise disjoint publishes
+    through ONE ``MVStoreHandle._publish_locked`` — one clock tick, one
+    ``commit_fused`` call for the whole bucket, the store-level analogue
+    of ``CommitBatcher``'s fused group window.
+
+    SOUNDNESS: a blind write-only transaction carries no reads, so any
+    serial order of disjoint-address blind writers from the same base
+    state yields the same final state — the merged single-tick publish
+    IS such an order.  This is deliberately a RELAXATION of the solo
+    path (which aborts the second writer at block granularity and
+    retries); it admits more schedules, all serializable.  Anything
+    outside the shape — any read, multi-shard writes, overlapping
+    addresses, versioned or inactive contexts — falls back to
+    ``store.commit`` solo, so the batcher is an optimization of the
+    write-only ingest case, never of validation.
+    """
+
+    def __init__(self, store: Any):
+        self.store = store
+        self._pending: List[Any] = []
+        self.stats = {"grouped": 0, "solo": 0, "groups": 0, "failed": 0}
+
+    def __len__(self) -> int:
+        return len(self._pending)
+
+    def add(self, tx: Any) -> None:
+        self._pending.append(getattr(tx, "_ctx", tx))
+
+    def commit_all(self) -> List[bool]:
+        from repro_torch.api.substrate import Txn
+        store = self.store
+        ctxs, self._pending = self._pending, []
+        results: List[Any] = [None] * len(ctxs)
+
+        by_shard: dict = {}
+        solo: List[int] = []
+        for i, ctx in enumerate(ctxs):
+            ws = [s for s, c in enumerate(ctx.subs) if c.write_buf]
+            blind = (ctx.active and len(ws) == 1
+                     and not any(c.read_cnt or c.versioned
+                                 for c in ctx.subs))
+            if blind:
+                by_shard.setdefault(ws[0], []).append(i)
+            else:
+                solo.append(i)
+
+        for s, members in sorted(by_shard.items()):
+            if len(members) < 2:
+                solo.extend(members)
+                continue
+            # members whose addresses meet an earlier member's fall back
+            # to a solo commit, one by one
+            merged: dict = {}
+            grouped: List[int] = []
+            for i in members:
+                wb = ctxs[i].subs[s].write_buf
+                if any(a in merged for a in wb):
+                    solo.append(i)
+                    continue
+                merged.update(wb)
+                grouped.append(i)
+            if len(grouped) < 2:
+                solo.extend(grouped)
+                continue
+            shard = store._shards[s]
+            with shard._commit_lock:
+                g = type(ctxs[grouped[0]].subs[s])(ctxs[grouped[0]].tid)
+                g.read_clock = int(shard._state.clock)
+                g.read_only = False
+                g.write_buf = merged
+                shard._publish_locked(g)
+            for i in grouped:
+                store._counters[ctxs[i].tid]["commits"] += 1
+                shard._readers[ctxs[i].tid].attempts = 0
+                store._deactivate(ctxs[i])
+                results[i] = True
+            self.stats["grouped"] += len(grouped)
+            self.stats["groups"] += 1
+
+        for i in sorted(solo):
+            ctx = ctxs[i]
+            self.stats["solo"] += 1
+            try:
+                store.commit(Txn(store, ctx, ctx.tid))
+                results[i] = True
+            except AbortTx:
+                results[i] = False
+        out = [bool(r) for r in results]
+        self.stats["failed"] += sum(1 for r in out if not r)
+        return out

@@ -12,7 +12,7 @@ frontier-at-a-time traversal as the measurement surface:
     rows, path = run_eval("longread", seed=3)
 
 Workload families live in ``workloads.py`` (longread / rwmix /
-structrq; the JAX package's shardscale, serving, reliability and
+shardscale / structrq; the JAX package's serving, reliability and
 durability raise "not ported yet"), the thread/warmup machinery in
 ``driver.py``, and the normalized ``{meta, rows}`` results schema in
 ``results.py``.
@@ -21,6 +21,7 @@ from repro_torch.eval.driver import (  # noqa: F401
     longread_headline,
     run_eval,
     rwmix_headline,
+    shardscale_headline,
     structrq_headline,
     time_trial,
 )
@@ -36,5 +37,6 @@ from repro_torch.eval.workloads import (  # noqa: F401
 __all__ = [
     "DEFAULT_BACKENDS", "NOT_PORTED", "TrialSpec", "UNVERSIONED",
     "WORKLOADS", "longread_headline", "run_eval", "rwmix_headline",
-    "save_results", "structrq_headline", "time_trial",
+    "save_results", "shardscale_headline", "structrq_headline",
+    "time_trial",
 ]

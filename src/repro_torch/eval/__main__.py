@@ -3,6 +3,7 @@
     python -m repro_torch.eval --workload longread          # the card
     python -m repro_torch.eval --workload rwmix --quick
     python -m repro_torch.eval --workload structrq --quick --device cpu
+    python -m repro_torch.eval --workload shardscale --shards 1 2 4
     python -m repro_torch.eval --list                       # what exists
 
 Writes ``results/eval_<workload>.json`` and prints one table line per
@@ -17,7 +18,7 @@ import argparse
 import sys
 
 from repro_torch.eval.driver import longread_headline, run_eval, \
-    rwmix_headline, structrq_headline
+    rwmix_headline, shardscale_headline, structrq_headline
 from repro_torch.eval.workloads import NOT_PORTED, WORKLOADS
 
 
@@ -31,6 +32,15 @@ def _fmt_row(row: dict) -> str:
         extra = (f"rqs/s={row['rqs_per_sec']:7.1f} "
                  f"failed={row['failed_ops']:4d} "
                  f"rq-vs-scan={row.get('rq_vs_scan', 0.0):5.2f}x")
+    elif "n_shards" in row:
+        parity = row.get("parity_ok")
+        extra = (f"shards={row['n_shards']:2d} "
+                 f"updates/s={row['updates_per_sec']:8.1f} "
+                 f"failed={row['failed_updates']:4d} "
+                 f"checks/s={row['checks_per_sec']:7.1f} "
+                 f"violations={row['violations']:3d}"
+                 + (f" parity={'ok' if parity else 'FAIL'}"
+                    if parity is not None else ""))
     elif "write_words" in row:
         extra = (f"updates/s={row['updates_per_sec']:8.1f} "
                  f"failed={row['failed_updates']:4d} "
@@ -51,6 +61,9 @@ def main(argv=None) -> int:
                     help="registered backend names "
                          "(default: the workload's full set)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--shards", nargs="*", type=int, default=None,
+                    help="shardscale only: shard counts to sweep "
+                         "(default: 1 2 4, or 1 2 with --quick)")
     ap.add_argument("--quick", action="store_true",
                     help="CI smoke: fewer variants, short windows")
     ap.add_argument("--device", default=None,
@@ -72,6 +85,8 @@ def main(argv=None) -> int:
             print(f"{name:<10s} not ported yet ({where})")
         return 0
 
+    if args.shards:
+        WORKLOADS["shardscale"].shards = tuple(args.shards)
     rows, path = run_eval(
         args.workload, backends=args.backends, seed=args.seed,
         quick=args.quick, out_dir=args.out, save=not args.no_save,
@@ -100,6 +115,18 @@ def main(argv=None) -> int:
                   f"{h['multiverse_updates_per_sec']:.1f} updates/s "
                   f"({h['ratio_vs_best']:.2f}x of best) — {verdict} "
                   f"[{base}] violations={h['violations']}")
+    if args.workload == "shardscale":
+        h = shardscale_headline(rows)
+        if h:
+            verdict = (">=1.6x at 2 shards" if h["scales_1_6x"]
+                       else "does NOT reach 1.6x at 2 shards")
+            ups = ", ".join(f"s{n}={v:.1f}" for n, v in
+                            h["updates_per_sec"].items())
+            parity = "ok" if h["parity_ok"] else "FAIL"
+            print(f"\nheadline: shardstore [{ups}] updates/s -> "
+                  f"{h['ratio_2_shards']:.2f}x ({verdict}) "
+                  f"parity@1shard={parity} "
+                  f"violations={h['violations']}")
     if args.workload == "structrq":
         h = structrq_headline(rows)
         for struct, d in sorted(h.items()):

@@ -35,7 +35,7 @@ from repro_torch.eval.workloads import (
 )
 
 __all__ = ["run_eval", "time_trial", "longread_headline",
-           "rwmix_headline", "structrq_headline"]
+           "rwmix_headline", "shardscale_headline", "structrq_headline"]
 
 
 def time_trial(workers: Sequence[Callable], spec: TrialSpec,
@@ -173,6 +173,41 @@ def rwmix_headline(rows: List[Dict]) -> Dict:
         # exit gate still sums every row's violations separately
         "violations": sum(r.get("violations", 0) for r in rows
                           if r.get("backend") == "multiverse"),
+    }
+
+
+def shardscale_headline(rows: List[Dict]) -> Dict:
+    """The SHARDING claim, extracted from shardscale rows.
+
+    Same total heap words, same two disjoint-block updaters: does the
+    2-shard store's committed-update throughput reach >=1.6x the
+    1-shard store's?  At one shard both updaters share a commit clock
+    and every interleaved publish forces an abort/retry; at two shards
+    the per-shard clocks make the same workload conflict-free, so the
+    ratio measures exactly the waste the two-level clock removes.  The
+    shard==1 row's ``parity_ok`` (bit-identical dual-drive vs mvstore)
+    must hold for the comparison to mean anything, and violations must
+    be zero — a speedup bought with torn snapshots is a bug, not a
+    result.
+    """
+    at = {r["n_shards"]: r for r in rows
+          if r.get("backend") == "shardstore" and "n_shards" in r}
+    if 1 not in at or 2 not in at:
+        return {}
+    base = at[1]["updates_per_sec"]
+    ratio = at[2]["updates_per_sec"] / base if base > 0 else 0.0
+    violations = sum(r.get("violations", 0) for r in at.values())
+    return {
+        "updates_per_sec": {n: r["updates_per_sec"]
+                            for n, r in sorted(at.items())},
+        "failed_updates": {n: r["failed_updates"]
+                           for n, r in sorted(at.items())},
+        "ratio_2_shards": ratio,
+        "scales_1_6x": ratio >= 1.6,
+        "parity_ok": bool(at[1].get("parity_ok")),
+        "violations": violations,
+        "holds": bool(ratio >= 1.6 and at[1].get("parity_ok")
+                      and violations == 0),
     }
 
 

@@ -1,6 +1,6 @@
 """Workload generators for the paper's long-running-read experiments.
 
-Three families, all runnable on any registered backend through one driver
+Four families, all runnable on any registered backend through one driver
 (``repro_torch.eval.driver``), with the heap, lock words and store blocks
 on the card unless the caller names another device:
 
@@ -31,10 +31,16 @@ on the card unless the caller names another device:
     ``read_bulk`` — so the headline ratio (``rq_vs_scan``) states how
     close the frontier-at-a-time struct traversal comes to an array
     scan of the same volume.
+  * ``shardscale`` — rwmix's geometry on the sharded store
+    (``shardstore``) at 1 / 2 / 4 shards: two updaters whose blocks lie
+    on disjoint shards from two shards up, so the per-shard clocks
+    remove the abort/retry waste one shared clock causes; the 1-shard
+    row carries ``parity_ok`` (the same history through shardstore(1)
+    and mvstore gives the same heap).
 
-The JAX package's other four workloads (``shardscale``, ``serving``,
-``reliability``, ``durability``) wait for the modules they drive;
-``NOT_PORTED`` names the ROADMAP.md item that ports each.
+The JAX package's other three workloads (``serving``, ``reliability``,
+``durability``) wait for the modules they drive; ``NOT_PORTED`` names
+the ROADMAP.md item that ports each.
 
 Workload objects expose ``variants(quick)`` -> [TrialSpec] and
 ``run_trial(backend, spec, seed, device=None)`` -> row dict; the driver
@@ -52,6 +58,7 @@ import torch
 
 from repro_torch.api import MaxRetriesExceeded, make_tm, run
 from repro_torch.configs.paper_stm import MultiverseParams
+from repro_torch.core.engine.traverse import host_words
 from repro_torch.structs import STRUCTS
 
 #: every backend the eval drives by default (the paper's comparison set)
@@ -63,10 +70,9 @@ UNVERSIONED = ("tl2", "dctl", "norec", "tinystm")
 #: the JAX package's workloads this port does not run yet, with the
 #: ROADMAP.md item that ports each
 NOT_PORTED = {
-    "shardscale": "ROADMAP.md Queue 1 item 4, the sharded store",
-    "reliability": "ROADMAP.md Queue 1 item 5, reliability",
-    "durability": "ROADMAP.md Queue 1 item 5, reliability",
-    "serving": "ROADMAP.md Queue 1 item 6, the serving service",
+    "reliability": "ROADMAP.md Queue 1 item 2, reliability",
+    "durability": "ROADMAP.md Queue 1 item 2, reliability",
+    "serving": "ROADMAP.md Queue 1 item 3, the serving service",
 }
 
 INITIAL = 100          # per-word prefill: transfers preserve region sums
@@ -102,7 +108,7 @@ def _tm_params() -> MultiverseParams:
 
 def _make(backend: str, n_threads: int, params=None, device=None):
     params = params or _tm_params()
-    if backend == "mvstore":
+    if backend in ("mvstore", "shardstore"):
         return make_tm(backend, n_threads, params=params, device=device)
     # numeric word workloads run on the int64 array heap so read_bulk
     # gathers are single kernel launches
@@ -216,12 +222,12 @@ class LongReadWorkload:
 # ---------------------------------------------------------------------------
 
 
-def _rotated(vals):
-    """A block's values shifted by one: on the block's device for a
-    tensor batch, on the host for a list."""
+def _rotated(vals, shift: int = 1):
+    """A block's values shifted by ``shift``: on the block's device for
+    a tensor batch, on the host for a list."""
     if isinstance(vals, torch.Tensor):
-        return torch.roll(vals, 1)
-    return np.roll(np.asarray(vals, np.int64), 1)
+        return torch.roll(vals, shift)
+    return np.roll(np.asarray(vals, np.int64), shift)
 
 
 class RWMixWorkload:
@@ -322,6 +328,170 @@ class RWMixWorkload:
             "checks_per_sec": counters["checks"] / dt,
             "failed_checks": counters["failed_checks"],
             "violations": counters["violations"],
+            "mode_transitions": stats.get("mode_transitions", 0),
+            "stm_stats": stats,
+        }
+
+
+# ---------------------------------------------------------------------------
+# shardscale: disjoint-block updaters across 1/2/4 store shards
+# ---------------------------------------------------------------------------
+
+
+def _shard_parity_check(seed: int, wb: int, n_blocks: int, params,
+                        device=None) -> bool:
+    """Drive one deterministic single-thread history through BOTH
+    ``shardstore(n_shards=1, span=wb)`` and ``mvstore`` and compare the
+    final heaps bit-for-bit.
+
+    At one shard the address routing is the identity and the shard-local
+    clock IS the store clock, so the sharded store must be
+    indistinguishable from the unsharded one — the conformance anchor
+    the scaling claim hangs off (the 2- and 4-shard rows are only
+    meaningful if shard==1 is exactly the baseline)."""
+    r = random.Random(seed * 7919 + 17)
+    ops = [(r.randrange(n_blocks), 1 + r.randrange(wb - 1))
+           for _ in range(24)]
+    heaps = []
+    for backend, kw in (("mvstore", {}),
+                        ("shardstore", dict(n_shards=1, span=wb))):
+        tm = make_tm(backend, 1, params=params, device=device, **kw)
+        base = tm.alloc(wb * n_blocks, INITIAL)
+
+        def ramp(tx):
+            # constant prefill would make rotations invisible; stamp a
+            # per-word ramp so any routing slip changes the final heap
+            tx.write_bulk(range(base, base + wb * n_blocks),
+                          np.arange(wb * n_blocks, dtype=np.int64) * 3 + 7)
+        run(tm, ramp, tid=0)
+        for b, k in ops:
+            off = base + wb * b
+
+            def rot(tx, off=off, k=k):
+                vals = tx.read_bulk(range(off, off + wb))
+                tx.write_bulk(range(off, off + wb), _rotated(vals, k))
+            run(tm, rot, tid=0)
+
+        def dump(tx):
+            return np.asarray(host_words(tx.read_bulk(
+                range(base, base + wb * n_blocks))), np.int64)
+        heaps.append(run(tm, dump, tid=0))
+        tm.stop()
+    return bool(np.array_equal(heaps[0], heaps[1]))
+
+
+class ShardScaleWorkload:
+    """Disjoint-block scaling across store shards (the two-level clock's
+    payoff).
+
+    Same geometry as rwmix — ``n_blocks`` span-aligned blocks of
+    ``write_words`` words, two updaters owning the blocks congruent to
+    their id, a sum checker — but the store is a ``shardstore`` with
+    ``span=write_words``, so block ``b`` lives wholly on shard
+    ``b % n_shards`` and the two updaters' footprints land on DISJOINT
+    shards for every ``n_shards >= 2``.  At one shard both updaters
+    share a single commit clock: every interleaved publish stales the
+    other's pin and forces a full re-read/re-write attempt.  At two
+    shards each updater ticks its own shard-local clock and commits
+    conflict-free — the measured speedup is exactly the abort/retry
+    waste the per-shard clocks eliminate (total heap words are IDENTICAL
+    at every shard count; nothing else changes).
+
+    The shard==1 row additionally carries ``parity_ok``: a deterministic
+    dual-drive of the same history through shardstore(1) and mvstore
+    comparing final heaps bit-for-bit (the conformance anchor)."""
+
+    name = "shardscale"
+    metric = "updates_per_sec"
+    default_backends = ("shardstore",)
+    #: CLI override (``--shards``); None = the variant defaults below
+    shards = None
+
+    def variants(self, quick: bool = False) -> List[TrialSpec]:
+        counts = self.shards or ((1, 2) if quick else (1, 2, 4))
+        wb = 512
+        dur, warm = (0.8, 0.3) if quick else (1.2, 0.3)
+        return [TrialSpec(
+            workload=self.name, variant=f"s{n}", n_readers=1,
+            n_updaters=2, duration_s=dur, warmup_s=warm,
+            params=dict(n_shards=n, write_words=wb, n_blocks=8,
+                        max_retries=2000),
+        ) for n in counts]
+
+    def run_trial(self, backend: str, spec: TrialSpec, seed: int,
+                  device=None) -> Dict:
+        from repro_torch.eval.driver import time_trial
+        p = spec.params
+        wb, n_blocks = p["write_words"], p["n_blocks"]
+        n_shards = p["n_shards"]
+        n_upd = spec.n_updaters
+        params = MultiverseParams(k1=30, k2=200, k3=200,
+                                  lock_table_bits=16)
+        if backend == "shardstore":
+            tm = make_tm(backend, spec.total_threads, params=params,
+                         n_shards=n_shards, span=wb, device=device)
+        else:
+            # unsharded comparison rows (n_shards is recorded but moot)
+            tm = _make(backend, spec.total_threads, params=params,
+                       device=device)
+        base = tm.alloc(wb * n_blocks, INITIAL)
+        block_sum = wb * INITIAL
+
+        def updater(tid, stop, c):
+            r = random.Random(seed * 10007 + 300 + tid)
+            mine = [b for b in range(n_blocks) if b % n_upd == tid]
+
+            def rotate(tx):
+                off = base + wb * mine[r.randrange(len(mine))]
+                vals = tx.read_bulk(range(off, off + wb))
+                tx.write_bulk(range(off, off + wb), _rotated(vals))
+            while not stop.is_set():
+                try:
+                    run(tm, rotate, tid=tid,
+                        max_retries=p["max_retries"])
+                    c["updates"] += 1
+                except MaxRetriesExceeded:
+                    c["failed_updates"] += 1
+
+        def checker(tid, stop, c):
+            r = random.Random(seed * 10007 + 900 + tid)
+
+            def check(tx):
+                off = base + wb * r.randrange(n_blocks)
+                return _batch_sum(tx.read_bulk(range(off, off + wb)))
+            while not stop.is_set():
+                try:
+                    got = run(tm, check, tid=tid,
+                              max_retries=p["max_retries"])
+                    c["checks"] += 1
+                    if got != block_sum:
+                        c["violations"] += 1
+                except MaxRetriesExceeded:
+                    c["failed_checks"] += 1
+
+        workers = [lambda stop, c, t=t: updater(t, stop, c)
+                   for t in range(n_upd)]
+        workers += [lambda stop, c, t=t: checker(n_upd + t, stop, c)
+                    for t in range(spec.n_readers)]
+        counters, dt = time_trial(workers, spec)
+        stats = tm.stats()
+        tm.stop()
+        parity = None
+        if backend == "shardstore" and n_shards == 1:
+            parity = _shard_parity_check(seed, wb, n_blocks, params,
+                                         device=device)
+        return {
+            "workload": self.name, "backend": backend, "tm": backend,
+            "variant": spec.variant, "seed": seed,
+            "n_shards": n_shards, "write_words": wb,
+            "n_blocks": n_blocks,
+            "updates_per_sec": counters["updates"] / dt,
+            "failed_updates": counters["failed_updates"],
+            "checks_per_sec": counters["checks"] / dt,
+            "failed_checks": counters["failed_checks"],
+            "violations": counters["violations"],
+            "cross_shard_commits": stats.get("cross_shard_commits", 0),
+            "parity_ok": parity,
             "mode_transitions": stats.get("mode_transitions", 0),
             "stm_stats": stats,
         }
@@ -473,4 +643,4 @@ class StructRQWorkload:
 
 
 WORKLOADS = {w.name: w for w in (LongReadWorkload(), RWMixWorkload(),
-                                 StructRQWorkload())}
+                                 ShardScaleWorkload(), StructRQWorkload())}

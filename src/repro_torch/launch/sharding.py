@@ -5,7 +5,8 @@ The port's counterpart of the reference's ``launch/sharding.py`` for one
 device: ``ParamMeta``, ``stack_meta`` and ``materialize``.  A model one
 card holds whole needs no mesh, so the rule tables, ``shard_act`` and the
 abstract (sharded) parameter trees are not here; ``axes`` is kept so
-a meta tree reads the same in both packages.  Trees are nested dicts;
+a meta tree reads the same in both packages.  The one function here that
+reads a mesh is ``shard_device_slices``, the sharded store's placement.  Trees are nested dicts;
 ``leaves_with_path`` walks them in ``jax.tree_util`` order (sorted keys)
 and spells each path as ``keystr`` does (``"['layers']['sub0']"``).
 """
@@ -15,6 +16,7 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Any, Callable, Iterator, Optional, Tuple
 
+import numpy as np
 import torch
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -101,3 +103,17 @@ def stack_meta(meta_tree, n: int, axis_name: Optional[str] = None):
     """Prepend a stacking dim (layers) to every ParamMeta in a tree."""
     return tree_map(lambda m: dataclasses.replace(
         m, shape=(n,) + m.shape, axes=(axis_name,) + m.axes), meta_tree)
+
+
+def shard_device_slices(mesh, n_shards: int) -> list:
+    """One device slice per store shard (``core/shardstore.py``).
+
+    The sharded store partitions its heap at the ADDRESS level (spans
+    round-robin over shards), so its unit of placement is a whole
+    shard, not a tensor axis: shard ``s``'s handle is built on slice
+    ``s``.  Slices round-robin over the mesh's devices in row-major
+    order — with fewer shards than devices each shard owns a distinct
+    device; with more, shards wrap (clock independence is preserved
+    either way, placement is only locality)."""
+    devs = list(np.asarray(mesh.devices).flat)
+    return [devs[s % len(devs)] for s in range(n_shards)]

@@ -1,5 +1,6 @@
-"""Fault injection for the commit pipelines (``faultpoints``) and the
-training restore path (``recovery.replay_from_checkpoint``).
+"""Fault injection for the commit pipelines (``faultpoints``), the
+training restore path (``recovery.replay_from_checkpoint``) and the
+sharded store's cross-shard commit record (``recovery.EpochRecord``).
 
 The port keeps its own copy of the JAX package's stdlib-only
 ``faultpoints`` module, so the engine's hooks are the same named points.

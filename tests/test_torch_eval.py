@@ -1,15 +1,17 @@
 """The port's eval subsystem (``repro_torch.eval``) against the JAX
 package's (``repro.eval``), on the CPU.
 
-* The registry holds the three ported workloads; the other four raise
+* The registry holds the four ported workloads; the other three raise
   "not ported yet".
 * One short trial of each workload through both packages gives rows with
   the same keys (and the same ``stm_stats`` keys).
 * The headline functions give equal output on the same fixed rows.
 * ``structrq``'s quiescent ``rq_words`` equals the reference's for the
   same seed and structure.
+* ``shardscale``'s quick run holds its 1-shard parity against mvstore
+  with no violation.
 * ``python -m repro_torch.eval --quick --device cpu`` exits 0 on all
-  three workloads; the results file keeps the reference's schema.
+  four workloads; the results file keeps the reference's schema.
 """
 import dataclasses
 import json
@@ -27,7 +29,8 @@ def _short(spec, **params):
 
 
 def test_workload_registry_names():
-    assert set(TE.WORKLOADS) == {"longread", "rwmix", "structrq"}
+    assert set(TE.WORKLOADS) == {"longread", "rwmix", "shardscale",
+                                 "structrq"}
     assert set(TE.WORKLOADS) | set(TE.NOT_PORTED) == set(JE.WORKLOADS)
     assert TE.DEFAULT_BACKENDS == JE.DEFAULT_BACKENDS
     assert TE.UNVERSIONED == JE.UNVERSIONED
@@ -44,7 +47,7 @@ def test_workload_registry_names():
 
 @pytest.mark.parametrize("name", sorted(JE.WORKLOADS.keys()
                                         - {"longread", "rwmix",
-                                           "structrq"}))
+                                           "shardscale", "structrq"}))
 def test_unported_workload_says_so(name):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         TE.run_eval(name, device="cpu", save=False)
@@ -57,6 +60,7 @@ def test_unknown_workload():
 
 @pytest.mark.parametrize("workload,backend", [("longread", "mvstore"),
                                               ("rwmix", "tl2"),
+                                              ("shardscale", "shardstore"),
                                               ("structrq", "multiverse")])
 def test_rows_carry_the_reference_keys(workload, backend):
     jw, tw = JE.WORKLOADS[workload], TE.WORKLOADS[workload]
@@ -114,6 +118,19 @@ def _rwmix_rows():
     ]
 
 
+def _shardscale_rows():
+    return [
+        {"backend": "shardstore", "n_shards": 1, "updates_per_sec": 100.0,
+         "failed_updates": 0, "violations": 0, "parity_ok": True},
+        {"backend": "shardstore", "n_shards": 2, "updates_per_sec": 170.0,
+         "failed_updates": 3, "violations": 0, "parity_ok": None},
+        {"backend": "shardstore", "n_shards": 4, "updates_per_sec": 150.0,
+         "failed_updates": 1, "violations": 0, "parity_ok": None},
+        {"backend": "mvstore", "n_shards": 2, "updates_per_sec": 9.0,
+         "failed_updates": 0, "violations": 4},
+    ]
+
+
 def _structrq_rows():
     return [
         {"backend": "multiverse", "structure": s, "rq_words": w,
@@ -127,7 +144,8 @@ def _structrq_rows():
 
 @pytest.mark.parametrize("name,rows", [("longread", _longread_rows),
                                        ("rwmix", _rwmix_rows),
-                                       ("structrq", _structrq_rows)])
+                                       ("structrq", _structrq_rows),
+                                       ("shardscale", _shardscale_rows)])
 def test_headlines_match_reference(name, rows):
     fn = f"{name}_headline"
     from repro.eval import driver as JD
@@ -140,7 +158,8 @@ def test_headlines_match_reference(name, rows):
 @pytest.mark.parametrize("workload,backends", [
     ("longread", ["multiverse", "tl2", "mvstore"]),
     ("rwmix", ["multiverse", "norec"]),
-    ("structrq", ["multiverse", "dctl"])])
+    ("structrq", ["multiverse", "dctl"]),
+    ("shardscale", ["shardstore"])])
 def test_cli_quick_on_the_cpu(workload, backends, capsys):
     rc = main(["--workload", workload, "--quick", "--device", "cpu",
                "--backends", *backends, "--seed", "2", "--no-save"])
@@ -149,6 +168,32 @@ def test_cli_quick_on_the_cpu(workload, backends, capsys):
     assert "headline" in out
     assert "results ->" not in out
     assert all(f" {b} " in out for b in backends)
+
+
+def test_shardscale_quick_holds_parity_on_the_cpu():
+    rows, path = TE.run_eval("shardscale", quick=True, device="cpu",
+                             save=False)
+    assert path is None
+    assert [r["n_shards"] for r in rows] == [1, 2]
+    assert rows[0]["parity_ok"] is True
+    assert all(r["violations"] == 0 for r in rows)
+    assert all(r["updates_per_sec"] > 0 for r in rows)
+    h = TE.shardscale_headline(rows)
+    assert h["parity_ok"] and h["violations"] == 0
+
+
+def test_shardscale_cli_shards_flag(capsys):
+    w = TE.WORKLOADS["shardscale"]
+    try:
+        rc = main(["--workload", "shardscale", "--quick", "--device", "cpu",
+                   "--shards", "1", "4", "--no-save"])
+        assert [s.variant for s in w.variants(True)] == ["s1", "s4"]
+    finally:
+        w.shards = None
+    assert rc == 0
+    out = capsys.readouterr().out
+    assert "shards= 4" in out and "parity=ok" in out
+    assert "headline" not in out           # no 2-shard row to compare
 
 
 def test_results_file_matches_the_reference_schema(tmp_path):

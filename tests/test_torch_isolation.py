@@ -156,13 +156,21 @@ def test_the_eval_defaults_to_the_card(entry):
 
 
 def test_unported_backends_say_so():
+    """Every backend of the JAX package is ported: ``shardstore`` builds a
+    ``ShardStoreHandle`` on the CPU when asked and needs the card
+    otherwise; the eval workloads still to port say so."""
     from repro_torch.api import make_tm
+    from repro_torch.core.shardstore import ShardStoreHandle
 
-    for name in ("shardstore",):
-        with pytest.raises(ValueError, match="not ported yet"):
-            make_tm(name, device="cpu")
+    tm = make_tm("shardstore", device="cpu", start_bg=False)
+    assert isinstance(tm, ShardStoreHandle)
+    assert all(sh.device.type == "cpu" for sh in tm._shards)
+    tm.stop()
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make_tm("shardstore", start_bg=False)
     from repro_torch.eval import run_eval
 
-    for workload in ("shardscale", "serving", "reliability", "durability"):
+    for workload in ("serving", "reliability", "durability"):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             run_eval(workload, device="cpu", save=False)
