@@ -102,8 +102,8 @@ failure exits non-zero and no result line is printed:
      see its invariant and make progress, and each run must launch its
      path's kernels (the MVStore backend's aborts are counted by cause);
      then each structure of ``repro_torch.structs`` at scale on
-     multiverse (``AT_SCALE``: a 65,536-key hashmap serving whole-map
-     size queries beside an updater that moves keys, 16,384-key trees
+     multiverse (``AT_SCALE``: a 49,152-key hashmap serving whole-map
+     size queries beside an updater that moves keys, 12,288-key trees
      serving 10,000-key range queries beside an updater that moves value
      within fixed key pairs), and one quiescent query of each under a
      profiler trace: one ``gather_bracketed`` launch and at most two
@@ -1032,7 +1032,10 @@ def _previous_scatter(row, addrs, values):
 def op_counts(torch, fn, iters=20):
     """Device operations per call of ``fn`` from a ``torch.profiler``
     trace of ``iters`` warmed calls: each kernel by its ``__global__``
-    name, host->device and device->host copies, memsets."""
+    name, host->device and device->host copies, memsets.  ``fn`` launches
+    at least one kernel a call, so a trace holding fewer than ``iters``
+    kernels lost events (the card's profiler once kept 2 calls of 20)
+    and is taken again."""
     from torch.profiler import ProfilerActivity, profile
 
     names = sorted({k for ks in DEVICE_KERNELS.values() for k in ks},
@@ -1046,7 +1049,7 @@ def op_counts(torch, fn, iters=20):
                 fn()
             torch.cuda.synchronize()
         gpu = gpu_events(prof)
-        if gpu:
+        if sum(e["cat"] == "kernel" for e in gpu) >= iters:
             break
     counts = defaultdict(int)
     for e in gpu:
@@ -3813,11 +3816,13 @@ def supervisor_drill(torch):
 EVAL_WORKLOADS = ("longread", "rwmix", "structrq")
 #: the at-scale structure trial (the paper's WorkloadConfig holds 1,000,000
 #: keys in a 2,000,000 range; prefilled through the insert path, which is
-#: host-bound, the run's time limit cuts it to these sizes)
-AT_SCALE = {"hashmap": {"keys": 65_536, "key_range": 131_072,
+#: host-bound, the run's time limit cuts it to these sizes: 65,536 and
+#: 16,384 keys until the sharded store's phase joined the run, which then
+#: passed 700 s)
+AT_SCALE = {"hashmap": {"keys": 49_152, "key_range": 98_304,
                         "n_buckets": 1 << 16},
-            "extbst": {"keys": 16_384, "key_range": 32_768},
-            "abtree": {"keys": 16_384, "key_range": 32_768}}
+            "extbst": {"keys": 12_288, "key_range": 24_576},
+            "abtree": {"keys": 12_288, "key_range": 24_576}}
 RQ_SIZE = 10_000               # the paper's range-query size
 PREFILL_PER_TXN = 256
 
@@ -4331,11 +4336,7 @@ SHARD_COUNTS = (1, 2, 4)
 #: the at-scale store: the words phase 4's mvstore_1M trial holds, striped
 #: over the shards in spans of SHARD_SPAN
 SHARD_WORDS, SHARD_SPAN = 1_000_000, 8192
-#: ring depths: mvstore_1M's 8 slots, in which a whole-heap read across
-#: shards beside the two updaters completed no check on the card (each
-#: attempt outlasts 8 commits of a shard), and 128, in which it completes
-#: at every shard count
-SHARD_RINGS = (8, 128)
+SHARD_RING = 8                 # mvstore_1M's ring depth
 CROSS_EVERY = 16               # one update in 16 spans two shards
 
 
@@ -4450,33 +4451,31 @@ def shard_parity_check(torch):
     check(ok, "shardstore(1) and mvstore differ on the card")
 
 
-def shardstore_trial(torch, n_shards, ring_slots, duration_s=3.0,
-                     warmup_s=0.5, cap_s=30.0):
+def shardstore_trial(torch, n_shards, duration_s=3.0, warmup_s=0.5,
+                     cap_s=30.0):
     """The sharded store at the size of phase 4's ``mvstore_1M``: 1,000,000
     int32 words in spans of 8,192 over ``n_shards`` shards, every block
-    versioned, rings of ``ring_slots``.  2 updaters commit 2-word transfers inside
-    one span — updater ``u`` owns the spans ``k`` with ``k % 2 == u``, so
-    from 2 shards up their footprints lie on disjoint shards — and, from
-    2 shards up, one transfer in 16 between two spans on different
-    shards (a cross-shard epoch); 1 checker reads the whole heap in one
-    read-only transaction (across every shard from 2 up).  Every
+    versioned, rings of ``SHARD_RING`` slots.  2 updaters commit 2-word
+    transfers inside one span — updater ``u`` owns the spans ``k`` with
+    ``k % 2 == u``, so from 2 shards up their footprints lie on disjoint
+    shards — and, from 2 shards up, one transfer in 16 between two spans
+    on different shards (a cross-shard epoch); 1 checker reads the whole
+    heap in one read-only transaction (across every shard from 2 up).  Every
     completed check must see ``words * INITIAL``; the epoch must equal
     the cross-shard commits; every shard-local publish is one
     ``commit_fused`` launch, so the launches equal the shards' clock
-    advances; and the checker's reads launch ``gather_read``.  Past the
-    first ring depth, checks must complete while the updaters run (the
-    window runs ``duration_s`` and on until the first one, at most
-    ``cap_s``); at the first, they are recorded."""
+    advances; the checker's reads launch ``gather_read``; and checks
+    must complete while the updaters run (the window runs ``duration_s``
+    and on until the first one, at most ``cap_s``)."""
     from repro_torch import kernels as K
     from repro_torch.api import MaxRetriesExceeded, run
     from repro_torch.configs.paper_stm import MultiverseParams
 
-    name = f"shardstore_1M_s{n_shards}_r{ring_slots}"
-    must_check = ring_slots != SHARD_RINGS[0]
+    name = f"shardstore_1M_s{n_shards}_r{SHARD_RING}"
     words, span = SHARD_WORDS, SHARD_SPAN
     h = _make("shardstore", 3, MultiverseParams(k1=2, k2=3, k3=3),
               n_shards=n_shards, span=span, versioned="all",
-              ring_slots=ring_slots)
+              ring_slots=SHARD_RING)
     base = h.alloc(words, INITIAL)
     expected = words * INITIAL
     n_spans = -(-words // span)
@@ -4531,11 +4530,8 @@ def shardstore_trial(torch, n_shards, ring_slots, duration_s=3.0,
     clocks0 = h.clocks
     K.reset_launch_counts()
     workers = [checker, updater(0), updater(1)]
-    if must_check:
-        tot, dt = run_trial(workers, cap_s, warmup_s, min_s=duration_s,
-                            done=lambda t: t["checks"] > 0)
-    else:
-        tot, dt = run_trial(workers, duration_s, warmup_s)
+    tot, dt = run_trial(workers, cap_s, warmup_s, min_s=duration_s,
+                        done=lambda t: t["checks"] > 0)
     torch.cuda.synchronize()
     launches = K.launch_counts()
     stats = h.stats()
@@ -4543,7 +4539,7 @@ def shardstore_trial(torch, n_shards, ring_slots, duration_s=3.0,
     h.stop()
     advance = sum(clocks) - sum(clocks0)
     row = {"trial": name, "backend": "shardstore", "n_shards": n_shards,
-           "span": span, "block_words": words, "ring_slots": ring_slots,
+           "span": span, "block_words": words, "ring_slots": SHARD_RING,
            "seconds": dt, "updates_per_s": tot["updates"] / dt,
            "checks_per_s": tot["checks"] / dt,
            "failed_updates": tot["failed_updates"],
@@ -4559,7 +4555,7 @@ def shardstore_trial(torch, n_shards, ring_slots, duration_s=3.0,
            "max_memory_allocated": torch.cuda.max_memory_allocated()}
     emit(row)
     check(row["violations"] == 0, f"{name}: violations")
-    check(tot["updates"] > 0 and (tot["checks"] > 0 or not must_check),
+    check(tot["updates"] > 0 and tot["checks"] > 0,
           f"{name}: no progress ({dict(tot)})")
     check(row["epoch"] == row["cross_shard_commits"],
           f"{name}: epoch {row['epoch']} != "
@@ -4639,18 +4635,16 @@ def shard_phase(torch):
     t0 = time.perf_counter()
     totals = defaultdict(int)
     shard_parity_check(torch)
-    for ring in SHARD_RINGS:
-        rows = {n: shardstore_trial(torch, n, ring) for n in SHARD_COUNTS}
-        for row in rows.values():
-            for k, v in row["launches"].items():
-                totals[k] += v
-        base = rows[1]
-        emit({"shardstore_1M_scaling": {"ring_slots": ring, **{
-            f"ratio_{n}_to_1": {
-                "updates": rows[n]["updates_per_s"] / base["updates_per_s"],
-                "checks": (rows[n]["checks_per_s"] / base["checks_per_s"]
-                           if base["checks_per_s"] else None)}
-            for n in SHARD_COUNTS[1:]}}})
+    rows = {n: shardstore_trial(torch, n) for n in SHARD_COUNTS}
+    for row in rows.values():
+        for k, v in row["launches"].items():
+            totals[k] += v
+    base = rows[1]
+    emit({"shardstore_1M_scaling": {"ring_slots": SHARD_RING, **{
+        f"ratio_{n}_to_1": {
+            "updates": rows[n]["updates_per_s"] / base["updates_per_s"],
+            "checks": rows[n]["checks_per_s"] / base["checks_per_s"]}
+        for n in SHARD_COUNTS[1:]}}})
     for k, v in shard_batcher_check(torch).items():
         totals[k] += v
     erows = []

@@ -28,8 +28,8 @@ Transaction lifecycle (the two-level clock protocol):
     never bump the sequence, so the common case costs two atomic loads.
   * reads/writes route to the owning shard and validate against that
     shard's pin (``read_bulk`` batches per shard through
-    ``engine/bulkread.shard_partition`` and reassembles in order, on
-    the store's device).
+    ``engine/bulkread.shard_partition``, or by span arithmetic for an
+    address range, and reassembles in order, on the store's device).
   * commit with a SINGLE-shard footprint delegates to that shard's solo
     commit: no coordination, no epoch traffic.
   * commit SPANNING shards runs a two-phase epoch-stamped publish:
@@ -173,19 +173,67 @@ class ShardStoreHandle(SubstrateBase):
             local += rem
         return local
 
-    def _gathered(self, parts, size: int, dtype: torch.dtype):
-        """Per-shard batches ``[(positions, values)]`` reassembled in
-        batch order: one ``index_copy_`` per shard into a tensor on the
-        store's device, or a host list when a shard's values are a list
-        (buffered writes overlay its read)."""
+    def _split(self, addrs):
+        """The batch grouped by shard: ``(a, [(s, local, pos)])``, one
+        entry per shard it touches, ``local`` shard ``s``'s addresses in
+        batch order and ``pos`` their batch positions, ascending.
+
+        A unit-step ``range`` is split with no pass over its words: a
+        shard's words in a contiguous global range are contiguous
+        locally (its spans are consecutive local spans), so ``local`` is
+        a ``range`` and ``pos`` is ``None`` until ``_gathered`` builds it
+        after the gathers.  A whole-heap read then reaches each shard's
+        ring right after its pin, as a one-shard read does; routing a
+        million addresses one by one first can outlast a shallow ring's
+        window under commit traffic, and the read aborts ungathered."""
+        n = self.n_shards
+        if isinstance(addrs, range) and addrs.step == 1 and addrs.start >= 0:
+            lo, hi = addrs.start, max(addrs.stop, addrs.start)
+            spans = [(s, range(self._local_top(s, lo), self._local_top(s, hi)))
+                     for s in range(n)]
+            return addrs, [(s, r, None) for s, r in spans if len(r)]
+        a = as_addr_array(addrs)
+        if a.size == 0:
+            return a, []
+        sid, local = self._route(a)
+        if bool((sid == sid[0]).all()):
+            return a, [(int(sid[0]), local, None)]
+        return a, [(s, local[pos], pos) for s, pos in shard_partition(sid, n)]
+
+    def _range_positions(self, s: int, batch: range) -> np.ndarray:
+        """Batch positions of shard ``s``'s words in the unit-step range
+        ``batch``: its spans laid end to end, the first and last cut to
+        the range."""
+        g, n = self._span, self.n_shards
+        lo, hi = batch.start, batch.stop
+        k0 = lo // g
+        first = k0 + (s - k0) % n
+        starts = np.arange(first * g, hi, n * g, dtype=np.int64)
+        pos = (starts[:, None] + np.arange(g, dtype=np.int64)).reshape(-1)
+        return pos[max(lo - first * g, 0):
+                   pos.size - max(int(starts[-1]) + g - hi, 0)] - lo
+
+    def _gathered(self, a, parts, dtype: torch.dtype):
+        """Per-shard answers ``[(s, pos, values)]`` reassembled in batch
+        order: one ``index_copy_`` per shard into a tensor on the store's
+        device, or a host list when a shard's values are a list
+        (buffered writes overlay its read).  ``pos`` is ``None`` where
+        ``_split`` left it to be built: a range's, or the whole batch's
+        when it lies on one shard."""
+        if len(parts) == 1:             # the whole batch, in batch order
+            vals = parts[0][2]
+            return vals if isinstance(vals, list) else vals.to(self.device,
+                                                               dtype)
+        parts = [(self._range_positions(s, a) if pos is None else pos, vals)
+                 for s, pos, vals in parts]
         if any(isinstance(v, list) for _, v in parts):
-            out: list = [None] * size
+            out: list = [None] * len(a)
             for pos, vals in parts:
                 vlist = vals if isinstance(vals, list) else vals.tolist()
                 for p, v in zip(pos.tolist(), vlist):
                     out[p] = v
             return out
-        out = torch.empty(size, dtype=dtype, device=self.device)
+        out = torch.empty(len(a), dtype=dtype, device=self.device)
         for pos, vals in parts:
             out.index_copy_(0, to_device(pos, self.device),
                             vals.to(self.device, dtype))
@@ -224,18 +272,14 @@ class ShardStoreHandle(SubstrateBase):
         launch each on the card).  A one-shard batch returns that
         shard's answer; a spanning one an int32 tensor on the store's
         device, or a list where buffered writes overlay the read."""
-        a = as_addr_array(addrs)
         try:
-            if a.size == 0:
-                return self._shards[0].read_bulk(ctx.subs[0], a)
-            sid, local = self._route(a)
-            if bool((sid == sid[0]).all()):     # one shard: one gather
-                s = int(sid[0])
+            a, parts = self._split(addrs)
+            if len(parts) <= 1:                 # one shard: one gather
+                s, local, _ = parts[0] if parts else (0, a, None)
                 return self._shards[s].read_bulk(ctx.subs[s], local)
-            parts = [(pos, self._shards[s].read_bulk(ctx.subs[s],
-                                                     local[pos]))
-                     for s, pos in shard_partition(sid, self.n_shards)]
-            return self._gathered(parts, a.size, torch.int32)
+            got = [(s, pos, self._shards[s].read_bulk(ctx.subs[s], local))
+                   for s, local, pos in parts]
+            return self._gathered(a, got, torch.int32)
         except AbortTx:
             self._fail(ctx)
             raise
@@ -429,18 +473,17 @@ class ShardStoreHandle(SubstrateBase):
         every shard), or a per-shard vector — the pin a transaction's
         ``ctx.pins`` carries, so a recovery check can replay any epoch's
         cut."""
-        a = as_addr_array(addrs)
-        sid, local = self._route(a)
-        parts = []
-        for s, pos in shard_partition(sid, self.n_shards):
+        a, parts = self._split(addrs)
+        got = []
+        for s, local, pos in parts:
             rc = (read_clock if read_clock is None
                   or isinstance(read_clock, (int, np.integer))
                   else read_clock[s])
-            vals, ok = self._shards[s].snapshot_bulk(local[pos], rc)
+            vals, ok = self._shards[s].snapshot_bulk(local, rc)
             if not ok:
                 return None, False
-            parts.append((pos, vals))
-        return self._gathered(parts, a.size, torch.int64), True
+            got.append((s, pos, vals))
+        return self._gathered(a, got, torch.int64), True
 
     # -- accessors ---------------------------------------------------------
     @property

@@ -373,6 +373,56 @@ def test_cross_shard_read_bulk_is_a_tensor_on_the_store_device():
     st.stop()
 
 
+@pytest.mark.parametrize("n_shards", (1, 2, 3, 4))
+@pytest.mark.parametrize("span", (1, 3, 8))
+def test_range_batch_splits_by_span_arithmetic(n_shards, span):
+    """A unit-step range is split without routing its words: each
+    shard's local batch is a range, and the local addresses, batch
+    positions, reads and snapshots equal the routed address array's —
+    and the reads equal the reference's."""
+    r = np.random.RandomState(7 * n_shards + span)
+    vals = r.randint(1000, size=41).astype(np.int64)
+    spans = [(0, 41), (0, 1), (40, 41)] + [
+        tuple(sorted(r.randint(42, size=2))) for _ in range(3)]
+
+    def scenario(pkg):
+        st = make_store(pkg, n_shards, span=span)
+        base = st.alloc(41, 0)
+        with st.txn(tid=0) as tx:
+            tx.write_bulk(range(base, base + 41), vals)
+        with st.txn(tid=0) as tx:
+            reads = [ints(tx.read_bulk(range(base + lo, base + hi)))
+                     for lo, hi in spans]
+        st.stop()
+        return {"reads": reads}
+    got = both(scenario)
+    for (lo, hi), read in zip(spans, got["reads"]):
+        np.testing.assert_array_equal(read, vals[lo:hi])
+
+    st = make_store(PORT, n_shards, span=span)
+    base = st.alloc(41, 0)
+    with st.txn(tid=0) as tx:
+        tx.write_bulk(range(base, base + 41), vals)
+    for lo, hi in spans:
+        batch = range(base + lo, base + hi)
+        _, fast = st._split(batch)
+        _, routed = st._split(np.asarray(batch))
+        assert [s for s, _, _ in fast] == [s for s, _, _ in routed]
+        for (s, local, pos), (_, want_local, want_pos) in zip(fast, routed):
+            assert isinstance(local, range)
+            np.testing.assert_array_equal(np.asarray(local), want_local)
+            if want_pos is not None:
+                np.testing.assert_array_equal(
+                    st._range_positions(s, batch), want_pos)
+        with st.txn(tid=0) as tx:
+            np.testing.assert_array_equal(ints(tx.read_bulk(batch)),
+                                          vals[lo:hi])
+        snap, ok = st.snapshot_bulk(batch)
+        assert ok and snap.dtype == torch.int64
+        np.testing.assert_array_equal(ints(snap), vals[lo:hi])
+    st.stop()
+
+
 @pytest.mark.parametrize("n_shards", SHARD_COUNTS)
 def test_shard_parity_registry_backend(n_shards):
     """`make_tm("shardstore")` builds the same store the ctor does, with
