@@ -121,7 +121,27 @@ failure exits non-zero and no result line is printed:
      publish through ``ShardedCommitBatcher`` as one launch and one tick
      (card against CPU); and ``run_eval("shardscale")`` at its full
      variants holds its 1-shard parity with no violation;
-  7. the card's idle share: four of the trials, the two servers and the
+  7. the write-ahead log and crash recovery: every case of the JAX
+     package's crash matrix (solo commits on multiverse, tl2, dctl and
+     tinystm at six fault points, group commit buffered and encounter,
+     the MVStore publish, the five cross-shard epoch cases) on the card
+     and on the CPU must leave equal crash images, reports and recovered
+     heaps, lock words, clocks, mirror rows, rings and ring timestamps; a
+     seeded journal written on the card and on the CPU must give
+     byte-identical segment files, each replaying on the other device;
+     three children on the card kill themselves (SIGKILL) mid-commit and
+     a fresh engine recovers the committed prefix from the log alone;
+     ``durable_group_tl2_1M`` (phase 4's group trial journaled, two
+     1.5 s windows around a checkpoint of the whole heap) and
+     ``durable_mvstore_1M`` (3 s) replay into fresh stores on the card
+     equal to the trials' final state, with one ``scatter_write`` (base
+     image included) or ``commit_fused`` launch a record, and a
+     ``post_scatter`` kill on the replayed store completes its install;
+     and ``run_eval`` of ``reliability`` (in memory and durable) and
+     ``durability`` at their full variants: violations 0, no failed
+     invariant, every kill recovered and kills in the kill rows, every
+     restart drill clean;
+  8. the card's idle share: four of the trials, the two servers and the
      trainer run again for a 3 s window under a profiler trace of their
      GPU activity (the trainer's while it is still up after phase 4).
 
@@ -155,6 +175,8 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM data-sheet memory rate
 #: H100 SXM data-sheet peaks (dense): bf16 tensor cores; f32 off them
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 SEED = 0
+#: the card phase 7 compares against the CPU (a CPU rehearsal sets "cpu")
+CARD = "cuda"
 INITIAL = 100                  # per-word prefill (eval/workloads.py)
 AMOUNT = 5
 
@@ -3022,13 +3044,18 @@ def rwmix_trial(torch, name, wb, duration_s, warmup_s, backend="multiverse",
 
 
 def group_trial(torch, name, backend, duration_s=6.0, warmup_s=1.0,
-                probe=None):
+                probe=None, wal_dir=None, keep=None):
     """Group commit on a 1,000,000-word heap with the 2^16 lock table
     (eval/workloads.py durability, ``inmem-group``, at rwmix's 1024-word
     writes): 2 updaters each commit batches of 8 disjoint contiguous
     1024-word rotations through ``CommitBatcher``; 1 checker reads block
-    sums."""
+    sums.  With ``wal_dir`` (``durable-group``): a ``WriteAheadLog(
+    group_sync=True)`` journals every group, and the window is run twice
+    around a quiesced ``wal.checkpoint`` of the whole heap; ``keep``
+    receives the final heap (one copy home), the clock and the log's
+    counters."""
     from repro_torch.api import MaxRetriesExceeded, run
+    from repro_torch.reliability.wal import WriteAheadLog, attach_wal
     from repro_torch.configs.paper_stm import MultiverseParams
     from repro_torch.core.engine.errors import AbortTx
     from repro_torch.core.engine.groupcommit import CommitBatcher
@@ -3086,12 +3113,31 @@ def group_trial(torch, name, backend, duration_s=6.0, warmup_s=1.0,
             except MaxRetriesExceeded:
                 c["failed_checks"] += 1
 
-    tot, dt = run_trial([updater(0), updater(1), checker], duration_s,
-                        warmup_s, probe=probe)
+    workers = [updater(0), updater(1), checker]
+    wal = None
+    if wal_dir is None:
+        tot, dt = run_trial(workers, duration_s, warmup_s, probe=probe)
+    else:
+        wal = attach_wal(tm, WriteAheadLog(wal_dir, group_sync=True))
+        tot, dt = run_trial(workers, duration_s, warmup_s)
+        t0 = time.perf_counter()
+        wal.checkpoint(eng.heap.live(), eng.clock.load())  # quiesced
+        keep["checkpoint_s"] = time.perf_counter() - t0
+        tot2, dt2 = run_trial(workers, duration_s, warmup_s)
+        for k, v in tot2.items():
+            tot[k] += v
+        dt += dt2
     final = run(tm, lambda tx: [_sum(tx.read_bulk(
         range(base + wb * b, base + wb * (b + 1)))) for b in range(n_blocks)],
         tid=n_blocks)
     groups = tot["groups"]
+    if wal is not None:
+        keep.update(heap=eng.heap.live().cpu().numpy(),
+                    clock=eng.clock.load(), wal_stats=wal.stats(),
+                    sums=[(base + wb * b, wb, block_sum)
+                          for b in range(n_blocks)])
+        wal.close()
+        eng.wal = None
     tm.stop()
     check(final == [block_sum] * n_blocks, f"{name}: final sums {final}")
     row = {"trial": name, "backend": backend, "heap_words": heap_words,
@@ -3107,7 +3153,8 @@ def group_trial(torch, name, backend, duration_s=6.0, warmup_s=1.0,
     return row
 
 
-def mvstore_trial(torch, name, duration_s=6.0, warmup_s=1.0, probe=None):
+def mvstore_trial(torch, name, duration_s=6.0, warmup_s=1.0, probe=None,
+                  wal_dir=None, keep=None):
     """The MVStore on a 1,000,000-word int32 block, every block versioned,
     an 8-slot ring: 2 updaters commit 2-word transfers (each publish one
     ``commit_fused`` launch, out of place, plus the ring refresh) and 1
@@ -3116,10 +3163,13 @@ def mvstore_trial(torch, name, duration_s=6.0, warmup_s=1.0, probe=None):
     the trainer snapshot's call: one ``snapshot_select`` launch).
     Afterwards every clock of the ring window resolves through
     ``snapshot`` and must equal the plain ``snapshot_select`` on the same
-    ring and ``snapshot_bulk``."""
+    ring and ``snapshot_bulk``.  With ``wal_dir`` a ``WriteAheadLog(
+    group_sync=True)`` journals every publish and ``keep`` receives the
+    final block (one copy home), the clock and the log's counters."""
     from repro_torch.api import MaxRetriesExceeded, run
     from repro_torch.configs.paper_stm import MultiverseParams
     from repro_torch.kernels import snapshot_select as SS
+    from repro_torch.reliability.wal import WriteAheadLog, attach_wal
 
     words, R = 1_000_000, 8
     h = _make("mvstore", 3, MultiverseParams(k1=2, k2=3, k3=3),
@@ -3127,6 +3177,8 @@ def mvstore_trial(torch, name, duration_s=6.0, warmup_s=1.0, probe=None):
     base = h.alloc(words, INITIAL)
     expected = words * INITIAL
     addrs = np.arange(base, base + words, dtype=np.int64)
+    wal = (None if wal_dir is None
+           else attach_wal(h, WriteAheadLog(wal_dir, group_sync=True)))
 
     def scanner(stop, c):
         r = random.Random(SEED * 10007 + 7)
@@ -3189,6 +3241,11 @@ def mvstore_trial(torch, name, duration_s=6.0, warmup_s=1.0, probe=None):
                                      f"at clock {rc}")
         check(_sum(blk) == expected, f"{name}: snapshot sum at clock {rc}")
     stats = h.stats()
+    if wal is not None:
+        keep.update(block=h.state.live["heap"].cpu().numpy(),
+                    clock=h.clock, wal_stats=wal.stats())
+        wal.close()
+        h.wal = None
     h.stop()
     row = {"trial": name, "backend": "mvstore", "block_words": words,
            "ring_slots": R, "seconds": dt,
@@ -3733,7 +3790,7 @@ def train_trial(torch, launches):
           f"train: {counts['flash_attention']} flash_attention launches")
     check(counts["snapshot_select"] > 0, "train: no snapshot_select launch")
 
-    # phase 7's window, taken while the trainer is up
+    # phase 8's window, taken while the trainer is up
     prof = torch.profiler.profile(activities=[ProfilerActivity.CUDA])
     prof.start()
     t0, n, enqueue = time.perf_counter(), 0, 0.0
@@ -4174,6 +4231,22 @@ def traversal_trace(torch, tm, query):
             "host_split": split}
 
 
+def move_engine(torch, src, dst):
+    """Carry a quiescent word engine's state to a fresh one on another
+    device: the heap buffer, the lock row and the clock, one copy each.
+    Only a state with no version list is carried (a single-thread
+    prefill never leaves Mode Q, so none exists); the source stops."""
+    s, d = src.raw, dst.raw
+    check(s.policy.vlt.nonempty_count == 0 and s.policy.mode_name(s) ==
+          d.policy.mode_name(d), "move_engine: the source holds versions")
+    heap = s.heap
+    d.heap._install(heap._buf.to(d.device), len(heap))
+    d.locks._words.copy_(s.locks._words)
+    d.clock.store(s.clock.load())
+    torch.cuda.synchronize()
+    src.stop()
+
+
 def at_scale_trial(torch, kind, window_s=4.0, warmup_s=0.5):
     """One structure at the size ``AT_SCALE`` gives, on multiverse on the
     card, prefilled through its insert path ``PREFILL_PER_TXN`` keys to a
@@ -4197,16 +4270,23 @@ def at_scale_trial(torch, kind, window_s=4.0, warmup_s=0.5):
 
     cfg = AT_SCALE[kind]
     n, key_range = cfg["keys"], cfg["key_range"]
-    tm = _make("multiverse", 2, MultiverseParams(k1=2, k2=3, k3=3,
-                                                 lock_table_bits=16))
-    s = STRUCTS[kind](tm, **({"n_buckets": cfg["n_buckets"]}
-                             if kind == "hashmap" else {}))
+    params = MultiverseParams(k1=2, k2=3, k3=3, lock_table_bits=16)
+    tm = _make("multiverse", 2, params)
+    # the prefill runs the same insert path on a CPU engine (bit-identical
+    # to the card's: phase 3, tests/test_torch_structs.py), whose state
+    # then moves to the card in one copy each of the heap, the lock row
+    # and the clock — on the card each scalar read is a device sync
+    host = _make("multiverse", 2, params, device="cpu")
+    s = STRUCTS[kind](host, **({"n_buckets": cfg["n_buckets"]}
+                               if kind == "hashmap" else {}))
     rnd = random.Random(SEED * 7919 + 11)
     keys = rnd.sample(range(key_range), n)
     t0 = time.perf_counter()
     for i in range(0, n, PREFILL_PER_TXN):
-        run(tm, lambda tx, ks=keys[i:i + PREFILL_PER_TXN]: [
+        run(host, lambda tx, ks=keys[i:i + PREFILL_PER_TXN]: [
             s.insert(tx, k, INITIAL) for k in ks], tid=0)
+    move_engine(torch, host, tm)
+    s.tm = tm
     prefill_s = time.perf_counter() - t0
     order = sorted(keys)
 
@@ -4674,6 +4754,599 @@ def shard_phase(torch):
     return totals
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the write-ahead log and crash recovery
+# ---------------------------------------------------------------------------
+
+CRASH_N = 300                  # >= BULK_MIN (tests/test_crash_matrix.py)
+CRASH_POINTS = ("pre_claim", "post_claim", "pre_clock_tick", "pre_scatter",
+                "post_scatter", "pre_release")
+MV_CRASH_POINTS = ("pre_clock_tick", "pre_scatter", "post_scatter",
+                   "pre_release")
+#: (point, nth) of the reference's five cross-shard epoch cases
+SHARD_EPOCH_CASES = (("pre_claim", 1), ("pre_clock_tick", 1),
+                     ("pre_scatter", 1), ("pre_scatter", 2),
+                     ("pre_release", 3))
+WORD_ENGINES = ("multiverse", "tl2", "dctl", "tinystm")
+JOURNAL_TXNS = 40              # the seeded single-thread journal's length
+
+
+def _word_engine(backend, n_threads, device):
+    """The reference crash matrix's engine (``start_bg=False``, default
+    parameters) with its heap in an ``ArrayHeap`` on ``device``."""
+    from repro_torch.core.baselines import DCTL, TL2, TinySTM
+    from repro_torch.core.engine import ArrayHeap
+    from repro_torch.core.stm import Multiverse
+
+    heap = ArrayHeap(device=device)
+    if backend == "multiverse":
+        return Multiverse(n_threads, start_bg=False, heap=heap,
+                          device=device)
+    cls = {"tl2": TL2, "dctl": DCTL, "tinystm": TinySTM}[backend]
+    return cls(n_threads, heap=heap, device=device)
+
+
+def _h64(t):
+    return t.cpu().numpy().astype(np.int64)
+
+
+def _word_record(eng, n, out, tag):
+    """Heap prefix, lock words, clock and mirror rows into ``out``."""
+    out[f"{tag}.heap"] = _h64(eng.heap.live()[:n])
+    out[f"{tag}.locks"] = _h64(eng.locks._words)
+    out[f"{tag}.clock"] = eng.clock.load()
+    mirror = getattr(getattr(eng.policy, "vlt", None), "mirror", None)
+    if mirror is not None:
+        for k in ("_seq", "_addr", "_ts", "_data"):
+            out[f"{tag}.mirror{k}"] = _h64(getattr(mirror, k))
+
+
+def _store_record(h, out, tag):
+    s = h.state
+    out[f"{tag}.clock"] = s.clock
+    out[f"{tag}.heap"] = _h64(s.live["heap"])
+    out[f"{tag}.inflight"] = h._inflight is not None
+    for k in s.ring:
+        out[f"{tag}.ring"] = _h64(s.ring[k])
+        out[f"{tag}.ring_ts"] = _h64(s.ring_ts[k])
+        out[f"{tag}.host_ts"] = np.asarray(h._snap[3], np.int64)
+
+
+def _report_record(rep, out, tag="report"):
+    for k, v in dataclasses.asdict(rep).items():
+        out[f"{tag}.{k}"] = np.asarray(v)
+
+
+def crash_case(kind, backend, point, nth, device):
+    """One case of the reference's crash matrix on ``device``: a kill at
+    the ``nth`` arrival at ``point``, then recovery.  Returns the flat
+    record (crash image, report, recovered state, invariant violations)
+    that card and CPU must agree on."""
+    from repro_torch.api import make_tm, run
+    from repro_torch.core.engine.groupcommit import CommitBatcher
+    from repro_torch.reliability import faultpoints as FP
+    from repro_torch.reliability import recovery as REC
+
+    n = CRASH_N
+    out = {}
+
+    def crashing(fn):
+        sched = FP.install(FP.FaultSchedule([FP.Fault(point, nth, "kill")]))
+        try:
+            fn()
+            out["crashed"] = False
+        except FP.SimulatedCrash:
+            out["crashed"] = True
+        finally:
+            FP.uninstall()
+        out["fired"] = len(sched.fired)
+
+    try:
+        if kind in ("solo", "group"):
+            members = 1 if kind == "solo" else 3
+            tm = _word_engine(backend, members + 1, device)
+            tm.alloc(members * n, 0)
+            if kind == "solo":
+                run(tm, lambda tx: tx.write_bulk(np.arange(n),
+                                                 list(range(n))), tid=0)
+                dead = [1]
+                clock0 = tm.clock.load()
+                crashing(lambda: run(tm, lambda tx: tx.write_bulk(
+                    np.arange(n), [v + 1000 for v in range(n)]), tid=1))
+            else:
+                batcher = CommitBatcher(tm)
+                for t in range(members):
+                    tx = tm.begin(t)
+                    tx.write_bulk(np.arange(t * n, (t + 1) * n),
+                                  [t * 10000 + i for i in range(n)])
+                    batcher.add(tx)
+                dead = list(range(members))
+                clock0 = tm.clock.load()
+                crashing(batcher.commit_all)
+            _word_record(tm, members * n, out, "crash")
+            if out["crashed"]:
+                out["decided"] = np.asarray(
+                    [tm.ctx(t).publish_started for t in dead])
+                _report_record(REC.recover_engine(tm, dead), out)
+            out["violations"] = np.asarray(REC.check_engine_invariants(
+                tm, clock_at_least=clock0))
+            _word_record(tm, members * n, out, "recovered")
+            tm.stop()
+        else:
+            st = (make_tm("mvstore", 2, versioned="all", start_bg=False,
+                          device=device) if kind == "mvstore" else
+                  make_tm("shardstore", 2, n_shards=2, span=4,
+                          start_bg=False, device=device))
+            st.alloc(32, 0)
+            run(st, lambda tx: tx.write_bulk(np.arange(32),
+                                             list(range(32))), tid=0)
+            crashing(lambda: run(st, lambda tx: tx.write_bulk(
+                np.arange(32), [v + 100 for v in range(32)]), tid=1))
+            if kind == "mvstore":
+                _store_record(st, out, "crash")
+                _report_record(REC.recover_handle(st), out)
+                out["violations"] = np.asarray(
+                    REC.check_store_invariants(st))
+                _store_record(st, out, "recovered")
+            else:
+                out["parked"] = st._epoch_inflight is not None
+                for i, sh in enumerate(st._shards):
+                    _store_record(sh, out, f"crash.s{i}")
+                _report_record(REC.recover_shardstore(st), out)
+                out["violations"] = np.asarray(
+                    REC.check_shardstore_invariants(st))
+                for i, sh in enumerate(st._shards):
+                    _store_record(sh, out, f"recovered.s{i}")
+                out["epoch"] = st._epoch.load()
+            vals, ok = st.snapshot_bulk(np.arange(32))
+            out["snapshot.ok"] = bool(ok)
+            out["snapshot"] = _host(vals)
+            st.stop()
+    finally:
+        FP.uninstall()
+        FP.reset_thread()
+    return out
+
+
+def crash_parity(torch):
+    """Every case of ``tests/test_crash_matrix.py``'s matrix (solo: every
+    word backend x six points; group buffered and encounter; the MVStore's
+    four points; the five cross-shard epoch cases) on the card and on the
+    CPU: crash images, whole reports, recovered heaps, lock words, clocks,
+    mirror rows, blocks, rings and ring timestamps must be equal, with no
+    invariant violated.  Returns the card's launch counts."""
+    from repro_torch import kernels as K
+
+    cases = [("solo", b, p, 1) for b in WORD_ENGINES for p in CRASH_POINTS]
+    cases += [("group", "tl2", p, 1) for p in CRASH_POINTS]
+    cases += [("group", "dctl", p, 1)
+              for p in ("pre_clock_tick", "pre_release")]
+    cases += [("mvstore", None, p, 1) for p in MV_CRASH_POINTS]
+    cases += [("shardstore", None, p, k) for p, k in SHARD_EPOCH_CASES]
+    cpu, dev = torch.device("cpu"), torch.device(CARD)
+    totals = defaultdict(int)
+    summary = defaultdict(int)
+    for kind, backend, point, nth in cases:
+        what = f"crash {kind}/{backend}/{point}#{nth}"
+        K.reset_launch_counts()
+        got = crash_case(kind, backend, point, nth, dev)
+        torch.cuda.synchronize()
+        for k, v in K.launch_counts().items():
+            totals[k] += v
+        want = crash_case(kind, backend, point, nth, cpu)
+        _same_state(what, got, want)
+        check(got["violations"].size == 0,
+              f"{what}: {got['violations'].tolist()}")
+        summary["cases"] += 1
+        summary["crashed"] += bool(got["crashed"])
+        summary["rolled_forward"] += int(
+            np.size(got.get("report.rolled_forward", ())))
+        summary["rolled_back"] += int(
+            np.size(got.get("report.rolled_back", ())))
+        summary["completed_install"] += bool(
+            got.get("report.completed_install", False))
+    check(summary["crashed"] > 0 and summary["rolled_forward"] > 0
+          and summary["rolled_back"] > 0, f"crash matrix {dict(summary)}")
+    emit({"crash_matrix_card_equals_cpu": dict(summary),
+          "launches": dict(totals)})
+    return totals
+
+
+def _journal(backend, device, wal_dir):
+    """A seeded single-thread schedule journaled to ``wal_dir``: 40
+    transactions of 1-8 or 300-word writes (some reading first), every
+    fourth pair through ``CommitBatcher``.  Returns the final heap."""
+    from repro_torch.api import run
+    from repro_torch.core.engine.groupcommit import CommitBatcher
+    from repro_torch.reliability.wal import WriteAheadLog, attach_wal
+
+    r = random.Random(SEED * 10007 + 11)
+    words = 2048
+    tm = _word_engine(backend, 3, device)
+    tm.alloc(words, 0)
+    wal = attach_wal(tm, WriteAheadLog(wal_dir))
+    for i in range(JOURNAL_TXNS):
+        n = r.choice((1, 8, CRASH_N))
+        lo = r.randrange(words - n)
+        vals = [r.randrange(-1 << 40, 1 << 40) for _ in range(n)]
+        if i % 4 == 3 and backend != "multiverse":
+            batcher = CommitBatcher(tm)
+            for t, off in ((0, 0), (1, words // 2)):
+                tx = tm.begin(t)
+                a = np.arange(off, off + 64)
+                tx.write_bulk(a, [v + t for v in vals[:1]] * 64)
+                batcher.add(tx)
+            batcher.commit_all()
+            continue
+
+        def body(tx, lo=lo, n=n, vals=vals, i=i):
+            if i % 2:
+                _sum(tx.read_bulk(range(lo, lo + n)))
+            tx.write_bulk(np.arange(lo, lo + n), vals)
+        run(tm, body, tid=i % 2)
+    heap = _h64(tm.heap.live())
+    wal.close()
+    tm.stop()
+    return heap
+
+
+def journal_parity(torch, scratch):
+    """The seeded journal on the card and on the CPU: the segment files
+    must be byte-identical, and each log must replay into a fresh engine
+    on the OTHER device to the heap it was written from."""
+    from repro_torch.reliability.wal import recover_from_wal
+
+    out = {}
+    for backend in ("tl2", "dctl", "multiverse"):
+        heaps, dirs = {}, {}
+        for dev in (CARD, "cpu"):
+            dirs[dev] = os.path.join(scratch, f"journal_{backend}_{dev}")
+            heaps[dev] = _journal(backend, torch.device(dev), dirs[dev])
+        segs = {d: [open(os.path.join(p, f), "rb").read()
+                    for f in sorted(os.listdir(p)) if f.endswith(".seg")]
+                for d, p in dirs.items()}
+        check(segs[CARD] == segs["cpu"],
+              f"journal {backend}: the card's log differs from the CPU's")
+        check(np.array_equal(heaps[CARD], heaps["cpu"]),
+              f"journal {backend}: card and CPU heaps differ")
+        for src, dst in ((CARD, "cpu"), ("cpu", CARD)):
+            fresh = _word_engine(backend, 1, torch.device(dst))
+            fresh.alloc(heaps[src].size, 0)
+            rep = recover_from_wal(dirs[src], fresh)
+            check(np.array_equal(_h64(fresh.heap.live()), heaps[src]),
+                  f"journal {backend}: the {src} log replayed on {dst} "
+                  "differs")
+            fresh.stop()
+        out[backend] = {"records_replayed": rep.wal_records_replayed,
+                        "log_bytes": sum(len(b) for b in segs[CARD])}
+    emit({"journal_card_equals_cpu": out})
+
+
+def durable_group_trial(torch, scratch):
+    """``durable_group_tl2_1M``: phase 4's ``group_tl2_1M`` with a
+    ``WriteAheadLog(group_sync=True)``, two 1.5 s windows around a
+    checkpoint of the whole heap; then a FRESH tl2 engine on the card at
+    the same size replays the log: its heap must equal the trial's bit
+    for bit, every block sum must hold, and the replay must launch
+    ``scatter_write`` exactly once for the base image plus once a
+    record."""
+    from repro_torch import kernels as K
+    from repro_torch.configs.paper_stm import MultiverseParams
+    from repro_torch.reliability.recovery import check_engine_invariants
+    from repro_torch.reliability.wal import recover_from_wal
+
+    wal_dir = os.path.join(scratch, "durable_group_tl2")
+    keep = {}
+    K.reset_launch_counts()
+    row = group_trial(torch, "durable_group_tl2_1M", "tl2", 1.5, 0.25,
+                      wal_dir=wal_dir, keep=keep)
+    torch.cuda.synchronize()
+    row["launches"] = K.launch_counts()
+    check(row["violations"] == 0, "durable_group_tl2_1M: violations")
+    fresh = _make("tl2", 1, MultiverseParams(k1=30, k2=200, k3=200,
+                                             lock_table_bits=16))
+    fresh.alloc(keep["heap"].size, INITIAL)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    rep = recover_from_wal(wal_dir, fresh)
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t0
+    replay = K.launch_counts()
+    got = _h64(fresh.raw.heap.live())
+    post = check_engine_invariants(fresh, expect_sums=keep["sums"])
+    fresh.stop()
+    inmem = PHASE4_ROWS["group_tl2_1M"]["updates_per_s"]
+    row.update(wal_stats=keep["wal_stats"], checkpoint_s=keep["checkpoint_s"],
+               replay_s=replay_s, records_replayed=rep.wal_records_replayed,
+               replay_launches=replay,
+               ratio_to_group_tl2_1M=row["updates_per_s"] / inmem,
+               reference_bar_ratio=0.5)
+    emit(row)
+    check(rep.wal_records_replayed > 0, "durable_group_tl2_1M: no record")
+    check(replay["scatter_write"] == 1 + rep.wal_records_replayed,
+          f"durable_group_tl2_1M: {replay['scatter_write']} scatter_write "
+          f"launches replaying {rep.wal_records_replayed} records")
+    check(np.array_equal(got, keep["heap"]),
+          "durable_group_tl2_1M: the replayed heap differs from the trial's")
+    check(post == [], f"durable_group_tl2_1M: {post}")
+    return row["launches"]
+
+
+def durable_mvstore_trial(torch, scratch):
+    """``durable_mvstore_1M``: phase 4's ``mvstore_1M`` with a
+    ``WriteAheadLog`` attached (3 s); a fresh 1M-word MVStore on the card
+    replays the log to the trial's block and clock with one
+    ``commit_fused`` launch a record; then a kill at ``post_scatter`` on
+    that store completes its install from ``_inflight``, and
+    ``check_store_invariants`` resolves every durable ring timestamp
+    through ``snapshot_select``."""
+    from repro_torch import kernels as K
+    from repro_torch.api import run
+    from repro_torch.configs.paper_stm import MultiverseParams
+    from repro_torch.reliability import faultpoints as FP
+    from repro_torch.reliability.recovery import (check_store_invariants,
+                                                  recover_handle)
+    from repro_torch.reliability.wal import recover_from_wal
+
+    wal_dir = os.path.join(scratch, "durable_mvstore")
+    keep = {}
+    K.reset_launch_counts()
+    row = mvstore_trial(torch, "durable_mvstore_1M", 3.0, 0.5,
+                        wal_dir=wal_dir, keep=keep)
+    torch.cuda.synchronize()
+    row["launches"] = K.launch_counts()
+    check(row["violations"] == 0, "durable_mvstore_1M: violations")
+    h = _make("mvstore", 3, MultiverseParams(k1=2, k2=3, k3=3),
+              versioned="all", ring_slots=8)
+    h.alloc(keep["block"].size, INITIAL)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    rep = recover_from_wal(wal_dir, h)
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t0
+    replay = K.launch_counts()
+    same_block = np.array_equal(h.state.live["heap"].cpu().numpy(),
+                                keep["block"])
+    row.update(wal_stats=keep["wal_stats"], replay_s=replay_s,
+               records_replayed=rep.wal_records_replayed,
+               replay_launches=replay, replayed_clock=h.clock,
+               trial_clock=keep["clock"])
+    check(same_block, "durable_mvstore_1M: the replayed block differs")
+    check(h.clock == keep["clock"],
+          f"durable_mvstore_1M: clock {h.clock} != {keep['clock']}")
+    check(rep.wal_records_replayed > 0
+          and replay["commit_fused"] == rep.wal_records_replayed,
+          f"durable_mvstore_1M: {replay['commit_fused']} commit_fused "
+          f"launches replaying {rep.wal_records_replayed} records")
+    FP.install(FP.FaultSchedule([FP.Fault("post_scatter", 1, "kill")]))
+    try:
+        run(h, lambda tx: tx.write_bulk([0, 1], [INITIAL - AMOUNT,
+                                                 INITIAL + AMOUNT]), tid=1)
+        crashed = False
+    except FP.SimulatedCrash:
+        crashed = True
+    finally:
+        FP.uninstall()
+        FP.reset_thread()
+    check(crashed and h._inflight is not None,
+          "durable_mvstore_1M: the post_scatter kill did not land")
+    rec = recover_handle(h)
+    K.reset_launch_counts()
+    post = check_store_invariants(h)
+    torch.cuda.synchronize()
+    inv = K.launch_counts()
+    h.stop()
+    row.update(post_scatter_completed_install=rec.completed_install,
+               invariant_launches={k: v for k, v in inv.items() if v})
+    emit(row)
+    check(rec.completed_install, "durable_mvstore_1M: install not completed")
+    check(post == [] and inv["snapshot_select"] > 0,
+          f"durable_mvstore_1M: invariants {post}, {inv['snapshot_select']} "
+          "snapshot_select launches")
+    return row["launches"]
+
+
+_SIGKILL_CHILD = """
+import sys
+import numpy as np
+sys.path.insert(0, sys.argv[5])
+from repro_torch.api import run
+from repro_torch.core.baselines import TL2
+from repro_torch.core.engine import ArrayHeap
+from repro_torch.core.stm import Multiverse
+from repro_torch.reliability import faultpoints as FP
+from repro_torch.reliability.wal import WriteAheadLog, attach_wal
+
+backend, point, wal_dir, n, dev = sys.argv[1], sys.argv[2], sys.argv[3], \\
+    int(sys.argv[4]), sys.argv[6]
+heap = ArrayHeap(device=dev)
+tm = (Multiverse(2, start_bg=False, heap=heap, device=dev)
+      if backend == "multiverse" else TL2(2, heap=heap, device=dev))
+tm.alloc(n, 0)
+attach_wal(tm, WriteAheadLog(wal_dir))
+run(tm, lambda tx: tx.write_bulk(np.arange(n), list(range(n))), tid=0)
+FP.install(FP.FaultSchedule([FP.Fault(point, 1, "die")]))
+run(tm, lambda tx: tx.write_bulk(np.arange(n),
+                                 [v + 1000 for v in range(n)]), tid=1)
+sys.exit(3)                    # reached only if the fault missed
+"""
+
+#: the reference's three drills (tests/test_wal.py): backend, point, words,
+#: whether tid 1's commit must have decided
+SIGKILL_DRILLS = (("tl2", "pre_claim", CRASH_N, False),
+                  ("tl2", "mid_scatter", CRASH_N, True),
+                  ("multiverse", "pre_release", 32, True))
+
+
+def sigkill_drills(torch, scratch):
+    """The three SIGKILL drills with the child on the card: each child
+    commits a prefix and kills itself mid-commit (``die``, possibly with
+    launches still queued); the parent, touching none of the child's CUDA
+    state, recovers a fresh engine on the card from the log directory
+    alone, to the decided records replayed onto a zeroed heap."""
+    from repro_torch.reliability.wal import recover_from_wal, scan_dir
+
+    script = os.path.join(scratch, "sigkill_child.py")
+    with open(script, "w") as f:
+        f.write(_SIGKILL_CHILD)
+    procs = []
+    for backend, point, n, _ in SIGKILL_DRILLS:
+        d = os.path.join(scratch, f"sigkill_{backend}_{point}")
+        procs.append((d, subprocess.Popen(
+            [sys.executable, script, backend, point, d, str(n),
+             os.path.join(HERE, "src"), CARD], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE)))
+    results = []
+    try:
+        for d, p in procs:
+            out, err = p.communicate(timeout=300)
+            results.append((d, p.returncode, err))
+    finally:
+        for _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    rows = []
+    for (backend, point, n, decides), (d, rc, err) in zip(SIGKILL_DRILLS,
+                                                          results):
+        what = f"sigkill {backend}/{point}"
+        check(rc == -9, f"{what}: child exited {rc}: {err[-2000:]!r}")
+        recs, torn, _ = scan_dir(d)
+        ref = np.zeros(n, np.int64)
+        for r in recs:
+            if r.decided:
+                ref[r.addrs] = r.values
+        fresh = _word_engine(backend, 2, torch.device(CARD))
+        fresh.alloc(n, 0)
+        rep = recover_from_wal(d, fresh)
+        got = _h64(fresh.heap.live())
+        fresh.stop()
+        decided = any(r.decided and r.tid == 1 for r in recs)
+        rows.append({"drill": what, "returncode": rc, "records": len(recs),
+                     "torn_bytes": torn, "tid1_decided": decided,
+                     "rolled_forward": rep.rolled_forward,
+                     "rolled_back": rep.rolled_back})
+        check(np.array_equal(got, ref), f"{what}: recovered heap differs")
+        check(decided == decides and (1 in rep.rolled_forward) == decides,
+              f"{what}: decided {decided}, report {rep.summary()}")
+        want = np.arange(n) + (1000 if decides else 0)
+        check(np.array_equal(got, want), f"{what}: not the committed prefix")
+    emit({"sigkill_drills": rows})
+
+
+def reliability_evals(torch):
+    """``run_eval("reliability")`` (and with ``durable=True``) and
+    ``run_eval("durability")`` at the reference's full variants on the
+    card: violations 0 and no failed post-trial invariant in every row,
+    every durable row's restart drill clean and replaying, and in every
+    kill row every kill recovered — the row's kills against its
+    recoveries, and every kill the trial's schedule fired (warm-up
+    included) against the engine's recovery verdicts, one each.
+
+    How many kills land is recorded, not gated: the reference's seeded
+    schedule (seed 0) first fires at the 398th fault-point arrival, about
+    the 199th commit, which a 1.5 s trial reaches only above ~133
+    commits/s, and a kill row on the card commits 90-200/s (PERF.md).
+    Returns the launch counts."""
+    from repro_torch import kernels as K
+    from repro_torch.eval import (WORKLOADS, durability_headline,
+                                  reliability_headline, run_eval)
+    from repro_torch.reliability import faultpoints as FP
+
+    totals = defaultdict(int)
+    fired = []
+    install = FP.install
+
+    def recording_install(schedule):          # the trials' schedules
+        fired.append(schedule)
+        return install(schedule)
+
+    for name, durable in (("reliability", False), ("reliability", True),
+                          ("durability", False)):
+        rows, verdicts = [], []
+        WORKLOADS["reliability"].durable = durable
+        K.reset_launch_counts()
+        FP.install = recording_install
+        try:
+            run_eval(name, save=False, progress=lambda r: (
+                verdicts.append(r["stm_stats"]["rolled_forward"]
+                                + r["stm_stats"]["rolled_back"]),
+                rows.append({k: v for k, v in r.items()
+                             if k != "stm_stats"})))
+        finally:
+            FP.install = install
+            WORKLOADS["reliability"].durable = False
+        torch.cuda.synchronize()
+        launches = K.launch_counts()
+        for k, v in launches.items():
+            totals[k] += v
+        for r, n_verdicts in zip(rows, verdicts):
+            what = f"eval {name}/{r['variant']}/{r['backend']}"
+            check(r["violations"] == 0 and r["post_invariant_failures"]
+                  == [], f"{what}: violations")
+            check(r["updates_per_sec"] > 0, f"{what}: no progress")
+            if r.get("kill_every"):
+                sched = fired.pop(0)
+                r["schedule_fired"] = len(sched.fired)
+                r["schedule_arrivals"] = sum(
+                    sched.arrivals(p) for p in sched.periodic_points)
+                check(r["recoveries"] == r["kills"]
+                      and n_verdicts == len(sched.fired),
+                      f"{what}: kills {r['kills']}, recoveries "
+                      f"{r['recoveries']}, {len(sched.fired)} fired, "
+                      f"{n_verdicts} recovery verdicts")
+            if name == "durability" and r["durable"]:
+                check(r["restart_drill_failures"] == []
+                      and r["wal_records_replayed"] > 0,
+                      f"{what}: restart drill")
+            emit(r)
+        check(not fired, f"eval {name}: a schedule without its row")
+        head = (reliability_headline if name == "reliability"
+                else durability_headline)(rows)
+        emit({"eval": name, "durable": durable, "trials": len(rows),
+              "launches": launches, "headline": head})
+        for k in ("gather_read", "scatter_write"):
+            check(launches[k] > 0, f"eval {name} launched no {k}")
+    return totals
+
+
+def reliability_phase(torch):
+    """Phase 7: the write-ahead log and crash recovery on the card.
+    Returns the launch counts of its main-path runs."""
+    t0 = time.perf_counter()
+    emit({"threads_at_phase_7": sorted(t.name for t in
+                                       threading.enumerate())})
+    scratch = os.path.join(HERE, "build", "wal")
+    shutil.rmtree(scratch, ignore_errors=True)
+    os.makedirs(scratch)
+    totals = defaultdict(int)
+    try:
+        for part in (crash_parity(torch),):
+            for k, v in part.items():
+                totals[k] += v
+        journal_parity(torch, scratch)
+        sigkill_drills(torch, scratch)
+        for part in (durable_group_trial(torch, scratch),
+                     durable_mvstore_trial(torch, scratch),
+                     reliability_evals(torch)):
+            for k, v in part.items():
+                totals[k] += v
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    for k in ("gather_read", "scatter_write", "commit_fused",
+              "snapshot_select", "validate"):
+        check(totals[k] > 0, f"phase 7 launched no {k}")
+    emit({"reliability_phase_seconds": time.perf_counter() - t0})
+    return totals
+
+
+#: phase 4's rows by trial name (phase 7 compares its durable trials'
+#: rates with the in-memory ones of the same run)
+PHASE4_ROWS = {}
+
+
 def main_path(torch):
     from repro_torch import kernels as K
 
@@ -4717,6 +5390,7 @@ def main_path(torch):
 
     for t in trials:
         one(t)
+    PHASE4_ROWS.update(rows)
     # the group publish and the MVStore's ran through their kernels
     # (DCTL groups release only: no commit_fused by design)
     check(rows["group_tl2_1M"]["launches"]["commit_fused"] > 0,
@@ -4846,6 +5520,8 @@ def main() -> int:
             launches[k] += v
     emit({"eval_and_structures_seconds": time.perf_counter() - t0})
     for k, v in shard_phase(torch).items():
+        launches[k] += v
+    for k, v in reliability_phase(torch).items():
         launches[k] += v
     for k in KERNELS:
         check(launches[k] > 0, f"kernel {k} was never launched on the main "

@@ -114,6 +114,18 @@ class MVStoreHandle(SubstrateBase):
                                        device=self.device)}
         self._path = mvstore.block_paths(live)[0]
         self._commit_lock = threading.Lock()
+        # crash-recovery slot (reliability/recovery.recover_handle): from
+        # the return of the ``commit_fused`` call — which already
+        # refreshed the ring slot and its timestamp IN PLACE — until
+        # ``_install``, the new state (block, clock) is parked here, so a
+        # crash in that window completes the install instead of leaving
+        # a ring slot newer than the clock
+        self._inflight = None
+        # durable commit log (reliability/wal.py, via attach_wal): when
+        # set, _publish_locked appends PREPARE + fsync'd DECIDE before
+        # the fused call is enqueued
+        self.wal = None
+        self.wal_shard = -1
         self.recovery_counters = {k: 0 for k in RECOVERY_STAT_KEYS}
         self._readers = [self.controller.reader() for _ in range(n_threads)]
         self._counters = [{k: 0 for k in _COUNTER_KEYS}
@@ -288,11 +300,15 @@ class MVStoreHandle(SubstrateBase):
         return self._mvstore.blocks_conflict(
             self._state, (self._path,), ctx.read_clock)
 
-    def _publish_locked(self, ctx: _MVCtx) -> None:
+    def _publish_locked(self, ctx: _MVCtx, wal_log: bool = True) -> None:
         """The publish half of commit, ``self._commit_lock`` held and
         validation passed: ONE ``mv_commit_fused`` — the new block out of
         place through the ``commit_fused`` kernel, the ring slot refreshed
-        in place inside the seqlock bracket (module docstring)."""
+        in place inside the seqlock bracket (module docstring).  Also the
+        recovery redo entry point: the cross-shard epoch roll-forward and
+        the WAL replay drive a parked context through exactly this path
+        with ``wal_log=False`` (replay must not re-journal itself; the
+        cross-shard caller journals the EPOCH instead)."""
         if FP.ACTIVE is not None:
             FP.fire("pre_clock_tick", ctx.tid)
         state = self.controller.trainer_tick(self._state)
@@ -300,6 +316,16 @@ class MVStoreHandle(SubstrateBase):
         idx = np.array(sorted(ctx.write_buf), dtype=np.int64)
         vals = np.array([int(ctx.write_buf[int(i)]) for i in idx],
                         dtype=np.int64)
+        lsn = None
+        if wal_log and self.wal is not None and idx.size:
+            # PREPARE + DECIDE before the fused call: from the kernel on,
+            # the block, the ring slot and the clock change, so the WAL
+            # record is what a whole-process crash recovers from
+            lsn = self.wal.append_prepare(
+                ctx.tid, idx, vals,
+                clocks=(int(self._state.clock) + 1,),
+                shard=self.wal_shard)
+            self.wal.append_decide(lsn)
         _, _, ring, host_ts = self._snap
         slot = None
         if ring is not None and state.ring.get(self._path) is ring:
@@ -307,12 +333,16 @@ class MVStoreHandle(SubstrateBase):
             host_ts[slot] = NO_TS          # readers of this slot now abort
         state = self._mvstore.mv_commit_fused(
             state, self._key, idx, vals, local_mode=mode, cfg=self.cfg)
+        self._inflight = state
         if slot is not None:
             host_ts[slot] = int(state.clock)
         if FP.ACTIVE is not None:
             FP.fire("post_scatter", ctx.tid)
             FP.fire("pre_release", ctx.tid)
         self._install(state)
+        self._inflight = None
+        if lsn is not None:
+            self.wal.append_complete(lsn)
 
     def abort(self, txn: Txn) -> None:
         ctx = txn._ctx

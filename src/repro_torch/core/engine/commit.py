@@ -31,8 +31,8 @@ first release another thread can legitimately claim it, and the second
 release stomps their lock.  ``held_write_indices`` is the single home of
 the address->index normalization.
 
-The durable-log hooks are kept as inert code: the write-ahead log is not
-ported yet, so ``eng.wal`` is always ``None`` here.
+The durable-log hooks (``wal_log_*``) journal to ``eng.wal`` when a
+``reliability/wal.WriteAheadLog`` is attached (``attach_wal``).
 """
 from __future__ import annotations
 
@@ -209,9 +209,21 @@ def scatter_row(row: torch.Tensor, addrs, values) -> torch.Tensor:
     return out
 
 
+# ---------------------------------------------------------------------------
+# durable commit log hooks (reliability/wal.py)
+# ---------------------------------------------------------------------------
+#
+# Protocol (the append-before-claim invariant): a PREPARE frame carrying
+# the full redo image is buffered-appended BEFORE the claim/scatter
+# phase; the fsync'd DECIDE marker lands at the exact instant
+# ``publish_started`` flips True, before the first heap mutation is
+# enqueued — file appends are sequential, so the one DECIDE fsync also
+# makes the PREPARE durable.  An abandoned prepare (abort, or crash
+# before DECIDE) is never replayed: rollback is free.
+
+
 def wal_log_prepare(eng, d) -> None:
-    """Buffered PREPARE from the buffered write map (before the claim).
-    Inert until the write-ahead log is ported: ``eng.wal`` is ``None``."""
+    """Buffered PREPARE from the buffered write map (before the claim)."""
     wal = eng.wal
     if wal is None or not d.write_map:
         return
@@ -222,8 +234,7 @@ def wal_log_prepare(eng, d) -> None:
 
 
 def wal_log_decide(eng, d) -> None:
-    """fsync'd DECIDE at the publish_started flip (buffered path).
-    Inert while ``eng.wal`` is ``None``."""
+    """fsync'd DECIDE at the publish_started flip (buffered path)."""
     wal = eng.wal
     if wal is None or d.wal_lsn is None:
         return
@@ -231,9 +242,18 @@ def wal_log_decide(eng, d) -> None:
 
 
 def wal_log_decide_encounter(eng, d) -> None:
-    """PREPARE + DECIDE for encounter-time policies at their decide
-    point (revalidation passed, locks still held).  Inert until the
-    write-ahead log is ported: ``eng.wal`` is ``None``."""
+    """PREPARE + DECIDE for encounter-time policies, at their decide
+    point (revalidation passed, locks still held).
+
+    In-place backends scattered their values during execution, so the
+    redo image is gathered FROM THE HEAP at the undo log's addresses —
+    the locks guarantee those words still hold this transaction's
+    values (on an array heap one ``gather_read`` launch, brought home
+    once by the log).  There is no earlier correct hook: before
+    revalidation the commit may still abort (and the undo restore would
+    un-publish the prepared image), so prepare and decide collapse into
+    one append + one fsync here.
+    """
     wal = eng.wal
     if wal is None or not d.undo:
         return

@@ -116,9 +116,9 @@ class TransactionEngine(TMBase):
         self.device = resolve_device(device)
         self.locks = ArrayLockTable(lock_bits, self.device)
         self._descs = [TxnDescriptor(t) for t in range(n_threads)]
-        # durability hooks: the write-ahead log is not ported yet, so
-        # ``wal`` stays None and the hooks in engine/commit.py are inert;
-        # the recovery counters keep the shared stats schema whole
+        # durable commit log (reliability/wal.attach_wal sets it): the
+        # hooks in engine/commit.py journal every update commit; the
+        # recovery counters keep the shared stats schema whole
         self.wal = None
         self.recovery_counters = {k: 0 for k in RECOVERY_STAT_KEYS}
         policy.setup(self)

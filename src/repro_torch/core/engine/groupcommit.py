@@ -60,6 +60,7 @@ from itertools import chain
 from typing import Any, List, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.core.engine import commit as C
 from repro_torch.core.engine.arrayheap import ArrayHeap
@@ -343,6 +344,18 @@ class CommitBatcher:
         r_flat, r_seg, _ = pack_segments([p[4] for p in gp])
         tids = np.fromiter((d.tid for d in group), np.int64, len(group))
 
+        # durable group commit: ONE buffered append carries every
+        # member's PREPARE frame, landed BEFORE the claim window (the
+        # append-before-claim invariant); the single fsync'd group
+        # DECIDE below covers the whole batch
+        wal = eng.wal
+        if wal is not None:
+            lsns = wal.append_prepare_group(
+                [(int(d.tid), a, v, (eng.clock.load(),), -1, -1)
+                 for d, a, v in zip(group, w_addrs, w_vals)])
+            for d, lsn in zip(group, lsns):
+                d.wal_lsn = lsn
+
         # ONE hoisted CAS window for verdict + claim + tick + publish +
         # release: the group analogue of try_lock_bulk's
         # gather/check/scatter under held stripes.  The verdict, the
@@ -401,6 +414,15 @@ class CommitBatcher:
             if any_ok:
                 if FP.ACTIVE is not None:
                     FP.fire("pre_scatter", int(tids[0]))
+                # group commit record: every surviving member is decided
+                # and about to publish — a crash from here rolls them
+                # all FORWARD (recovery.recover_engine); ONE fsync'd
+                # group DECIDE makes the whole batch durable before the
+                # publish is enqueued
+                if wal is not None:
+                    wal.append_decide_group(
+                        [d.wal_lsn for d, okd in zip(group, ok)
+                         if okd and d.wal_lsn is not None])
                 for d, okd in zip(group, ok):
                     if okd:
                         d.publish_started = True
@@ -420,6 +442,11 @@ class CommitBatcher:
                 else:
                     locks.store_words(claim, np.full(
                         claim.size, CF.release_word(wv), np.int64))
+        if wal is not None:
+            for d, okd in zip(group, ok):
+                if okd and d.wal_lsn is not None:
+                    wal.append_complete(d.wal_lsn)
+                d.wal_lsn = None    # losers: abandoned prepare = rollback
         self._bookkeep(group, ok)
         return ok
 
@@ -505,13 +532,39 @@ class CommitBatcher:
                 FP.fire("pre_clock_tick", int(tids[0]))
             cv = eng.clock.load()
             # encounter group commit record: the heap already holds the
-            # surviving members' values — crash from here rolls forward
+            # surviving members' values — crash from here rolls forward.
+            # Durable twin: redo images gathered from the locked heap
+            # words (one gather for the group, one copy home), one
+            # buffered prepare-group + one fsync'd DECIDE
+            wal = eng.wal
+            if wal is not None:
+                owners = [d for d, okd in zip(group, ok) if okd and d.undo]
+                if owners:
+                    addrs = [np.fromiter(d.undo.keys(), np.int64,
+                                         len(d.undo)) for d in owners]
+                    vals = eng.heap.gather(np.concatenate(addrs))
+                    if isinstance(vals, torch.Tensor):
+                        vals = vals.cpu().numpy()
+                    recs, off = [], 0
+                    for d, a in zip(owners, addrs):
+                        recs.append((int(d.tid), a, vals[off:off + a.size],
+                                     (cv,), -1, -1))
+                        off += a.size
+                    lsns = wal.append_prepare_group(recs)
+                    for d, lsn in zip(owners, lsns):
+                        d.wal_lsn = lsn
+                    wal.append_decide_group(lsns)
             for d, okd in zip(group, ok):
                 if okd:
                     d.publish_started = True
             if FP.ACTIVE is not None:
                 FP.fire("pre_release", int(tids[0]))
             eng.locks.unlock_bulk(np.concatenate(sel_l), cv)
+            if wal is not None:
+                for d, okd in zip(group, ok):
+                    if okd and d.wal_lsn is not None:
+                        wal.append_complete(d.wal_lsn)
+                    d.wal_lsn = None
         self._bookkeep(group, ok, clear_locked=True)
         return ok
 

@@ -139,8 +139,10 @@ class ShardStoreHandle(SubstrateBase):
         self._counters = [{k: 0 for k in _COUNTER_KEYS}
                           for _ in range(n_threads)]
         self._cross_commits = 0
-        # the durable commit log stays off until the write-ahead log is
-        # ported (ROADMAP.md Queue 1 item 2), as the engine's does
+        # durable commit log (reliability/wal.attach_wal sets this AND
+        # each member shard's ``wal``/``wal_shard``): single-shard
+        # commits journal through the member's solo publish, cross-shard
+        # commits as one epoch (``_commit_cross``)
         self.wal = None
         self.recovery_counters = {k: 0 for k in RECOVERY_STAT_KEYS}
 
@@ -391,18 +393,37 @@ class ShardStoreHandle(SubstrateBase):
                       for s in write_shards},
                 ctxs={s: subs[s] for s in write_shards},
                 tid=ctx.tid)
+            if self.wal is not None:
+                # the epoch's durable twin: one PREPARE per write shard
+                # (each carrying that shard's redo image + pinned clock)
+                # under ONE group DECIDE — a restart replays the epoch
+                # all-or-nothing across shards (wal.recover_from_wal)
+                recs = []
+                for s in write_shards:
+                    wb = subs[s].write_buf
+                    idx = sorted(wb)
+                    recs.append((ctx.tid, idx, [wb[i] for i in idx],
+                                 (rec.pins[s] + 1,), rec.epoch, s))
+                rec.wal_lsns = tuple(self.wal.append_prepare_group(recs))
             self._epoch_inflight = rec
             self._epoch_seq.increment()        # odd: begin() waits
             try:
                 if FP.ACTIVE is not None:
                     FP.fire("pre_clock_tick", ctx.tid)
+                if self.wal is not None:
+                    self.wal.append_decide_group(rec.wal_lsns)
                 rec.publish_started = True     # the epoch commit record
                 for s in write_shards:
-                    shards[s]._publish_locked(subs[s])
+                    # members must not re-journal solo records — the
+                    # EPOCH is the durable unit
+                    shards[s]._publish_locked(subs[s], wal_log=False)
                     rec.published.append(s)
                 if FP.ACTIVE is not None:
                     FP.fire("pre_release", ctx.tid)
                 self._epoch_inflight = None
+                if self.wal is not None:
+                    for lsn in rec.wal_lsns:
+                        self.wal.append_complete(lsn)
             finally:
                 if self._epoch_inflight is None:
                     self._epoch_seq.increment()    # even: bracket closed

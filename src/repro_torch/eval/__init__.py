@@ -12,13 +12,15 @@ frontier-at-a-time traversal as the measurement surface:
     rows, path = run_eval("longread", seed=3)
 
 Workload families live in ``workloads.py`` (longread / rwmix /
-shardscale / structrq; the JAX package's serving, reliability and
-durability raise "not ported yet"), the thread/warmup machinery in
+shardscale / structrq / reliability / durability; the JAX package's
+serving raises "not ported yet"), the thread/warmup machinery in
 ``driver.py``, and the normalized ``{meta, rows}`` results schema in
 ``results.py``.
 """
 from repro_torch.eval.driver import (  # noqa: F401
+    durability_headline,
     longread_headline,
+    reliability_headline,
     run_eval,
     rwmix_headline,
     shardscale_headline,
@@ -36,7 +38,7 @@ from repro_torch.eval.workloads import (  # noqa: F401
 
 __all__ = [
     "DEFAULT_BACKENDS", "NOT_PORTED", "TrialSpec", "UNVERSIONED",
-    "WORKLOADS", "longread_headline", "run_eval", "rwmix_headline",
-    "save_results", "shardscale_headline", "structrq_headline",
-    "time_trial",
+    "WORKLOADS", "durability_headline", "longread_headline",
+    "reliability_headline", "run_eval", "rwmix_headline", "save_results",
+    "shardscale_headline", "structrq_headline", "time_trial",
 ]

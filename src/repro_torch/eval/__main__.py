@@ -4,6 +4,8 @@
     python -m repro_torch.eval --workload rwmix --quick
     python -m repro_torch.eval --workload structrq --quick --device cpu
     python -m repro_torch.eval --workload shardscale --shards 1 2 4
+    python -m repro_torch.eval --workload reliability [--durable]
+    python -m repro_torch.eval --workload durability --quick --device cpu
     python -m repro_torch.eval --list                       # what exists
 
 Writes ``results/eval_<workload>.json`` and prints one table line per
@@ -17,8 +19,9 @@ from __future__ import annotations
 import argparse
 import sys
 
-from repro_torch.eval.driver import longread_headline, run_eval, \
-    rwmix_headline, shardscale_headline, structrq_headline
+from repro_torch.eval.driver import durability_headline, \
+    longread_headline, reliability_headline, run_eval, rwmix_headline, \
+    shardscale_headline, structrq_headline
 from repro_torch.eval.workloads import NOT_PORTED, WORKLOADS
 
 
@@ -32,6 +35,13 @@ def _fmt_row(row: dict) -> str:
         extra = (f"rqs/s={row['rqs_per_sec']:7.1f} "
                  f"failed={row['failed_ops']:4d} "
                  f"rq-vs-scan={row.get('rq_vs_scan', 0.0):5.2f}x")
+    elif "kills" in row:
+        extra = (f"updates/s={row['updates_per_sec']:8.1f} "
+                 f"kills={row['kills']:3d} "
+                 f"recovered={row['recoveries']:3d} "
+                 f"fwd={row['rolled_forward']:3d} "
+                 f"back={row['rolled_back']:3d} "
+                 f"violations={row['violations']:3d}")
     elif "n_shards" in row:
         parity = row.get("parity_ok")
         extra = (f"shards={row['n_shards']:2d} "
@@ -66,6 +76,9 @@ def main(argv=None) -> int:
                          "(default: 1 2 4, or 1 2 with --quick)")
     ap.add_argument("--quick", action="store_true",
                     help="CI smoke: fewer variants, short windows")
+    ap.add_argument("--durable", action="store_true",
+                    help="reliability only: journal every commit to an "
+                         "fsync'd WAL during the kill/recover trials")
     ap.add_argument("--device", default=None,
                     help="where the heaps and kernels run (default: the "
                          "card; 'cpu' runs each kernel's plain version)")
@@ -87,6 +100,8 @@ def main(argv=None) -> int:
 
     if args.shards:
         WORKLOADS["shardscale"].shards = tuple(args.shards)
+    if args.durable:
+        WORKLOADS["reliability"].durable = True
     rows, path = run_eval(
         args.workload, backends=args.backends, seed=args.seed,
         quick=args.quick, out_dir=args.out, save=not args.no_save,
@@ -127,6 +142,32 @@ def main(argv=None) -> int:
                   f"{h['ratio_2_shards']:.2f}x ({verdict}) "
                   f"parity@1shard={parity} "
                   f"violations={h['violations']}")
+    if args.workload == "reliability":
+        h = reliability_headline(rows)
+        for backend, d in sorted(h.items()):
+            verdict = ("recovers within 2x of fault-free" if d["holds"]
+                       else "does NOT hold")
+            print(f"\nheadline @ kill{d['kill_every']}: {backend} "
+                  f"faulted={d['faulted_updates_per_sec']:.1f} vs "
+                  f"nofault={d['nofault_updates_per_sec']:.1f} updates/s "
+                  f"({d['ratio_vs_nofault']:.2f}x) kills={d['kills']} "
+                  f"recovered={d['recoveries']} "
+                  f"(fwd={d['rolled_forward']} back={d['rolled_back']}) "
+                  f"violations={d['violations']} -> {verdict}")
+    if args.workload == "durability":
+        h = durability_headline(rows)
+        for backend, d in sorted(h.items()):
+            verdict = (">=0.5x of in-memory with a clean restart drill"
+                       if d["holds"] else "does NOT hold")
+            solo = (f" solo={d['solo_ratio_vs_inmem']:.2f}x"
+                    if d.get("solo_ratio_vs_inmem") is not None else "")
+            print(f"\nheadline [{d['gated_on']}]: {backend} durable="
+                  f"{d['durable_updates_per_sec']:.1f} vs inmem="
+                  f"{d['inmem_updates_per_sec']:.1f} updates/s "
+                  f"({d['ratio_vs_inmem']:.2f}x{solo}) "
+                  f"fsyncs={d['fsyncs']} groups={d['commit_groups']} "
+                  f"replayed={d['wal_records_replayed']} "
+                  f"violations={d['violations']} -> {verdict}")
     if args.workload == "structrq":
         h = structrq_headline(rows)
         for struct, d in sorted(h.items()):

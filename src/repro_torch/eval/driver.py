@@ -35,7 +35,8 @@ from repro_torch.eval.workloads import (
 )
 
 __all__ = ["run_eval", "time_trial", "longread_headline",
-           "rwmix_headline", "shardscale_headline", "structrq_headline"]
+           "rwmix_headline", "shardscale_headline", "structrq_headline",
+           "reliability_headline", "durability_headline"]
 
 
 def time_trial(workers: Sequence[Callable], spec: TrialSpec,
@@ -209,6 +210,106 @@ def shardscale_headline(rows: List[Dict]) -> Dict:
         "holds": bool(ratio >= 1.6 and at[1].get("parity_ok")
                       and violations == 0),
     }
+
+
+def reliability_headline(rows: List[Dict]) -> Dict:
+    """The crash-recovery claim, extracted from reliability rows.
+
+    Per backend, compare the faulted variant (a worker killed
+    mid-publish every ~kill_every commits, recovered, re-admitted)
+    against the fault-free twin: recovery must actually have run
+    (kills > 0, every kill recovered), the trial must stay within 2x of
+    fault-free throughput (ratio >= 0.5), and violations — torn checker
+    reads AND post-trial invariant failures — must be zero.  The CLI
+    exits non-zero on any violation; ``holds`` summarizes the rest.
+    """
+    per: Dict[str, Dict] = {}
+    for r in rows:
+        if "kill_every" not in r:
+            continue
+        slot = per.setdefault(r["backend"], {})
+        key = "faulted" if r["kill_every"] else "nofault"
+        slot[key] = r
+    out: Dict[str, Dict] = {}
+    for backend, slot in per.items():
+        nf, f = slot.get("nofault"), slot.get("faulted")
+        if nf is None or f is None:
+            continue
+        base = nf["updates_per_sec"]
+        ratio = f["updates_per_sec"] / base if base > 0 else 0.0
+        violations = nf["violations"] + f["violations"]
+        out[backend] = {
+            "kill_every": f["kill_every"],
+            "kills": f["kills"],
+            "recoveries": f["recoveries"],
+            "rolled_forward": f["rolled_forward"],
+            "rolled_back": f["rolled_back"],
+            "nofault_updates_per_sec": base,
+            "faulted_updates_per_sec": f["updates_per_sec"],
+            "ratio_vs_nofault": ratio,
+            "violations": violations,
+            "holds": bool(f["kills"] > 0
+                          and f["recoveries"] == f["kills"]
+                          and ratio >= 0.5 and violations == 0),
+        }
+    return out
+
+
+def durability_headline(rows: List[Dict]) -> Dict:
+    """The durable-commit claim, extracted from durability rows.
+
+    Per backend, compare durable variants (fsync'd WAL on the commit
+    path + end-of-trial restart drill) against their in-memory twins.
+    The gate runs on the GROUP-COMMIT pair when the backend actually
+    fused groups — that is the amortized configuration the durability
+    layer is designed around (one journal fsync per disjoint batch);
+    the solo pair is reported alongside as ``solo_ratio_vs_inmem``, the
+    unamortized fsync-per-commit tax.  ``holds`` requires the gated
+    ratio >= 0.5, a restart drill that replayed records into a fresh
+    engine, and zero violations — torn checker reads, post-trial
+    invariant failures AND restart-drill failures — across all four
+    variants.
+    """
+    per: Dict[str, Dict] = {}
+    for r in rows:
+        if "durable" not in r or r.get("workload") != "durability":
+            continue
+        per.setdefault(r["backend"], {})[r["variant"]] = r
+    out: Dict[str, Dict] = {}
+    for backend, slot in per.items():
+        im, du = slot.get("inmem"), slot.get("durable")
+        img, dug = slot.get("inmem-group"), slot.get("durable-group")
+        solo_ratio = None
+        if im is not None and du is not None and \
+                im["updates_per_sec"] > 0:
+            solo_ratio = du["updates_per_sec"] / im["updates_per_sec"]
+        # gate on the group pair when it genuinely grouped; otherwise
+        # (backend without a fused path, or group rows absent) the solo
+        # pair is all there is
+        use_group = (img is not None and dug is not None
+                     and dug.get("grouped_members", 0) > 0
+                     and img["updates_per_sec"] > 0)
+        gate_im, gate_du = (img, dug) if use_group else (im, du)
+        if gate_im is None or gate_du is None:
+            continue
+        base = gate_im["updates_per_sec"]
+        ratio = gate_du["updates_per_sec"] / base if base > 0 else 0.0
+        violations = sum(r["violations"] for r in slot.values())
+        replayed = gate_du["wal_records_replayed"]
+        out[backend] = {
+            "gated_on": "group" if use_group else "solo",
+            "inmem_updates_per_sec": base,
+            "durable_updates_per_sec": gate_du["updates_per_sec"],
+            "ratio_vs_inmem": ratio,
+            "solo_ratio_vs_inmem": solo_ratio,
+            "wal_records_replayed": replayed,
+            "fsyncs": gate_du.get("wal_stats", {}).get("fsyncs", 0),
+            "commit_groups": gate_du.get("commit_groups", 0),
+            "violations": violations,
+            "holds": bool(ratio >= 0.5 and violations == 0
+                          and replayed > 0),
+        }
+    return out
 
 
 def structrq_headline(rows: List[Dict]) -> Dict:

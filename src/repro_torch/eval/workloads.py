@@ -1,6 +1,6 @@
 """Workload generators for the paper's long-running-read experiments.
 
-Four families, all runnable on any registered backend through one driver
+Six families, all runnable on any registered backend through one driver
 (``repro_torch.eval.driver``), with the heap, lock words and store blocks
 on the card unless the caller names another device:
 
@@ -38,9 +38,16 @@ on the card unless the caller names another device:
     row carries ``parity_ok`` (the same history through shardstore(1)
     and mvstore gives the same heap).
 
-The JAX package's other three workloads (``serving``, ``reliability``,
-``durability``) wait for the modules they drive; ``NOT_PORTED`` names
-the ROADMAP.md item that ports each.
+  * ``reliability`` — rwmix's rotations while a seeded fault schedule
+    kills an updater mid-commit every ~``kill_every`` commits; the dead
+    worker's slot runs crash recovery and rejoins (``durable``: with an
+    fsync'd write-ahead log attached).
+  * ``durability`` — rwmix's rotations in memory vs with the write-ahead
+    log (solo and group commit), each durable trial ending in a restart
+    drill that replays the log into a fresh engine.
+
+The JAX package's ``serving`` workload waits for the serving service;
+``NOT_PORTED`` names the ROADMAP.md item that ports it.
 
 Workload objects expose ``variants(quick)`` -> [TrialSpec] and
 ``run_trial(backend, spec, seed, device=None)`` -> row dict; the driver
@@ -70,8 +77,6 @@ UNVERSIONED = ("tl2", "dctl", "norec", "tinystm")
 #: the JAX package's workloads this port does not run yet, with the
 #: ROADMAP.md item that ports each
 NOT_PORTED = {
-    "reliability": "ROADMAP.md Queue 1 item 2, reliability",
-    "durability": "ROADMAP.md Queue 1 item 2, reliability",
     "serving": "ROADMAP.md Queue 1 item 3, the serving service",
 }
 
@@ -642,5 +647,373 @@ class StructRQWorkload:
         }
 
 
+# ---------------------------------------------------------------------------
+# reliability: rwmix under a seeded kill schedule + crash recovery
+# ---------------------------------------------------------------------------
+
+
+class ReliabilityWorkload:
+    """rwmix's sum-preserving rotations while a seeded ``FaultSchedule``
+    kills an updater roughly every ``kill_every`` commits mid-publish.
+
+    Each kill leaves the crash image intact (held locks, a possibly
+    half-published commit); the dying worker's slot runs recovery
+    (``recover_engine`` — roll the decided commit forward or the
+    undecided one back, sweep orphaned locks, repair torn mirror rows),
+    consults ``runtime/elastic.rescale_plan`` for the degraded and
+    re-admitted fleet shapes, and rejoins under the same tid — the
+    supervisor restart loop collapsed into the worker thread.
+
+    Correctness is the rwmix checker (any completed read whose block sum
+    is off is a torn snapshot) PLUS a post-trial invariant sweep: lock
+    table empty, no torn mirror rows, clock monotone, every block sum
+    conserved.  Both land in ``violations`` so the CLI's exit gate sees
+    them.  The ``nofault`` variant is the same trial without a schedule:
+    the headline asks what fraction of fault-free throughput survives
+    the kill/recover cycle.
+    """
+
+    name = "reliability"
+    metric = "updates_per_sec"
+    default_backends = ("multiverse", "tl2", "dctl")
+    #: CLI ``--durable``: journal every commit to an fsync'd WAL during
+    #: the trial, and hand the log to recovery so rolled-forward commits
+    #: get their COMPLETE marker — the kill/recover cycle measured WITH
+    #: the durability tax it would pay in production
+    durable = False
+
+    def variants(self, quick: bool = False) -> List[TrialSpec]:
+        dur, warm = (0.6, 0.2) if quick else (1.2, 0.3)
+        kill_every = 60 if quick else 200   # quick trials are short:
+        #                                     keep several kills in frame
+        return [TrialSpec(
+            workload=self.name, variant=v, n_readers=1, n_updaters=2,
+            duration_s=dur, warmup_s=warm,
+            params=dict(write_words=256, n_blocks=8, max_retries=2000,
+                        kill_every=k),
+        ) for v, k in (("nofault", 0), (f"kill{kill_every}", kill_every))]
+
+    def run_trial(self, backend: str, spec: TrialSpec, seed: int,
+                  device=None) -> Dict:
+        import shutil
+        import tempfile
+
+        from repro_torch.eval.driver import time_trial
+        from repro_torch.reliability import faultpoints as FP
+        from repro_torch.reliability.recovery import (
+            check_engine_invariants, recover_engine)
+        from repro_torch.reliability.wal import WriteAheadLog, attach_wal
+        from repro_torch.runtime.elastic import rescale_plan
+        p = spec.params
+        wb, n_blocks = p["write_words"], p["n_blocks"]
+        n_upd = spec.n_updaters
+        # same sizing rationale as rwmix: large lock table, thresholds
+        # that keep the checker unversioned (see RWMixWorkload notes)
+        tm = _make(backend, spec.total_threads,
+                   params=MultiverseParams(k1=30, k2=200, k3=200,
+                                           lock_table_bits=16),
+                   device=device)
+        base = tm.alloc(wb * n_blocks, INITIAL)
+        block_sum = wb * INITIAL
+        eng = getattr(tm, "raw", tm)
+        clock0 = eng.clock.load()
+        wal_dir = None
+        if self.durable:
+            wal_dir = tempfile.mkdtemp(prefix="repro-wal-")
+            attach_wal(tm, WriteAheadLog(wal_dir, group_sync=True))
+        sched = None
+        if p["kill_every"]:
+            # one commit = one pre_claim + one pre_release arrival, so
+            # 2*kill_every arrivals ~= a kill every kill_every commits;
+            # the point mix exercises BOTH recovery directions (pre_claim
+            # kills roll back, pre_release kills roll forward)
+            sched = FP.FaultSchedule(
+                seed=seed, kill_every=2 * p["kill_every"],
+                points=("pre_claim", "pre_release"), action="kill")
+            FP.install(sched)
+
+        def updater(tid, stop, c):
+            r = random.Random(seed * 10007 + 300 + tid)
+            mine = [b for b in range(n_blocks) if b % n_upd == tid]
+
+            def rotate(tx):
+                off = base + wb * mine[r.randrange(len(mine))]
+                vals = tx.read_bulk(range(off, off + wb))
+                tx.write_bulk(range(off, off + wb), _rotated(vals))
+            while not stop.is_set():
+                try:
+                    run(tm, rotate, tid=tid,
+                        max_retries=p["max_retries"])
+                    c["updates"] += 1
+                except MaxRetriesExceeded:
+                    c["failed_updates"] += 1
+                except FP.SimulatedCrash:
+                    # worker dies mid-publish: recover its slot, plan the
+                    # degraded + re-admitted fleet, rejoin at the same tid
+                    c["kills"] += 1
+                    rep = recover_engine(tm, [tid], wal=eng.wal
+                                         if wal_dir else None)
+                    c["rolled_forward"] += len(rep.rolled_forward)
+                    c["rolled_back"] += len(rep.rolled_back)
+                    rescale_plan(n_devices=max(1, n_upd - 1),
+                                 model_parallel=1, global_batch=n_blocks,
+                                 old_microbatches=1)
+                    rescale_plan(n_devices=n_upd, model_parallel=1,
+                                 global_batch=n_blocks, old_microbatches=1)
+                    c["recoveries"] += 1
+
+        def checker(tid, stop, c):
+            r = random.Random(seed * 10007 + 900 + tid)
+
+            def check(tx):
+                off = base + wb * r.randrange(n_blocks)
+                return _batch_sum(tx.read_bulk(range(off, off + wb)))
+            while not stop.is_set():
+                try:
+                    got = run(tm, check, tid=tid,
+                              max_retries=p["max_retries"])
+                    c["checks"] += 1
+                    if got != block_sum:
+                        c["violations"] += 1
+                except MaxRetriesExceeded:
+                    c["failed_checks"] += 1
+
+        workers = [lambda stop, c, t=t: updater(t, stop, c)
+                   for t in range(n_upd)]
+        workers += [lambda stop, c, t=t: checker(n_upd + t, stop, c)
+                    for t in range(spec.n_readers)]
+        try:
+            counters, dt = time_trial(workers, spec)
+        finally:
+            if sched is not None:
+                FP.uninstall()
+                FP.reset_thread()
+        post = check_engine_invariants(
+            tm, clock_at_least=clock0,
+            expect_sums=[(base + wb * b, wb, block_sum)
+                         for b in range(n_blocks)])
+        stats = tm.stats()
+        wal_stats = {}
+        if wal_dir is not None:
+            wal_stats = eng.wal.stats()
+            eng.wal.close()
+            eng.wal = None
+            shutil.rmtree(wal_dir, ignore_errors=True)
+        tm.stop()
+        return {
+            "workload": self.name, "backend": backend, "tm": backend,
+            "variant": spec.variant, "seed": seed,
+            "write_words": wb, "n_blocks": n_blocks,
+            "durable": bool(self.durable), "wal_stats": wal_stats,
+            "kill_every": p["kill_every"],
+            "updates_per_sec": counters["updates"] / dt,
+            "failed_updates": counters["failed_updates"],
+            "checks_per_sec": counters["checks"] / dt,
+            "failed_checks": counters["failed_checks"],
+            "kills": counters["kills"],
+            "recoveries": counters["recoveries"],
+            "rolled_forward": counters["rolled_forward"],
+            "rolled_back": counters["rolled_back"],
+            "violations": counters["violations"] + len(post),
+            "post_invariant_failures": post,
+            "mode_transitions": stats.get("mode_transitions", 0),
+            "stm_stats": stats,
+        }
+
+
+# ---------------------------------------------------------------------------
+# durability: rwmix commit throughput with vs without the fsync'd WAL,
+# plus a whole-process restart drill on the durable log
+# ---------------------------------------------------------------------------
+
+
+class DurabilityWorkload:
+    """rwmix's sum-preserving rotations, in-memory vs durable.
+
+    Two variants on identical op streams: ``inmem`` is the plain rwmix
+    commit pipeline; ``durable`` attaches a ``reliability.wal``
+    WriteAheadLog, so every commit buffers a PREPARE before its claim
+    and fsyncs a DECIDE at the publish flip.  The headline asks what
+    fraction of in-memory commit throughput survives the durability tax
+    (>= 0.5x — the fsync batches with group commit, it doesn't gate
+    every scatter).
+
+    The durable trial ends with a RESTART DRILL: the engine that ran
+    the trial is discarded wholesale, a FRESH engine on the same device
+    replays the log via ``recover_from_wal``, and every block sum must
+    still be conserved on the rebuilt heap.  Drill failures land in
+    ``violations`` so the CLI's non-zero-exit gate sees them alongside
+    the live checker's torn-snapshot count.
+    """
+
+    name = "durability"
+    metric = "updates_per_sec"
+    # tl2 = the buffered WAL hook (PREPARE before claim, DECIDE at the
+    # publish flip), dctl = the encounter hook (prepare+decide collapse
+    # at the decide point) — together they cover both journaling
+    # flavors, and both policies have a fused group-commit path so the
+    # *-group variants measure the amortized configuration the headline
+    # gates on.  multiverse's durable operation is exercised by
+    # ``reliability --durable`` (its versioned write sets commit solo).
+    default_backends = ("tl2", "dctl")
+
+    def variants(self, quick: bool = False) -> List[TrialSpec]:
+        dur, warm = (0.6, 0.2) if quick else (1.2, 0.3)
+        return [TrialSpec(
+            workload=self.name, variant=v, n_readers=1, n_updaters=2,
+            duration_s=dur, warmup_s=warm,
+            params=dict(write_words=256, n_blocks=8, max_retries=2000,
+                        durable=d, grouped=g),
+        ) for v, d, g in (("inmem", False, False),
+                          ("durable", True, False),
+                          ("inmem-group", False, True),
+                          ("durable-group", True, True))]
+
+    def run_trial(self, backend: str, spec: TrialSpec, seed: int,
+                  device=None) -> Dict:
+        import shutil
+        import tempfile
+
+        from repro_torch.core.engine.errors import AbortTx
+        from repro_torch.core.engine.groupcommit import CommitBatcher
+        from repro_torch.eval.driver import time_trial
+        from repro_torch.reliability.recovery import check_engine_invariants
+        from repro_torch.reliability.wal import (WriteAheadLog, attach_wal,
+                                                 recover_from_wal)
+        p = spec.params
+        wb, n_blocks = p["write_words"], p["n_blocks"]
+        n_upd = spec.n_updaters
+        grouped = bool(p.get("grouped"))
+        mk_params = MultiverseParams(k1=30, k2=200, k3=200,
+                                     lock_table_bits=16)
+        # group variants hand every batch member its own descriptor:
+        # member tids are the block ids, checkers sit above them
+        n_threads = (n_blocks + spec.n_readers if grouped
+                     else spec.total_threads)
+        tm = _make(backend, n_threads, params=mk_params, device=device)
+        base = tm.alloc(wb * n_blocks, INITIAL)
+        block_sum = wb * INITIAL
+        eng = getattr(tm, "raw", tm)
+        clock0 = eng.clock.load()
+        wal_dir = None
+        if p["durable"]:
+            wal_dir = tempfile.mkdtemp(prefix="repro-wal-")
+            attach_wal(tm, WriteAheadLog(wal_dir, group_sync=True))
+
+        def updater(tid, stop, c):
+            r = random.Random(seed * 10007 + 300 + tid)
+            mine = [b for b in range(n_blocks) if b % n_upd == tid]
+
+            def rotate(tx):
+                off = base + wb * mine[r.randrange(len(mine))]
+                vals = tx.read_bulk(range(off, off + wb))
+                tx.write_bulk(range(off, off + wb), _rotated(vals))
+            while not stop.is_set():
+                try:
+                    run(tm, rotate, tid=tid,
+                        max_retries=p["max_retries"])
+                    c["updates"] += 1
+                except MaxRetriesExceeded:
+                    c["failed_updates"] += 1
+
+        def group_updater(worker, stop, c):
+            # one txn per owned block, disjoint write sets -> one fused
+            # publish and (durable) ONE journal fsync per batch
+            mine = [b for b in range(n_blocks) if b % n_upd == worker]
+            batcher = CommitBatcher(eng)
+            while not stop.is_set():
+                txs = []
+                for b in mine:
+                    off = base + wb * b
+                    for _attempt in range(4):
+                        tx = eng.begin(b)
+                        try:
+                            vals = tx.read_bulk(range(off, off + wb))
+                            tx.write_bulk(range(off, off + wb),
+                                          _rotated(vals))
+                            txs.append(tx)
+                            break
+                        except AbortTx:
+                            continue
+                for tx in txs:
+                    batcher.add(tx)
+                ok = batcher.commit_all()
+                good = sum(ok)
+                c["updates"] += good
+                c["failed_updates"] += len(ok) - good
+            c["groups"] = batcher.stats["groups"]
+            c["grouped_members"] = batcher.stats["grouped"]
+
+        def checker(tid, stop, c):
+            r = random.Random(seed * 10007 + 900 + tid)
+
+            def check(tx):
+                off = base + wb * r.randrange(n_blocks)
+                return _batch_sum(tx.read_bulk(range(off, off + wb)))
+            while not stop.is_set():
+                try:
+                    got = run(tm, check, tid=tid,
+                              max_retries=p["max_retries"])
+                    c["checks"] += 1
+                    if got != block_sum:
+                        c["violations"] += 1
+                except MaxRetriesExceeded:
+                    c["failed_checks"] += 1
+
+        upd_fn = group_updater if grouped else updater
+        chk_base = n_blocks if grouped else n_upd
+        workers = [lambda stop, c, t=t: upd_fn(t, stop, c)
+                   for t in range(n_upd)]
+        workers += [lambda stop, c, t=t: checker(chk_base + t, stop, c)
+                    for t in range(spec.n_readers)]
+        counters, dt = time_trial(workers, spec)
+        sums = [(base + wb * b, wb, block_sum) for b in range(n_blocks)]
+        post = check_engine_invariants(tm, clock_at_least=clock0,
+                                       expect_sums=sums)
+        stats = tm.stats()
+        wal_stats: Dict = {}
+        replayed = 0
+        drill_failures: List = []
+        if wal_dir is not None:
+            wal_stats = eng.wal.stats()
+            eng.wal.close()
+            eng.wal = None
+            tm.stop()
+            # restart drill: the process image is gone — only the log
+            # survives, and the fresh engine must conserve every block
+            fresh = _make(backend, 1, params=mk_params, device=device)
+            fresh.alloc(wb * n_blocks, INITIAL)
+            rep = recover_from_wal(wal_dir, fresh)
+            replayed = rep.wal_records_replayed
+            drill_failures = check_engine_invariants(fresh,
+                                                     expect_sums=sums)
+            fresh.stop()
+            shutil.rmtree(wal_dir, ignore_errors=True)
+        else:
+            tm.stop()
+        return {
+            "workload": self.name, "backend": backend, "tm": backend,
+            "variant": spec.variant, "seed": seed,
+            "write_words": wb, "n_blocks": n_blocks,
+            "durable": bool(p["durable"]), "grouped": grouped,
+            "commit_groups": counters.get("groups", 0),
+            "grouped_members": counters.get("grouped_members", 0),
+            "updates_per_sec": counters["updates"] / dt,
+            "failed_updates": counters["failed_updates"],
+            "checks_per_sec": counters["checks"] / dt,
+            "failed_checks": counters["failed_checks"],
+            "violations": (counters["violations"] + len(post)
+                           + len(drill_failures)),
+            "post_invariant_failures": post,
+            "restart_drill_failures": drill_failures,
+            "wal_records_replayed": replayed,
+            "wal_stats": wal_stats,
+            "mode_transitions": stats.get("mode_transitions", 0),
+            "stm_stats": stats,
+        }
+
+
 WORKLOADS = {w.name: w for w in (LongReadWorkload(), RWMixWorkload(),
-                                 ShardScaleWorkload(), StructRQWorkload())}
+                                 ShardScaleWorkload(), StructRQWorkload(),
+                                 ReliabilityWorkload(),
+                                 DurabilityWorkload())}

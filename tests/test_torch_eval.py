@@ -1,8 +1,8 @@
 """The port's eval subsystem (``repro_torch.eval``) against the JAX
 package's (``repro.eval``), on the CPU.
 
-* The registry holds the four ported workloads; the other three raise
-  "not ported yet".
+* The registry holds the six ported workloads, with the reference's
+  variants; ``serving`` raises "not ported yet".
 * One short trial of each workload through both packages gives rows with
   the same keys (and the same ``stm_stats`` keys).
 * The headline functions give equal output on the same fixed rows.
@@ -10,8 +10,10 @@ package's (``repro.eval``), on the CPU.
   same seed and structure.
 * ``shardscale``'s quick run holds its 1-shard parity against mvstore
   with no violation.
+* ``reliability`` and ``durability``: a quick CPU row of each carries
+  the reference row's keys, with kills recovered and the log replayed.
 * ``python -m repro_torch.eval --quick --device cpu`` exits 0 on all
-  four workloads; the results file keeps the reference's schema.
+  six workloads; the results file keeps the reference's schema.
 """
 import dataclasses
 import json
@@ -30,7 +32,8 @@ def _short(spec, **params):
 
 def test_workload_registry_names():
     assert set(TE.WORKLOADS) == {"longread", "rwmix", "shardscale",
-                                 "structrq"}
+                                 "structrq", "reliability", "durability"}
+    assert set(TE.NOT_PORTED) == {"serving"}
     assert set(TE.WORKLOADS) | set(TE.NOT_PORTED) == set(JE.WORKLOADS)
     assert TE.DEFAULT_BACKENDS == JE.DEFAULT_BACKENDS
     assert TE.UNVERSIONED == JE.UNVERSIONED
@@ -47,7 +50,8 @@ def test_workload_registry_names():
 
 @pytest.mark.parametrize("name", sorted(JE.WORKLOADS.keys()
                                         - {"longread", "rwmix",
-                                           "shardscale", "structrq"}))
+                                           "shardscale", "structrq",
+                                           "reliability", "durability"}))
 def test_unported_workload_says_so(name):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         TE.run_eval(name, device="cpu", save=False)
@@ -75,6 +79,46 @@ def test_rows_carry_the_reference_keys(workload, backend):
     assert trow["violations"] == 0
     for k in ("workload", "backend", "variant", "seed"):
         assert trow[k] == jrow[k]
+
+
+@pytest.mark.parametrize("workload", ["reliability", "durability"])
+def test_reliability_variants_match_reference(workload):
+    """Both workloads' quick and full variants (kill schedule, durable and
+    grouped flags) and default backends are the reference's."""
+    jw, tw = JE.WORKLOADS[workload], TE.WORKLOADS[workload]
+    assert tw.default_backends == jw.default_backends
+    assert tw.metric == jw.metric
+    for quick in (True, False):
+        assert tw.variants(quick) == [
+            TE.TrialSpec(**dataclasses.asdict(s))
+            for s in jw.variants(quick)]
+    if workload == "reliability":
+        assert tw.durable is False          # --durable switches it on
+
+
+@pytest.mark.parametrize("workload,backend,variant", [
+    ("reliability", "tl2", "kill60"),
+    ("durability", "dctl", "durable-group")])
+def test_reliability_quick_rows_carry_the_reference_keys(workload, backend,
+                                                        variant):
+    """A quick CPU row of each workload has the reference row's keys; the
+    kill row recovered every kill, the durable row's restart drill
+    replayed the log into a fresh engine, and nothing was violated."""
+    jw, tw = JE.WORKLOADS[workload], TE.WORKLOADS[workload]
+    jspec = next(s for s in jw.variants(True) if s.variant == variant)
+    tspec = next(s for s in tw.variants(True) if s.variant == variant)
+    jrow = jw.run_trial(backend, jspec, 1)
+    trow = tw.run_trial(backend, tspec, 1, device="cpu")
+    assert set(trow) == set(jrow)
+    assert set(trow["stm_stats"]) == set(jrow["stm_stats"])
+    assert trow["violations"] == 0
+    assert trow["post_invariant_failures"] == []
+    if workload == "reliability":
+        assert trow["kills"] > 0 and trow["recoveries"] == trow["kills"]
+    else:
+        assert trow["restart_drill_failures"] == []
+        assert trow["wal_records_replayed"] > 0
+        assert set(trow["wal_stats"]) == set(jrow["wal_stats"])
 
 
 @pytest.mark.parametrize("kind", ["hashmap", "extbst", "abtree"])
@@ -142,10 +186,49 @@ def _structrq_rows():
           "rq_vs_scan": 1 / 3}]
 
 
+def _reliability_rows():
+    base = {"workload": "reliability", "write_words": 256}
+    return [
+        dict(base, backend="multiverse", variant="nofault", kill_every=0,
+             kills=0, recoveries=0, rolled_forward=0, rolled_back=0,
+             updates_per_sec=100.0, violations=0),
+        dict(base, backend="multiverse", variant="kill200",
+             kill_every=200, kills=3, recoveries=3, rolled_forward=2,
+             rolled_back=1, updates_per_sec=70.0, violations=0),
+        dict(base, backend="tl2", variant="nofault", kill_every=0, kills=0,
+             recoveries=0, rolled_forward=0, rolled_back=0,
+             updates_per_sec=90.0, violations=0),
+        dict(base, backend="tl2", variant="kill200", kill_every=200,
+             kills=2, recoveries=1, rolled_forward=1, rolled_back=0,
+             updates_per_sec=20.0, violations=1),
+    ]
+
+
+def _durability_rows():
+    rows = []
+    for backend, rates in (("tl2", (100.0, 40.0, 200.0, 150.0)),
+                           ("dctl", (80.0, 60.0, 90.0, 30.0))):
+        for (v, d, g), rate in zip((("inmem", False, False),
+                                    ("durable", True, False),
+                                    ("inmem-group", False, True),
+                                    ("durable-group", True, True)), rates):
+            rows.append({
+                "workload": "durability", "backend": backend,
+                "variant": v, "durable": d, "grouped": g,
+                "updates_per_sec": rate, "violations": 0,
+                "grouped_members": 8 if g else 0,
+                "commit_groups": 4 if g else 0,
+                "wal_records_replayed": 12 if d else 0,
+                "wal_stats": {"fsyncs": 5} if d else {}})
+    return rows
+
+
 @pytest.mark.parametrize("name,rows", [("longread", _longread_rows),
                                        ("rwmix", _rwmix_rows),
                                        ("structrq", _structrq_rows),
-                                       ("shardscale", _shardscale_rows)])
+                                       ("shardscale", _shardscale_rows),
+                                       ("reliability", _reliability_rows),
+                                       ("durability", _durability_rows)])
 def test_headlines_match_reference(name, rows):
     fn = f"{name}_headline"
     from repro.eval import driver as JD
@@ -159,7 +242,9 @@ def test_headlines_match_reference(name, rows):
     ("longread", ["multiverse", "tl2", "mvstore"]),
     ("rwmix", ["multiverse", "norec"]),
     ("structrq", ["multiverse", "dctl"]),
-    ("shardscale", ["shardstore"])])
+    ("shardscale", ["shardstore"]),
+    ("reliability", ["tl2"]),
+    ("durability", ["dctl"])])
 def test_cli_quick_on_the_cpu(workload, backends, capsys):
     rc = main(["--workload", workload, "--quick", "--device", "cpu",
                "--backends", *backends, "--seed", "2", "--no-save"])
@@ -168,6 +253,21 @@ def test_cli_quick_on_the_cpu(workload, backends, capsys):
     assert "headline" in out
     assert "results ->" not in out
     assert all(f" {b} " in out for b in backends)
+
+
+def test_reliability_cli_durable_flag(capsys):
+    """``--durable`` journals the kill/recover trials; the rows say so and
+    carry the log's counters."""
+    w = TE.WORKLOADS["reliability"]
+    try:
+        rc = main(["--workload", "reliability", "--quick", "--device",
+                   "cpu", "--backends", "dctl", "--durable", "--no-save"])
+        assert w.durable
+    finally:
+        w.durable = False
+    assert rc == 0
+    out = capsys.readouterr().out
+    assert "headline @ kill60: dctl" in out and "kills=" in out
 
 
 def test_shardscale_quick_holds_parity_on_the_cpu():

@@ -405,8 +405,51 @@ def test_supervisor_restart_gives_the_uninterrupted_losses(tmp_path):
 
 
 def test_supervisor_write_ahead_log_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        TrainSupervisor(ckpt_dir=str(tmp_path), wal=object())
+    """(Named for the refusal it replaced.)  ``TrainSupervisor(wal=...)``:
+    a failure at step 3 with checkpoints every 2 steps finishes with the
+    uninterrupted losses; every checkpoint writes the log's base image —
+    the first live block at the step's clock, cast to int64 as the
+    reference casts it, which the reference's scan reads back — and the
+    restore scans the log."""
+    from repro.reliability import wal as J_WAL
+    from repro_torch.reliability import wal as T_WAL
+
+    _, tc = _cfgs("float32")
+
+    def run(fault, name, wal=None):
+        tr = Trainer(tc, _shape(), mvcfg=MVStoreConfig(mode="U",
+                                                       fused_commit=True),
+                     device="cpu", seed=6)
+        sup = TrainSupervisor(ckpt_dir=str(tmp_path / name), ckpt_every=2,
+                              reader=tr.snapshot_reader(), wal=wal)
+        losses, lives = {}, {}
+
+        def on_step(s, st, m):
+            losses[s] = float(m["loss"])
+            key = next(iter(st.mv.live))
+            lives[s] = (st.mv.live[key].to(torch.int64).numpy().copy(),
+                        int(st.mv.clock))
+        try:
+            step, _ = sup.run(state=tr.state, train_step=tr.train_step,
+                              batch_at=tr.batch_at, n_steps=STEPS_N,
+                              fault_plan=fault, on_step=on_step)
+        finally:
+            tr.controller.stop()
+            sup.manager.close()
+        return step, sup, losses, lives
+
+    _, _, base, _ = run(None, "a")
+    wal = T_WAL.WriteAheadLog(str(tmp_path / "wal"))
+    step, sup, got, lives = run(FaultPlan(fail_at_steps=(3,)), "b", wal)
+    assert step == STEPS_N and sup.restarts == 1 and got == base
+    assert [e for e in sup.events if e[0] == "wal_scan"] == [
+        ("wal_scan", 2, "records=0 undrained=0 torn=0")]
+    wal.close()
+    for scan in (T_WAL.scan_dir, J_WAL.scan_dir):
+        recs, torn, (floor, heap, clock) = scan(str(tmp_path / "wal"))
+        assert recs == [] and torn == 0 and floor == 0
+        assert clock == lives[STEPS_N][1]
+        np.testing.assert_array_equal(heap, lives[STEPS_N][0])
 
 
 def test_cli_trains_on_the_cpu_when_asked(capsys, tmp_path):
