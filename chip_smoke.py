@@ -39,7 +39,11 @@ failure exits non-zero and no result line is printed:
      the bound, and traced with ``torch.profiler`` for the kernels' own
      device time; and the attention gradient (``FlashAttentionFn``: the
      kernel forward, the plain backward) against autograd through
-     ``naive_attention`` on the card;
+     ``naive_attention`` on the card, and the SSD scan's gradient
+     (``SSDScanFn``: the kernel forward, the plain scan's gradient
+     recomputed backward) against autograd through ``ssd_scan_plain`` on
+     the card at every ``SSD_CASES`` shape and at mamba2-780m's training
+     shape (its backward's peak memory recorded);
   3. end to end: the same seeded two-thread schedule through
      ``make_tm(b, array_heap=True)`` for b in multiverse, tl2, dctl,
      norec, tinystm and mvstore, on the card and on the CPU, must leave
@@ -50,7 +54,7 @@ failure exits non-zero and no result line is printed:
      tokens, and bfloat16 logits no further from the float32 ones than
      twice the CPU's bfloat16 logits are; the same for mamba2-780m at
      full width and a depth of 2 (a prefill of 2 x 512 tokens through
-     ``ssd_scan``); and the trainer at the same
+     ``ssd_scan``); and the trainer over each of the two at the same
      width and depth, float32, 2 x 64 tokens, 2 steps in Mode Q, Mode U
      and Mode U fused on the card and on the CPU from the same weights:
      losses, parameters and moments within 1e-4, the fused run within
@@ -58,7 +62,7 @@ failure exits non-zero and no result line is printed:
      .py`` tolerance);
   4. the main path: ``make_tm(b, n, array_heap=True)`` on the card drives
      the longread (scan4096 on every backend, scan1M on multiverse) and
-     rwmix (w1024, every backend) traffic in threads (3 s windows); TL2
+     rwmix (w1024, every backend) traffic in threads (2 s windows); TL2
      and DCTL
      commit 1024-word rotations in groups of 8 through ``CommitBatcher``
      over a 1,000,000-word heap; and the MVStore serves 1,000,000-word
@@ -93,9 +97,12 @@ failure exits non-zero and no result line is printed:
      fused commit — every leaf of every step through ``fused_adamw`` —
      while a reader one step behind must get ``ok`` snapshots equal, leaf
      checksum for leaf checksum, to the previous step's live parameters;
-     the losses must be finite and fall; and a supervisor drill at the
-     reduced config (a failure injected at step 3, checkpoints every 2
-     steps) must finish with the losses of an uninterrupted run;
+     the losses must be finite and fall; then the same for mamba2-780m
+     (48 layers, 780,222,720 parameters; every layer of every step
+     through ``ssd_scan`` by ``SSDScanFn``, forward and recompute); and
+     a supervisor drill at the reduced config (a failure injected at step
+     3, checkpoints every 2 steps) must finish with the losses of an
+     uninterrupted run;
   5. the eval and the structures: ``repro_torch.eval.run_eval`` runs the
      longread, rwmix and structrq workloads at their full variants on the
      card (every backend of each workload's default set): every row must
@@ -141,9 +148,21 @@ failure exits non-zero and no result line is printed:
      ``durability`` at their full variants: violations 0, no failed
      invariant, every kill recovered and kills in the kill rows, every
      restart drill clean;
-  8. the card's idle share: four of the trials, the two servers and the
-     trainer run again for a 3 s window under a profiler trace of their
-     GPU activity (the trainer's while it is still up after phase 4).
+  8. the snapshot-serving service: the JAX package's three hand-driven
+     schedules (a commit between decode steps in Mode U, Mode Q and
+     ``live``) on the card and on the CPU must give the same pinned
+     clocks, aborts and outcomes; ``run_eval("serving")`` at its full
+     variants (qps60 / 28 ms commits, qps120 / 12 ms, 2.5 s, policies
+     multiverse, modeq and unversioned) and ``service_36x1M`` (36 blocks
+     of 1,048,576 int32 words, an 8-slot ring, qps60) in Mode U and Q:
+     no torn read, drained, every offered request completed, shed or
+     failed, no Mode-U abort; at qps120 Mode Q aborts and the unversioned
+     policy mixes versions; every Mode-U resolve one ``snapshot_select``
+     a block;
+  9. the card's idle share: four of the trials, the two servers and the
+     trainers run again under a profiler trace of their GPU activity (the
+     trials for 2 s, the servers and each trainer, while it is still up
+     after phase 4, for 3 s).
 
 The last two lines are the kernels summary and
 ``{"ok": true, "device": {...}}``.
@@ -366,9 +385,14 @@ def gpu_activity(prof, kernels=()):
     whose names contain one of ``kernels``.  On one stream the activities
     do not overlap, so the sum is the time the card was busy."""
     gpu = gpu_events(prof)
-    named = sum(e["dur"] for e in gpu if e["cat"] == "kernel"
-                and any(k in e["name"] for k in kernels))
-    return len(gpu), sum(e["dur"] for e in gpu), named
+    return len(gpu), sum(e["dur"] for e in gpu), kernel_us(gpu, kernels)
+
+
+def kernel_us(gpu, kernels):
+    """Summed duration of the kernels among the activities ``gpu`` whose
+    names contain one of ``kernels``."""
+    return sum(e["dur"] for e in gpu if e["cat"] == "kernel"
+               and any(k in e["name"] for k in kernels))
 
 
 def device_times(torch, fn, kernels, iters=50, warm=5):
@@ -529,7 +553,7 @@ def kernel_checks(torch, dev, rng):
     rows.update(flash_checks(torch, dev))
     rows.update(adamw_checks(torch, dev))
     rows.update(ssd_checks(torch, dev))
-    mamba_train_refusal_check(torch, dev)
+    ssd_grad_checks(torch, dev)
     attention_grad_checks(torch, dev)
     return rows
 
@@ -2371,50 +2395,108 @@ def ssd_host_split(torch, SS, args, q, st0, calls=1000):
     return run_split(torch, parts, calls)
 
 
-def mamba_train_refusal_check(torch, dev):
-    """The scan kernel has no backward yet: on the card the bare
-    ``ssd_scan`` wrapper refuses an input that requires grad, and
-    ``lm_loss`` and ``Trainer`` for a Mamba config raise
-    NotImplementedError instead of training without the gradient (the
-    ``cuda``-marked tests of ``tests/test_torch_{ssd,mamba}.py``, which
-    import JAX, here without it)."""
-    from repro_torch.configs import ParallelConfig, ShapeConfig, smoke_config
-    from repro_torch.kernels import ssd_scan as SS
-    from repro_torch.launch.sharding import tree_map
-    from repro_torch.launch.train import Trainer
-    from repro_torch.models import mamba
-    from repro_torch.models import model_zoo as zoo
+#: the gradient checks' extra case: mamba2-780m's training shape (4 x 512
+#: tokens, no state), where the backward's peak memory is recorded
+SSD_TRAIN_CASE = {"mamba_train_4x512": (4, 512, 48, 64, 128, 256,
+                                        "bfloat16", None)}
 
-    x = torch.zeros(1, 32, 2, 8, device=dev, requires_grad=True)
-    dt = torch.ones(1, 32, 2, device=dev)
-    bc = torch.zeros(1, 32, 4, device=dev)
-    try:
-        SS.ssd_scan(x, dt, -dt[0, 0], bc, bc, chunk=16)
-        raise Failed("ssd_scan ran a CUDA input that requires grad")
-    except RuntimeError as e:
-        check("requires grad" in str(e), f"ssd_scan refused with: {e}")
-    cfg = smoke_config(MAMBA)
-    params = tree_map(lambda t: t.requires_grad_(), zoo.init_params(
-        cfg, torch.Generator(device=dev).manual_seed(SEED)))
-    tok = torch.zeros((2, 32), dtype=torch.int32, device=dev)
-    batch = {"tokens": tok, "labels": tok}
-    for what, call in (
-            ("lm_loss", lambda: zoo.loss_fn(params, batch, cfg,
-                                            ParallelConfig())),
-            ("Trainer", lambda: Trainer(cfg, ShapeConfig("s", 32, 2,
-                                                         "train"),
-                                        device=dev))):
+
+def ssd_grad_checks(torch, dev):
+    """The scan's gradient on the card: ``models.mamba.ssd_chunk_scan`` on
+    inputs that require grad goes through ``SSDScanFn`` (one ``ssd_scan``
+    launch forward; the plain scan's gradient, recomputed, backward).  At
+    every case of ``SSD_CASES`` (the short tile Q = 200 included) and at
+    the training shape, its y and final state, and the gradients of a
+    seeded <w_y, y> + <w_s, final state> for xh, dt, A, B_, C_ and
+    init_state, against autograd straight through ``ssd_scan_plain`` on
+    the card, within ``SSD_TOL`` by xh's dtype (rtol = atol); each
+    gradient in its input's dtype.  The bare wrapper must still refuse an
+    input that requires grad.  Records, at the training shape, the
+    backward's peak memory above what was allocated before it."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ssd_scan as SS
+    from repro_torch.models import mamba
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    errs, train = {}, {}
+    for name, (B, S, H, P, N, q, dt, init) in {**SSD_CASES,
+                                               **SSD_TRAIN_CASE}.items():
+        dtype = getattr(torch, dt)
+        xh = (torch.randn(B, S, H, P, generator=gen, device=dev) * 0.5
+              ).to(dtype)
+        dts = F.softplus(torch.randn(B, S, H, generator=gen, device=dev))
+        A = -torch.exp(torch.randn(H, generator=gen, device=dev) * 0.3)
+        Bm = (torch.randn(B, S, N, generator=gen, device=dev) * 0.5
+              ).to(dtype)
+        Cm = (torch.randn(B, S, N, generator=gen, device=dev) * 0.5
+              ).to(dtype)
+        st0 = None
+        if init:
+            st0 = torch.zeros(B, H, N, P, device=dev) if init == "zeros" \
+                else torch.randn(B, H, N, P, generator=gen, device=dev)
+        wy = torch.randn(B, S, H, P, generator=gen, device=dev)
+        ws = torch.randn(B, H, N, P, generator=gen, device=dev)
+        base = [t for t in (xh, dts, A, Bm, Cm, st0) if t is not None]
+        runs = {}
+        for route in ("function", "plain"):
+            leaves = [t.clone().requires_grad_() for t in base]
+            args = leaves[:5]
+            init_leaf = leaves[5] if init else None
+            torch.cuda.synchronize()
+            before = SS.launches.value
+            if route == "function":
+                y, st = mamba.ssd_chunk_scan(*args, chunk=q,
+                                             init_state=init_leaf)
+                check(SS.launches.value == before + 1 and
+                      type(y.grad_fn).__name__ == "SSDScanFnBackward",
+                      f"{name}: ssd_chunk_scan did not run SSDScanFn")
+            else:
+                y, st = SS.ssd_scan_plain(*args, chunk=q,
+                                          init_state=init_leaf)
+            loss = (y.float() * wy).sum() + (st * ws).sum()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            grads = torch.autograd.grad(loss, leaves)
+            torch.cuda.synchronize()
+            if name in SSD_TRAIN_CASE:
+                train[route] = {
+                    "backward_s": time.perf_counter() - t0,
+                    "backward_peak_bytes_above_held":
+                        torch.cuda.max_memory_allocated() - held}
+            check(all(g.dtype == t.dtype for g, t in zip(grads, leaves)),
+                  f"{name}: a gradient is not in its input's dtype")
+            runs[route] = (y, st) + tuple(grads)
+            del loss
+        labels = ("y", "final_state", "d_xh", "d_dt", "d_A", "d_B", "d_C",
+                  "d_init_state")
         try:
-            call()
-            raise Failed(f"{what} trained a Mamba config on the card")
-        except NotImplementedError as e:
-            check(mamba.TRAIN_ON_CARD in str(e),
-                  f"{what} refused with: {e}")
-    with torch.no_grad():
-        check(bool(torch.isfinite(zoo.loss_fn(params, batch, cfg,
-                                              ParallelConfig()))),
-              "the Mamba loss without grad is not finite on the card")
-    emit({"mamba_train_refusal_check": True})
+            errs[name] = {n: max_abs_err(torch, a, b, dt, SSD_TOL[dt])
+                          for n, a, b in zip(labels, runs["function"],
+                                             runs["plain"])}
+        except Failed as e:
+            raise Failed(f"ssd_scan gradient != plain autograd ({name}): "
+                         f"{e}")
+        del runs
+    x = torch.zeros(1, 32, 2, 8, device=dev, requires_grad=True)
+    dt1 = torch.ones(1, 32, 2, device=dev)
+    bc = torch.zeros(1, 32, 4, device=dev)
+    refused = False
+    try:
+        SS.ssd_scan(x, dt1, -dt1[0, 0], bc, bc, chunk=16)
+    except RuntimeError as e:
+        refused = "requires grad" in str(e)
+    check(refused, "the bare CUDA ssd_scan wrapper accepted an input that "
+                   "requires grad")
+    row = {"ssd_grad_check": "SSDScanFn vs plain autograd",
+           "cases": len(errs), "tolerance": SSD_TOL, "max_abs_err": errs,
+           "train_shape": {"case": next(iter(SSD_TRAIN_CASE)), **train},
+           "bare_wrapper_refuses_grad": True}
+    emit(row)
+    free_card(torch)
+    return row
 
 
 #: fused_adamw cases: name -> (shape, p dtype, g dtype, ring slots); the
@@ -3571,6 +3653,14 @@ def serving_idle_window(torch, window_s=3.0, arch=ARCH):
 TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH = 20, 512, 4
 TRAIN_TOL = 1e-4            # card vs CPU, float32, rtol = atol
 FUSED_TOL = 2e-3            # fused vs unfused (tests/test_train_e2e.py)
+#: the CPU run each of the train check's card runs is held against, by
+#: arch: on the CPU, Mode U's versioned commit and its fused commit leave
+#: Mode Q's live blocks, moments and losses bit for bit (the ring is extra
+#: state; ``tests/test_torch_train.py::test_cpu_runs_of_every_mode_equal_
+#: mode_q``), so qwen2.5-3b's one CPU run serves all three (a second one
+#: took 30-38 s of the run); mamba2-780m's fused run keeps its own
+CPU_RUN = {ARCH: {"Q": "Q", "U": "Q", "U_fused": "Q"},
+           MAMBA: {"Q": "Q", "U": "Q", "U_fused": "U_fused"}}
 
 
 def _state_leaves(state):
@@ -3591,16 +3681,19 @@ def _tree_err(torch, got, want, tol, dev):
                            "float32", tol) for k in want)
 
 
-def train_check(torch, dev):
-    """The trainer on the card against the trainer on the CPU: qwen2.5-3b
+def train_check(torch, dev, arch=ARCH):
+    """The trainer on the card against the trainer on the CPU: ``arch``
     at full width and a depth of 2 layers, float32 (TF32 off), one set of
     seeded weights, 2 steps of 2 x 64 tokens in Mode Q (adamw.apply +
     mv_commit, no ring), Mode U (the same with a 2-slot ring) and Mode U
-    fused (``fused_adamw`` per leaf).  Losses, live blocks and moments
-    within 1e-4; the card's fused run within 2e-3 of its unfused one.
-    The card's runs must launch ``flash_attention`` for each layer's
-    forward and recompute, and the fused run ``fused_adamw`` once per
-    leaf and step."""
+    fused (``fused_adamw`` per leaf), each against the CPU's run of
+    ``CPU_RUN[arch][mode]`` (one CPU run serves several).  Losses,
+    live blocks and moments within 1e-4; the card's fused run within 2e-3
+    of its unfused one.  The card's runs must launch the arch's sequence
+    kernel
+    (``flash_attention``, or ``ssd_scan`` through ``SSDScanFn``) for each
+    layer's forward and recompute, and the fused run ``fused_adamw`` once
+    per leaf and step."""
     from repro_torch import kernels as K
     from repro_torch.configs import MVStoreConfig, ShapeConfig, get_config
     from repro_torch.launch.sharding import tree_map
@@ -3608,30 +3701,37 @@ def train_check(torch, dev):
     from repro_torch.models import model_zoo as zoo
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = dataclasses.replace(get_config(ARCH), n_layers=2, dtype="float32")
+    cfg = dataclasses.replace(get_config(arch), n_layers=2, dtype="float32")
     shape = ShapeConfig("train_check", 64, 2, "train")
     init = tree_map(lambda t: t.numpy(), zoo.init_params(
         cfg, torch.Generator().manual_seed(SEED)))
     modes = {"Q": MVStoreConfig(mode="Q"), "U": MVStoreConfig(mode="U"),
              "U_fused": MVStoreConfig(mode="U", fused_commit=True)}
-    rows, card = {}, {}
+    rows, card, cpu_runs = {}, {}, {}
+
+    def run(mvcfg, where):
+        K.reset_launch_counts()
+        tr = Trainer(cfg, shape, mvcfg=mvcfg, params=init, device=where)
+        state, tr.state = tr.state, None
+        losses = []
+        for step in range(2):
+            state, metrics = tr.train_step(state, tr.batch_at(step))
+            losses.append(float(metrics["loss"]))
+        tr.controller.stop()
+        return losses, _state_leaves(state), K.launch_counts()
+
     for name, mvcfg in modes.items():
-        res, secs = {}, {}
-        for where in ("cpu", dev):
+        secs = {}
+        ref = CPU_RUN[arch][name]
+        if ref not in cpu_runs:
             t0 = time.perf_counter()
-            K.reset_launch_counts()
-            tr = Trainer(cfg, shape, mvcfg=mvcfg, params=init, device=where)
-            state, tr.state = tr.state, None
-            losses = []
-            for step in range(2):
-                state, metrics = tr.train_step(state, tr.batch_at(step))
-                losses.append(float(metrics["loss"]))
-            tr.controller.stop()
-            res[str(where)] = (losses, _state_leaves(state),
-                               K.launch_counts())
-            del tr, state
-            secs[str(where)] = time.perf_counter() - t0
-        (lc, tc, _), (lg, tg, counts) = res["cpu"], res[str(dev)]
+            cpu_runs = {ref: run(modes[ref], "cpu")}
+            secs["cpu"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lg, tg, counts = run(mvcfg, dev)
+        secs[str(dev)] = time.perf_counter() - t0
+        lc, tc, _ = cpu_runs[ref]
+        secs["cpu_run"] = ref
         t0 = time.perf_counter()
         try:
             row = {"mode": name,
@@ -3642,23 +3742,26 @@ def train_check(torch, dev):
                                                   dev),
                    "losses_card": lg, "losses_cpu": lc,
                    "launches": {k: counts[k] for k in ("flash_attention",
+                                                       "ssd_scan",
                                                        "fused_adamw")}}
         except Failed as e:
-            raise Failed(f"train check, Mode {name}: card != CPU: {e}")
+            raise Failed(f"train check {arch}, Mode {name}: card != CPU: "
+                         f"{e}")
         secs["compare"] = time.perf_counter() - t0
         row["seconds"] = secs
-        check(counts["flash_attention"] == 2 * 2 * 2,
-              f"train check, Mode {name}: {counts['flash_attention']} "
-              "flash_attention launches for 2 layers x (forward + "
+        seq_kernel = PREFILL_KERNEL[arch]
+        check(counts[seq_kernel] == 2 * 2 * 2,
+              f"train check {arch}, Mode {name}: {counts[seq_kernel]} "
+              f"{seq_kernel} launches for 2 layers x (forward + "
               "recompute) x 2 steps")
         want_fa = 2 * len(tg) // 3 if name == "U_fused" else 0
         check(counts["fused_adamw"] == want_fa,
-              f"train check, Mode {name}: {counts['fused_adamw']} "
+              f"train check {arch}, Mode {name}: {counts['fused_adamw']} "
               f"fused_adamw launches, expected {want_fa}")
         rows[name] = row
         if name in ("U", "U_fused"):
             card[name] = (lg, tg)
-        del res, tc, tg
+        del tc, tg
     try:
         fused_err = max(
             max_abs_err(torch, torch.tensor(card["U_fused"][0]),
@@ -3666,12 +3769,12 @@ def train_check(torch, dev):
             _tree_err(torch, card["U_fused"][1], card["U"][1], FUSED_TOL,
                       dev))
     except Failed as e:
-        raise Failed(f"train check: fused != unfused on the card: {e}")
-    out = {"train_check": ARCH, "layers": 2, "tokens": [2, 64], "steps": 2,
+        raise Failed(f"train check {arch}: fused != unfused on the card: {e}")
+    out = {"train_check": arch, "layers": 2, "tokens": [2, 64], "steps": 2,
            "tolerance": TRAIN_TOL, "fused_vs_unfused_max_abs_err": fused_err,
            "fused_tolerance": FUSED_TOL, "modes": rows}
     emit(out)
-    del card, init
+    del card, init, cpu_runs
     free_card(torch)
     return out
 
@@ -3693,18 +3796,25 @@ def _checksums(torch, tree):
     return {p: (int(a), int(b)) for p, (a, b) in out.items()}
 
 
-def train_trial(torch, launches):
-    """``Trainer`` over qwen2.5-3b at full width and depth (bfloat16,
+#: each trained model's parameter count at full width and depth
+TRAIN_PARAMS = {ARCH: 3_397_627_904, MAMBA: 780_222_720}
+
+
+def train_trial(torch, launches, arch=ARCH):
+    """``Trainer`` over ``arch`` at full width and depth (bfloat16,
     random weights from ``SEED``, 4 x 512 tokens a step) for 20 steps
     under ``TrainSupervisor.run`` (checkpoints beyond the last step: one
-    would be 40 GB of ``.npy``), Mode U with the fused commit.  Launch
-    counters are set to 0 just before the run and read just after;
-    every step must launch ``fused_adamw`` once per leaf and
-    ``flash_attention`` at least twice per layer (forward and
-    recompute).  After each step a reader one step behind must get an
-    ``ok`` snapshot whose leaf checksums are the previous step's live
-    ones.  Then a 3 s window of further steps under a profiler trace
-    (idle share, ``fused_adamw``'s device time per step)."""
+    would be 40 GB of ``.npy`` for qwen2.5-3b), Mode U with the fused
+    commit and a 2-slot ring.  Launch counters are set to 0 just before
+    the run and read just after; every step must launch ``fused_adamw``
+    once per leaf and the arch's sequence kernel (``flash_attention``,
+    or ``ssd_scan`` through ``SSDScanFn``) at least twice per layer
+    (forward and recompute).
+    After each step a reader one step behind must get an ``ok`` snapshot
+    whose leaf checksums are the previous step's live ones.  Then a 3 s
+    window of further steps under a profiler trace (idle share, the
+    device time per step of ``fused_adamw`` and of the sequence
+    kernel)."""
     from torch.profiler import ProfilerActivity
 
     from repro_torch import kernels as K
@@ -3713,7 +3823,8 @@ def train_trial(torch, launches):
     from repro_torch.launch.train import Trainer
     from repro_torch.runtime.fault_tolerance import TrainSupervisor
 
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
+    seq_kernel = PREFILL_KERNEL[arch]
     t0 = time.perf_counter()
     trainer = Trainer(cfg, ShapeConfig("train_chip", TRAIN_SEQ, TRAIN_BATCH,
                                        "train"),
@@ -3765,7 +3876,7 @@ def train_trial(torch, launches):
     for k, v in counts.items():
         launches[k] += v
     tokens = TRAIN_SEQ * TRAIN_BATCH
-    row = {"trial": "train_qwen2.5-3b", "mode": "U", "fused_commit": True,
+    row = {"trial": f"train_{arch}", "mode": "U", "fused_commit": True,
            "ring_slots": 2, "seq": TRAIN_SEQ, "batch": TRAIN_BATCH,
            "steps": step, "params": n_params, "leaves": n_leaves,
            "init_s": init_s, "seconds": dt, "losses": losses,
@@ -3775,7 +3886,12 @@ def train_trial(torch, launches):
            "tokens_per_s": tokens * len(step_s[1:]) / sum(step_s[1:]),
            "snapshots_ok": sum(snaps), "restarts": sup.restarts,
            "max_memory_allocated": peak, "allocator": alloc,
-           "fused_adamw_bound_ms_per_step": bound_ms, "launches": counts}
+           "fused_adamw_bound_ms_per_step": bound_ms,
+           "fused_adamw_launches_per_step": counts["fused_adamw"] / step,
+           f"{seq_kernel}_launches_per_step": counts[seq_kernel] / step,
+           "launches": counts}
+    check(n_params == TRAIN_PARAMS[arch],
+          f"train {arch}: {n_params} parameters")
     check(step == TRAIN_STEPS and sup.restarts == 0,
           f"train: {step} steps, {sup.restarts} restarts: {sup.events}")
     check(all(np.isfinite(losses)), f"train: a loss is not finite: {losses}")
@@ -3786,11 +3902,13 @@ def train_trial(torch, launches):
     check(counts["fused_adamw"] == n_leaves * TRAIN_STEPS,
           f"train: {counts['fused_adamw']} fused_adamw launches for "
           f"{n_leaves} leaves x {TRAIN_STEPS} steps")
-    check(counts["flash_attention"] >= 2 * cfg.n_layers * TRAIN_STEPS,
-          f"train: {counts['flash_attention']} flash_attention launches")
+    check(counts[seq_kernel] >= 2 * cfg.n_layers * TRAIN_STEPS,
+          f"train: {counts[seq_kernel]} {seq_kernel} launches for "
+          f"{cfg.n_layers} layers x (forward + recompute) x "
+          f"{TRAIN_STEPS} steps")
     check(counts["snapshot_select"] > 0, "train: no snapshot_select launch")
 
-    # phase 8's window, taken while the trainer is up
+    # phase 9's window, taken while the trainer is up
     prof = torch.profiler.profile(activities=[ProfilerActivity.CUDA])
     prof.start()
     t0, n, enqueue = time.perf_counter(), 0, 0.0
@@ -3806,13 +3924,18 @@ def train_trial(torch, launches):
     trainer.controller.stop()
     del state, trainer, sup
     free_card(torch)
-    ev, busy_us, fa_us = gpu_activity(prof, DEVICE_KERNELS["fused_adamw"])
+    gpu = gpu_events(prof)
+    ev, busy_us = len(gpu), sum(e["dur"] for e in gpu)
+    fa_us, seq_us = (kernel_us(gpu, DEVICE_KERNELS[k])
+                     for k in ("fused_adamw", seq_kernel))
     row.update({"trace_window_s": window, "trace_steps": n,
                 "host_enqueue_s_per_step": enqueue / n,
                 "device_busy_ms": busy_us / 1e3 if ev else None,
                 "device_idle_share": 1 - busy_us / 1e3 / (window * 1e3)
                 if ev else None,
                 "fused_adamw_device_ms_per_step": fa_us / 1e3 / n
+                if ev else None,
+                f"{seq_kernel}_device_ms_per_step": seq_us / 1e3 / n
                 if ev else None})
     emit(row)
     K.reset_launch_counts()
@@ -3930,6 +4053,45 @@ class _AbortCauses:
         return out
 
 
+class _MirrorHits:
+    """Counts, while entered, multiverse's versioned bulk-read batches in
+    which the mirror resolved at least one word
+    (``MultiversePolicy._bulk_versioned_gather``) into a batch on the
+    card: each such batch writes its hits with one ``scatter_write``
+    launch.  Whether a
+    batch has hits depends on a writer racing the read, so a timed run
+    may have none.  ``take()`` returns the count since the last call."""
+
+    def __init__(self):
+        self.batches = 0
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.core.stm import MultiversePolicy
+
+        inner = MultiversePolicy._bulk_versioned_gather
+
+        def counted(policy, eng, addrs, vals, *a):
+            before = policy.stats_version_gather_hits
+            out = inner(policy, eng, addrs, vals, *a)
+            self.batches += (policy.stats_version_gather_hits > before
+                             and isinstance(vals, torch.Tensor)
+                             and vals.is_cuda)
+            return out
+
+        self._cls, self._inner = MultiversePolicy, inner
+        MultiversePolicy._bulk_versioned_gather = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._cls._bulk_versioned_gather = self._inner
+
+    def take(self):
+        n, self.batches = self.batches, 0
+        return n
+
+
 def _eval_row(row, causes):
     """An eval row as printed: its keys but the stats, the abort counts of
     ``stm_stats`` and, for the MVStore, the abort causes."""
@@ -3977,24 +4139,28 @@ def eval_phase(torch):
     headline = {"longread": longread_headline, "rwmix": rwmix_headline,
                 "structrq": structrq_headline}
     #: the kernels each workload's run must launch (the MVStore publishes
-    #: through commit_fused; structrq's defaults do not include it)
+    #: through commit_fused; structrq's defaults do not include it, and
+    #: its structures' write sets stay under the bulk write-back's
+    #: threshold, so its scatter_write launches are the mirror-hit
+    #: batches', gated below)
     needs = {"longread": ("gather_read", "gather_bracketed", "scatter_write",
                           "commit_fused"),
              "rwmix": ("gather_read", "gather_bracketed", "scatter_write",
                        "validate", "commit_fused"),
-             "structrq": ("gather_read", "gather_bracketed",
-                          "scatter_write")}
+             "structrq": ("gather_read", "gather_bracketed")}
     totals = defaultdict(int)
-    with _AbortCauses() as causes:
+    with _AbortCauses() as causes, _MirrorHits() as hits:
         for w in EVAL_WORKLOADS:
             rows = []
             t0 = time.perf_counter()
             K.reset_launch_counts()
+            hits.take()
             run_eval(w, save=False,
                      progress=lambda r: rows.append(
                          _eval_row(r, causes.take())))
             torch.cuda.synchronize()
             launches = K.launch_counts()
+            hit_batches = hits.take()
             for r in rows:
                 emit(r)
                 check(r["violations"] == 0,
@@ -4003,9 +4169,13 @@ def eval_phase(torch):
                                     f"{r['backend']}: no progress")
             emit({"eval": w, "seconds": time.perf_counter() - t0,
                   "trials": len(rows), "launches": launches,
+                  "mirror_hit_batches": hit_batches,
                   "headline": headline[w](rows)})
             for k in needs[w]:
                 check(launches[k] > 0, f"eval {w} launched no {k}")
+            check(launches["scatter_write"] >= hit_batches,
+                  f"eval {w}: {launches['scatter_write']} scatter_write "
+                  f"launches for {hit_batches} mirror-hit batches")
             for k, v in launches.items():
                 totals[k] += v
     return totals
@@ -5342,6 +5512,219 @@ def reliability_phase(torch):
     return totals
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the snapshot-serving service
+# ---------------------------------------------------------------------------
+
+#: the at-scale store: one block per qwen2.5-3b layer of 1,048,576 int32
+#: words (144 MiB a version, 1.125 GiB in the 8-slot ring)
+SERVICE_BLOCKS, SERVICE_BLOCK_WORDS, SERVICE_RING = 36, 1 << 20, 8
+
+
+def _service_gates(row, what):
+    """Every serving row: no torn read, drained, every offered request
+    completed, shed or failed; Mode U never aborts a reader."""
+    check(row["violations"] == 0, f"{what}: {row['violations']} torn reads")
+    check(row["drained"], f"{what}: the service did not drain")
+    check(row["completed"] + row["shed"] + row["failed_aborts"]
+          == row["offered"],
+          f"{what}: {row['offered']} offered, {row['completed']} completed, "
+          f"{row['shed']} shed, {row['failed_aborts']} failed")
+    if row["policy"] == "U":
+        check(row["snapshot_aborts"] == 0,
+              f"{what}: {row['snapshot_aborts']} Mode-U snapshot aborts")
+
+
+def _row_numbers(row):
+    return {k: v for k, v in row.items() if not isinstance(v, dict)}
+
+
+def serving_eval(torch):
+    """``run_eval("serving")`` at the reference's full variants on the
+    card (qps60 with a 28 ms commit interval and qps120 with 12 ms, 2.5 s
+    each; the policies multiverse, modeq and unversioned): every row
+    passes ``_service_gates``; at qps120 Mode Q aborts snapshots and the
+    unversioned policy mixes versions.  The headline is recorded, not
+    gated (its throughput depends on the host).  Returns the launch
+    counts."""
+    from repro_torch import kernels as K
+    from repro_torch.eval import run_eval, serving_headline
+
+    K.reset_launch_counts()
+    rows, _ = run_eval("serving", save=False)
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    for r in rows:
+        _service_gates(r, f"eval serving/{r['variant']}/{r['backend']}")
+        emit(_row_numbers(r))
+    top = {r["backend"]: r for r in rows if r["variant"] == "qps120"}
+    check(top["modeq"]["snapshot_aborts"] > 0,
+          "eval serving/qps120: Mode Q aborted no snapshot")
+    check(top["unversioned"]["mixed_version_requests"] > 0,
+          "eval serving/qps120: the unversioned policy mixed no versions")
+    check(launches["snapshot_select"] > 0,
+          "eval serving launched no snapshot_select")
+    emit({"eval": "serving", "trials": len(rows), "launches": launches,
+          "headline": serving_headline(rows)})
+    return launches
+
+
+def service_trial(torch, backend):
+    """``service_36x1M_<policy>``: ``SnapshotService.synthetic`` over
+    ``SERVICE_BLOCKS`` blocks of ``SERVICE_BLOCK_WORDS`` int32 words with
+    an 8-slot ring (Mode U) on the card, under the eval's qps60 knobs
+    (60 requests/s for 2.5 s, a commit every 28 ms) for the eval's
+    ``backend``.  Gated as the eval rows; records qps, latency, the
+    trainer's commits against the cadence asked, the host time to issue
+    a resolve (no sync), of a decode step's check (the one sync that
+    brings ``ok`` and the torn-read flag home) and of a prefill's
+    resolve (one sync for ``ok``), and the launches."""
+    from repro_torch import kernels as K
+    from repro_torch.eval import WORKLOADS
+    from repro_torch.serve import SnapshotService
+
+    workload = WORKLOADS["serving"]
+    spec = workload.variants()[0]
+    p = spec.params
+    policy = workload.POLICY[backend]
+    cfg = workload.config(backend, spec, SEED, n_blocks=SERVICE_BLOCKS,
+                          block_size=SERVICE_BLOCK_WORDS,
+                          ring_slots=SERVICE_RING)
+    free_card(torch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    svc = SnapshotService.synthetic(cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    ex = svc.executor
+    spent = defaultdict(float)
+    calls = defaultdict(int)
+
+    def timed(name, fn):
+        def run(*a):
+            t1 = time.perf_counter()
+            try:
+                return fn(*a)
+            finally:
+                spent[name] += time.perf_counter() - t1
+                calls[name] += 1
+        return run
+
+    for name in ("_snapshot", "_resolve", "_verify", "decode"):
+        setattr(ex, name, timed(name, getattr(ex, name)))
+    K.reset_launch_counts()
+    row = svc.run_open_loop()
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    st = svc.trainer.state
+    store = sum(t.numel() * t.element_size() for t in st.live.values())
+    ring = sum(t.numel() * t.element_size() for t in st.ring.values())
+    out = {"trial": f"service_36x1M_{policy}", **_row_numbers(row),
+           "n_blocks": SERVICE_BLOCKS, "block_words": SERVICE_BLOCK_WORDS,
+           "ring_slots": SERVICE_RING if policy == "U" else 0,
+           "version_bytes": store, "ring_bytes": ring, "init_s": init_s,
+           "commits_asked": spec.duration_s / p["commit_interval_s"],
+           "resolves": calls["_snapshot"], "decode_steps": calls["decode"],
+           "snapshot_ms_mean": 1e3 * spent["_snapshot"]
+           / max(calls["_snapshot"], 1),
+           "verify_ms_mean": 1e3 * spent["_verify"]
+           / max(calls["_verify"], 1),
+           "prefill_resolve_ms_mean": 1e3 * spent["_resolve"]
+           / max(calls["_resolve"], 1),
+           "decode_step_ms_mean": 1e3 * spent["decode"]
+           / max(calls["decode"], 1),
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "launches": launches}
+    emit(out)
+    _service_gates(row, out["trial"])
+    if policy == "U":
+        check(launches["snapshot_select"] >= SERVICE_BLOCKS * calls[
+            "_snapshot"], f"{out['trial']}: {launches['snapshot_select']} "
+                          f"snapshot_select launches for "
+                          f"{calls['_snapshot']} resolves of "
+                          f"{SERVICE_BLOCKS} blocks")
+    del svc, ex, st
+    free_card(torch)
+    return launches
+
+
+def service_schedule(policy, device):
+    """The reference's hand-driven schedule for ``policy``
+    (``tests/test_serve.py``: a commit between decode steps, driven by
+    hand) on a ``SyntheticTrainer`` store on ``device``: the trace of
+    (pinned clock, aborts, outcome) after each step and the counters."""
+    from repro_torch.serve import (ContinuousBatchingScheduler, Outcome,
+                                   Request, RequestQueue, ServeMetrics,
+                                   StoreExecutor, SyntheticTrainer)
+
+    trainer = SyntheticTrainer(mode="Q" if policy == "Q" else "U",
+                               ring_slots=8, commit_interval_s=3600.0,
+                               device=device)
+    metrics = ServeMetrics()
+    ex = StoreExecutor(lambda: trainer.state, policy=policy, n_slots=1,
+                       work_s=0.0, metrics=metrics)
+    q = RequestQueue()
+    sched = ContinuousBatchingScheduler(q, ex, metrics, max_request_aborts=8)
+    r = Request(1, max_new={"U": 6, "Q": 4, "live": 3}[policy])
+    q.offer(r)
+    trace = []
+
+    def step():
+        sched.step()
+        trace.append((r.pinned_clock, r.aborts, r.outcome.name))
+
+    step()
+    if policy == "Q":
+        trainer.commit_once()
+        step()
+    elif policy == "live":
+        trainer.commit_once()
+    while r.outcome is Outcome.PENDING:
+        if policy == "U":
+            trainer.commit_once()
+        step()
+    return {"trace": trace, "clock": trainer.state.clock,
+            "completed": metrics.completed,
+            "snapshot_aborts": metrics.snapshot_aborts,
+            "violations": metrics.violations,
+            "mixed_version_requests": metrics.mixed_version_requests}
+
+
+def service_schedules(torch):
+    """The three hand-driven schedules (Mode U, Mode Q, ``live``) on the
+    card and on the CPU: the same pinned clocks, aborts, completions and
+    mixed versions; and the reference's outcomes (U: no abort; Q: one
+    abort, then completed at the new clock; live: one mixed request)."""
+    out = {}
+    for policy in ("U", "Q", "live"):
+        card, cpu = (service_schedule(policy, d) for d in (CARD, "cpu"))
+        check(card == cpu, f"service schedule {policy}: card {card} != CPU "
+                           f"{cpu}")
+        check(card["completed"] == 1 and card["violations"] == 0,
+              f"service schedule {policy}: {card}")
+        want = {"U": (0, 0), "Q": (1, 0), "live": (0, 1)}[policy]
+        check((card["snapshot_aborts"], card["mixed_version_requests"])
+              == want, f"service schedule {policy}: {card}")
+        out[policy] = card
+    emit({"service_schedules_card_equals_cpu": True, "schedules": out})
+
+
+def serving_phase(torch):
+    """Phase 8: the hand-driven schedules card against CPU, the
+    ``serving`` eval, and the service over the at-scale store in Mode U
+    and Mode Q.  Returns the launch counts."""
+    t0 = time.perf_counter()
+    totals = defaultdict(int)
+    service_schedules(torch)
+    for launches in (serving_eval(torch),
+                     service_trial(torch, "multiverse"),
+                     service_trial(torch, "modeq")):
+        for k, v in launches.items():
+            totals[k] += v
+    emit({"serving_phase_seconds": time.perf_counter() - t0})
+    return totals
+
+
 #: phase 4's rows by trial name (phase 7 compares its durable trials'
 #: rates with the in-memory ones of the same run)
 PHASE4_ROWS = {}
@@ -5350,10 +5733,11 @@ PHASE4_ROWS = {}
 def main_path(torch):
     from repro_torch import kernels as K
 
-    # 3 s windows after 0.5 s of warm-up (6 s after 1 s before the eval
-    # and structure phase joined the run; the eval drives the same
-    # traffic on every backend again)
-    win = dict(duration_s=3.0, warmup_s=0.5)
+    # 2 s windows after 0.5 s of warm-up (3 s before the serving phase
+    # and the Mamba trainer joined the run, 6 s after 1 s before the eval
+    # and structure phase did; the eval drives the same traffic on every
+    # backend again)
+    win = dict(duration_s=2.0, warmup_s=0.5)
     trials = [
         lambda: longread_trial(torch, "longread_scan4096", 4096, 12, **win),
         # one scan of 1M words under two updaters took 25-76 s on the
@@ -5413,8 +5797,8 @@ def main_path(torch):
 
 
 def idle_shares(torch):
-    """The card's idle share in four trials and the two model servers,
-    each run again for a 3 s window under a ``torch.profiler`` trace of
+    """The card's idle share in four trials (2 s windows) and the two
+    model servers (3 s), each run again under a ``torch.profiler`` trace of
     its GPU activity (kernels, copies, memsets): idle share = 1 - busy
     time / window.  Kept apart
     from the main path, whose numbers stay untraced; its launches are not
@@ -5423,14 +5807,16 @@ def idle_shares(torch):
 
     from repro_torch import kernels as K
 
+    # 2 s windows after 0.5 s (3 s after 1 s before the serving phase
+    # and the Mamba trainer joined the run)
     traced = {
         "longread_scan4096": lambda p: longread_trial(
-            torch, "longread_scan4096", 4096, 12, 3.0, 1.0, probe=p),
+            torch, "longread_scan4096", 4096, 12, 2.0, 0.5, probe=p),
         "rwmix_w1024": lambda p: rwmix_trial(
-            torch, "rwmix_w1024", 1024, 3.0, 1.0, probe=p),
+            torch, "rwmix_w1024", 1024, 2.0, 0.5, probe=p),
         "group_tl2_1M": lambda p: group_trial(
-            torch, "group_tl2_1M", "tl2", 3.0, 1.0, probe=p),
-        "mvstore_1M": lambda p: mvstore_trial(torch, "mvstore_1M", 3.0, 1.0,
+            torch, "group_tl2_1M", "tl2", 2.0, 0.5, probe=p),
+        "mvstore_1M": lambda p: mvstore_trial(torch, "mvstore_1M", 2.0, 0.5,
                                               probe=p),
     }
     for name, trial in traced.items():
@@ -5505,6 +5891,7 @@ def main() -> int:
     model_check(torch, dev)
     model_check(torch, dev, arch=MAMBA, prompt=(2, 512))
     train_check(torch, dev)
+    train_check(torch, dev, arch=MAMBA)
     launches = main_path(torch)
     served, toks = serving_trial(torch, launches)
     snapshot_checks(torch, launches, toks)
@@ -5513,6 +5900,7 @@ def main() -> int:
     snapshot_checks(torch, launches, toks, arch=MAMBA, modes=("U",))
     free_card(torch)
     train_trial(torch, launches)
+    train_trial(torch, launches, arch=MAMBA)
     supervisor_drill(torch)
     t0 = time.perf_counter()
     for part in (eval_phase(torch), structures_phase(torch)):
@@ -5522,6 +5910,8 @@ def main() -> int:
     for k, v in shard_phase(torch).items():
         launches[k] += v
     for k, v in reliability_phase(torch).items():
+        launches[k] += v
+    for k, v in serving_phase(torch).items():
         launches[k] += v
     for k in KERNELS:
         check(launches[k] > 0, f"kernel {k} was never launched on the main "

@@ -105,6 +105,12 @@ def _is_versioned(path: str, versioned: VersionedSet) -> bool:
     return path in versioned
 
 
+def resolve_versioned(params, versioned: VersionedSet) -> FrozenSet[str]:
+    """The paths of ``params``' blocks that ``versioned`` names."""
+    return frozenset(p for p in block_paths(params)
+                     if _is_versioned(p, versioned))
+
+
 def _seed_ring(leaf: torch.Tensor, slots: int, ts0: int):
     """A fresh ring holding ``leaf`` in slot 0 at ``ts0``."""
     buf = torch.zeros((slots,) + tuple(leaf.shape), dtype=leaf.dtype,
@@ -316,6 +322,10 @@ def unversion_blocks(state: MVStoreState, paths) -> MVStoreState:
     ring = {k: v for k, v in state.ring.items() if k not in paths}
     ring_ts = {k: v for k, v in state.ring_ts.items() if k not in paths}
     return state._replace(ring=ring, ring_ts=ring_ts)
+
+
+def versioned_paths(state: MVStoreState) -> FrozenSet[str]:
+    return frozenset(state.ring)
 
 
 def ring_bytes(state: MVStoreState) -> int:

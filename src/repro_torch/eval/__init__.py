@@ -12,8 +12,7 @@ frontier-at-a-time traversal as the measurement surface:
     rows, path = run_eval("longread", seed=3)
 
 Workload families live in ``workloads.py`` (longread / rwmix /
-shardscale / structrq / reliability / durability; the JAX package's
-serving raises "not ported yet"), the thread/warmup machinery in
+shardscale / structrq / serving / reliability / durability), the thread/warmup machinery in
 ``driver.py``, and the normalized ``{meta, rows}`` results schema in
 ``results.py``.
 """
@@ -23,6 +22,7 @@ from repro_torch.eval.driver import (  # noqa: F401
     reliability_headline,
     run_eval,
     rwmix_headline,
+    serving_headline,
     shardscale_headline,
     structrq_headline,
     time_trial,
@@ -30,15 +30,14 @@ from repro_torch.eval.driver import (  # noqa: F401
 from repro_torch.eval.results import save_results  # noqa: F401
 from repro_torch.eval.workloads import (  # noqa: F401
     DEFAULT_BACKENDS,
-    NOT_PORTED,
     UNVERSIONED,
     WORKLOADS,
     TrialSpec,
 )
 
 __all__ = [
-    "DEFAULT_BACKENDS", "NOT_PORTED", "TrialSpec", "UNVERSIONED",
-    "WORKLOADS", "durability_headline", "longread_headline",
-    "reliability_headline", "run_eval", "rwmix_headline", "save_results",
+    "DEFAULT_BACKENDS", "TrialSpec", "UNVERSIONED", "WORKLOADS",
+    "durability_headline", "longread_headline", "reliability_headline",
+    "run_eval", "rwmix_headline", "save_results", "serving_headline",
     "shardscale_headline", "structrq_headline", "time_trial",
 ]

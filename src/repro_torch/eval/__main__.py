@@ -6,6 +6,7 @@
     python -m repro_torch.eval --workload shardscale --shards 1 2 4
     python -m repro_torch.eval --workload reliability [--durable]
     python -m repro_torch.eval --workload durability --quick --device cpu
+    python -m repro_torch.eval --workload serving --quick --device cpu
     python -m repro_torch.eval --list                       # what exists
 
 Writes ``results/eval_<workload>.json`` and prints one table line per
@@ -21,8 +22,8 @@ import sys
 
 from repro_torch.eval.driver import durability_headline, \
     longread_headline, reliability_headline, run_eval, rwmix_headline, \
-    shardscale_headline, structrq_headline
-from repro_torch.eval.workloads import NOT_PORTED, WORKLOADS
+    serving_headline, shardscale_headline, structrq_headline
+from repro_torch.eval.workloads import WORKLOADS
 
 
 def _fmt_row(row: dict) -> str:
@@ -56,6 +57,11 @@ def _fmt_row(row: dict) -> str:
                  f"failed={row['failed_updates']:4d} "
                  f"checks/s={row['checks_per_sec']:7.1f} "
                  f"violations={row['violations']:3d}")
+    elif "p99_ms" in row:
+        extra = (f"qps={row['qps']:6.1f}/{row['target_qps']:<4.0f}"
+                 f"p50={row['p50_ms']:6.1f}ms p99={row['p99_ms']:7.1f}ms "
+                 f"shed={row['shed']:3d} failed={row['failed_aborts']:3d} "
+                 f"aborts={row['snapshot_aborts']:4d}")
     mode = row["stm_stats"].get("mode", "-")
     return (f"{row['workload']}/{row['variant']:<9s} "
             f"{row['backend']:<10s} {extra} mode={mode}")
@@ -66,7 +72,7 @@ def main(argv=None) -> int:
         prog="python -m repro_torch.eval",
         description="paper-figure evaluation: workloads x backends")
     ap.add_argument("--workload", default="longread",
-                    choices=sorted(set(WORKLOADS) | set(NOT_PORTED)))
+                    choices=sorted(WORKLOADS))
     ap.add_argument("--backends", nargs="*", default=None,
                     help="registered backend names "
                          "(default: the workload's full set)")
@@ -94,8 +100,6 @@ def main(argv=None) -> int:
             variants = ", ".join(s.variant for s in w.variants())
             print(f"{name:<10s} metric={w.metric:<14s} "
                   f"variants: {variants}")
-        for name, where in sorted(NOT_PORTED.items()):
-            print(f"{name:<10s} not ported yet ({where})")
         return 0
 
     if args.shards:
@@ -142,6 +146,23 @@ def main(argv=None) -> int:
                   f"{h['ratio_2_shards']:.2f}x ({verdict}) "
                   f"parity@1shard={parity} "
                   f"violations={h['violations']}")
+    if args.workload == "serving":
+        h = serving_headline(rows)
+        if h:
+            verdict = ("SUSTAINS target QPS" if h["multiverse_sustains"]
+                       else "does NOT sustain target QPS")
+            print(f"\nheadline @ qps{h['target_qps']:.0f}: multiverse="
+                  f"{h['multiverse_qps']:.1f} qps "
+                  f"p99={h['multiverse_p99_ms']:.1f}ms {verdict} "
+                  f"(violations={h['violations']})")
+            for b, d in sorted(h["baselines"].items()):
+                tag = "DEGRADED" if d["degraded"] else "not degraded"
+                print(f"  vs {b:<12s} p99={d['p99_ms']:8.1f}ms "
+                      f"({d['p99_ratio']:.2f}x) shed={d['shed']} "
+                      f"failed={d['failed_aborts']} "
+                      f"aborts={d['snapshot_aborts']} "
+                      f"mixed-versions={d['mixed_version_requests']} "
+                      f"-> {tag}")
     if args.workload == "reliability":
         h = reliability_headline(rows)
         for backend, d in sorted(h.items()):

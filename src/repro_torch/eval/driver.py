@@ -28,7 +28,6 @@ from repro_torch.core.engine import resolve_device
 from repro_torch.eval.results import save_results
 from repro_torch.eval.workloads import (
     DEFAULT_BACKENDS,
-    NOT_PORTED,
     UNVERSIONED,
     WORKLOADS,
     TrialSpec,
@@ -36,7 +35,8 @@ from repro_torch.eval.workloads import (
 
 __all__ = ["run_eval", "time_trial", "longread_headline",
            "rwmix_headline", "shardscale_headline", "structrq_headline",
-           "reliability_headline", "durability_headline"]
+           "serving_headline", "reliability_headline",
+           "durability_headline"]
 
 
 def time_trial(workers: Sequence[Callable], spec: TrialSpec,
@@ -90,10 +90,6 @@ def run_eval(workload: str, backends: Optional[Sequence[str]] = None,
     before any trial without one; ``device="cpu"`` runs every kernel's
     plain version on the CPU.
     """
-    if workload in NOT_PORTED:
-        raise NotImplementedError(
-            f"workload {workload!r} is not ported yet "
-            f"({NOT_PORTED[workload]})")
     try:
         w = WORKLOADS[workload]
     except KeyError:
@@ -209,6 +205,62 @@ def shardscale_headline(rows: List[Dict]) -> Dict:
         "violations": violations,
         "holds": bool(ratio >= 1.6 and at[1].get("parity_ok")
                       and violations == 0),
+    }
+
+
+def serving_headline(rows: List[Dict]) -> Dict:
+    """The SERVING claim, extracted from serving rows.
+
+    At the HIGHEST target QPS: does multiverse (Mode-U ring) sustain
+    the offered load — >=95% of offered requests completed, nothing
+    shed, zero torn reads — while at least one baseline policy shows
+    measurably degraded latency (p99 or p50 inflated vs multiverse)
+    or abort-driven shedding (requests failed after repeated Mode-Q
+    snapshot aborts, or shed by admission control because aborts ate
+    the slot throughput)?  NaN percentiles (a baseline that starved
+    outright, completing nothing) count as degraded via its
+    failed/shed counters, never as a pass.
+    """
+    targets = {r["target_qps"] for r in rows if "target_qps" in r}
+    if not targets:
+        return {}
+    top = max(targets)
+    at = {r["backend"]: r for r in rows if r.get("target_qps") == top}
+    mv = at.get("multiverse")
+    if mv is None:
+        return {}
+    offered = max(mv.get("offered", 0), 1)
+    sustained = (mv["completed"] >= 0.95 * offered
+                 and mv["shed"] == 0 and mv["failed_aborts"] == 0
+                 and mv["violations"] == 0)
+    baselines: Dict[str, Dict] = {}
+    for b, r in at.items():
+        if b == "multiverse":
+            continue
+        p99_ratio = (r["p99_ms"] / mv["p99_ms"]
+                     if mv["p99_ms"] > 0 else float("nan"))
+        p50_ratio = (r["p50_ms"] / mv["p50_ms"]
+                     if mv["p50_ms"] > 0 else float("nan"))
+        degraded = bool(p99_ratio >= 1.25 or p50_ratio >= 1.2
+                        or r["failed_aborts"] > 0 or r["shed"] > 0)
+        baselines[b] = {
+            "qps": r["qps"], "p50_ms": r["p50_ms"],
+            "p99_ms": r["p99_ms"], "p99_ratio": p99_ratio,
+            "snapshot_aborts": r["snapshot_aborts"],
+            "failed_aborts": r["failed_aborts"], "shed": r["shed"],
+            "mixed_version_requests": r["mixed_version_requests"],
+            "degraded": degraded,
+        }
+    return {
+        "target_qps": top,
+        "multiverse_qps": mv["qps"],
+        "multiverse_p50_ms": mv["p50_ms"],
+        "multiverse_p99_ms": mv["p99_ms"],
+        "multiverse_sustains": sustained,
+        "violations": mv["violations"],
+        "baselines": baselines,
+        "baseline_degraded": any(d["degraded"]
+                                 for d in baselines.values()),
     }
 
 

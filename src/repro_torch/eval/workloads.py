@@ -1,6 +1,6 @@
 """Workload generators for the paper's long-running-read experiments.
 
-Six families, all runnable on any registered backend through one driver
+Seven families, all runnable on any registered backend through one driver
 (``repro_torch.eval.driver``), with the heap, lock words and store blocks
 on the card unless the caller names another device:
 
@@ -21,6 +21,16 @@ on the card unless the caller names another device:
     a violation and fails the CLI).  The headline asks whether
     Multiverse's update throughput stays within 2x of the best
     unversioned baseline.
+  * ``serving``   — the SERVING headline (the paper's production
+    scenario): the ``repro_torch.serve`` subsystem answers open-loop
+    request traffic from MVStore parameter snapshots while a trainer
+    thread commits every few milliseconds.  "Backends" here are serving
+    policies over the same store — ``multiverse`` (Mode-U ring,
+    per-request pinned clocks), ``modeq`` (Mode-Q validation: a commit
+    since pin aborts the request, which restarts at a fresh clock) and
+    ``unversioned`` (always read live, never abort — requests silently
+    mix parameter versions).  Rows carry qps + p50/p95/p99 latency +
+    shed/abort counts from the serving telemetry.
   * ``structrq``  — data-structure long reads over ``repro_torch.structs``
     (hashmap / extbst / abtree): reader threads run whole-structure
     range queries (size queries on the hashmap) while a dedicated
@@ -46,8 +56,6 @@ on the card unless the caller names another device:
     log (solo and group commit), each durable trial ending in a restart
     drill that replays the log into a fresh engine.
 
-The JAX package's ``serving`` workload waits for the serving service;
-``NOT_PORTED`` names the ROADMAP.md item that ports it.
 
 Workload objects expose ``variants(quick)`` -> [TrialSpec] and
 ``run_trial(backend, spec, seed, device=None)`` -> row dict; the driver
@@ -73,12 +81,6 @@ DEFAULT_BACKENDS = ("multiverse", "tl2", "dctl", "norec", "tinystm",
                     "mvstore")
 #: unversioned baselines (the "every baseline starves" side of the claim)
 UNVERSIONED = ("tl2", "dctl", "norec", "tinystm")
-
-#: the JAX package's workloads this port does not run yet, with the
-#: ROADMAP.md item that ports each
-NOT_PORTED = {
-    "serving": "ROADMAP.md Queue 1 item 3, the serving service",
-}
 
 INITIAL = 100          # per-word prefill: transfers preserve region sums
 AMOUNT = 5
@@ -648,6 +650,84 @@ class StructRQWorkload:
 
 
 # ---------------------------------------------------------------------------
+# serving: open-loop request traffic from snapshots under live commits
+# ---------------------------------------------------------------------------
+
+
+class ServingWorkload:
+    """Continuous-batching service vs serving-policy baselines.
+
+    Each trial runs ``repro_torch.serve.SnapshotService.synthetic`` — a
+    committing trainer thread + the slot scheduler answering open-loop
+    traffic — under one serving policy, with the store on the trial's
+    device.  The trial's knobs pin the starvation geometry: the commit
+    interval sits just above the request span, so Mode-Q requests
+    usually meet a commit mid-flight and pay the abort/restart tax while
+    Mode-U requests ride the ring.  The service owns its loop, so
+    ``run_trial`` does not go through ``time_trial``.
+    """
+
+    name = "serving"
+    metric = "p99_ms"
+    default_backends = ("multiverse", "modeq", "unversioned")
+    POLICY = {"multiverse": "U", "modeq": "Q", "unversioned": "live"}
+
+    def variants(self, quick: bool = False) -> List[TrialSpec]:
+        # commit interval ABOVE the ~20ms request span = the one-abort
+        # latency-tax regime; BELOW it = the starvation regime where
+        # Mode-Q requests abort until admission fails them (see
+        # serve/service.py).  The headline reads the HIGHEST-qps point,
+        # so quick and full both end on the starvation geometry
+        if quick:
+            points = ((50.0, 1.2, 0.012),)
+        else:
+            points = ((60.0, 2.5, 0.028), (120.0, 2.5, 0.012))
+        return [TrialSpec(
+            workload=self.name, variant=f"qps{int(qps)}", n_readers=4,
+            n_updaters=1, duration_s=dur, warmup_s=0.0,
+            params=dict(target_qps=qps, n_slots=4, max_new=12,
+                        work_s=0.0015, commit_interval_s=ci,
+                        queue_depth=64, wait_budget_s=0.5,
+                        max_request_aborts=8),
+        ) for qps, dur, ci in points]
+
+    def config(self, backend: str, spec: TrialSpec, seed: int,
+               **overrides):
+        """The ``ServiceConfig`` of ``backend``'s trial at ``spec``;
+        ``overrides`` set further fields (the store's size, its ring)."""
+        from repro_torch.serve import ServiceConfig
+        try:
+            policy = self.POLICY[backend]
+        except KeyError:
+            raise ValueError(
+                f"serving backend must be one of "
+                f"{sorted(self.POLICY)}, got {backend!r}") from None
+        p = spec.params
+        return ServiceConfig(
+            mode=policy, n_slots=p["n_slots"], max_new=p["max_new"],
+            queue_depth=p["queue_depth"],
+            wait_budget_s=p["wait_budget_s"],
+            max_request_aborts=p["max_request_aborts"],
+            target_qps=p["target_qps"], duration_s=spec.duration_s,
+            commit_interval_s=p["commit_interval_s"],
+            work_s=p["work_s"], seed=seed, **overrides)
+
+    def run_trial(self, backend: str, spec: TrialSpec, seed: int,
+                  device=None) -> Dict:
+        from repro_torch.serve import SnapshotService
+        svc = SnapshotService.synthetic(self.config(backend, spec, seed),
+                                        device=device)
+        row = svc.run_open_loop()
+        row["stm_stats"]["backend"] = backend
+        row.update({
+            "workload": self.name, "backend": backend, "tm": backend,
+            "variant": spec.variant, "seed": seed,
+            "mode_transitions": 0,
+        })
+        return row
+
+
+# ---------------------------------------------------------------------------
 # reliability: rwmix under a seeded kill schedule + crash recovery
 # ---------------------------------------------------------------------------
 
@@ -750,17 +830,28 @@ class ReliabilityWorkload:
                 except FP.SimulatedCrash:
                     # worker dies mid-publish: recover its slot, plan the
                     # degraded + re-admitted fleet, rejoin at the same tid
-                    c["kills"] += 1
-                    rep = recover_engine(tm, [tid], wal=eng.wal
-                                         if wal_dir else None)
-                    c["rolled_forward"] += len(rep.rolled_forward)
-                    c["rolled_back"] += len(rep.rolled_back)
-                    rescale_plan(n_devices=max(1, n_upd - 1),
-                                 model_parallel=1, global_batch=n_blocks,
-                                 old_microbatches=1)
-                    rescale_plan(n_devices=n_upd, model_parallel=1,
-                                 global_batch=n_blocks, old_microbatches=1)
-                    c["recoveries"] += 1
+                    try:
+                        rep = recover_engine(tm, [tid], wal=eng.wal
+                                             if wal_dir else None)
+                        rescale_plan(n_devices=max(1, n_upd - 1),
+                                     model_parallel=1,
+                                     global_batch=n_blocks,
+                                     old_microbatches=1)
+                        rescale_plan(n_devices=n_upd, model_parallel=1,
+                                     global_batch=n_blocks,
+                                     old_microbatches=1)
+                    except BaseException:
+                        c["kills"] += 1        # a kill left unrecovered
+                        raise
+                    # the kill and its recovery in ONE dict update, so
+                    # ``time_trial``'s warm-up snapshot (``dict(c)``, on
+                    # another thread) never falls between them
+                    c.update(kills=c["kills"] + 1,
+                             recoveries=c["recoveries"] + 1,
+                             rolled_forward=c["rolled_forward"]
+                             + len(rep.rolled_forward),
+                             rolled_back=c["rolled_back"]
+                             + len(rep.rolled_back))
 
         def checker(tid, stop, c):
             r = random.Random(seed * 10007 + 900 + tid)
@@ -1015,5 +1106,6 @@ class DurabilityWorkload:
 
 WORKLOADS = {w.name: w for w in (LongReadWorkload(), RWMixWorkload(),
                                  ShardScaleWorkload(), StructRQWorkload(),
+                                 ServingWorkload(),
                                  ReliabilityWorkload(),
                                  DurabilityWorkload())}

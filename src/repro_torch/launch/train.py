@@ -34,7 +34,6 @@ from repro_torch.core import mvcontroller, mvstore
 from repro_torch.core.engine import resolve_device
 from repro_torch.data.pipeline import make_batch_iterator
 from repro_torch.launch import steps as steps_mod
-from repro_torch.models import mamba, transformer
 from repro_torch.models import model_zoo as zoo
 from repro_torch.optim import adamw
 from repro_torch.runtime.fault_tolerance import FaultPlan, TrainSupervisor
@@ -45,18 +44,13 @@ class Trainer:
     card unless the caller names another; no card raises).  ``params``
     (a numpy tree, e.g. the JAX package's parameters through
     ``np.asarray`` per leaf) replaces the random initialisation from
-    ``seed``.  On the card a config with Mamba layers raises
-    ``NotImplementedError``: the ``ssd_scan`` kernel has no backward
-    yet."""
+    ``seed``."""
 
     def __init__(self, cfg, shape, *, pcfg=None, mvcfg=None, opt_cfg=None,
                  seed: int = 0, controller=None, params=None, device=None):
         self.cfg = cfg
         self.shape = shape
         self.device = resolve_device(device)
-        if self.device.type == "cuda" and any(
-                m == "mamba" for m, _ in transformer.layer_kinds(cfg)):
-            raise NotImplementedError(mamba.TRAIN_ON_CARD)
         self.pcfg = pcfg or ParallelConfig(
             attn_block_q=min(1024, shape.seq_len),
             attn_block_k=min(1024, shape.seq_len))

@@ -9,9 +9,10 @@ The rounding points are the reference's: the conv and silu in f32 cast
 to the model dtype, ``dt`` in f32, ``y`` out of the scan in xh's dtype
 with the D skip added in that dtype, then the gate and the norm.
 
-The scan kernel has no backward yet: a forward that autograd would
-record on the card raises ``NotImplementedError`` here (the CPU route
-differentiates through the plain version).
+Training goes through ``SSDScanFn``: its forward is the kernel wrapper
+(the plain version on the CPU), its backward the gradient of the plain
+chunked scan, recomputed in torch (the reference differentiates its XLA
+lowering; there is no backward kernel).
 """
 from __future__ import annotations
 
@@ -24,9 +25,6 @@ from repro_torch.configs.base import MambaConfig
 from repro_torch.kernels import ssd_scan as SS
 from repro_torch.launch.sharding import ParamMeta, torch_dtype
 from repro_torch.models.common import rmsnorm, rmsnorm_meta
-
-TRAIN_ON_CARD = "training the Mamba family on the card is not ported yet"
-
 
 class SSMDims(NamedTuple):
     d_inner: int
@@ -83,18 +81,53 @@ def _causal_conv(x, w, state: Optional[torch.Tensor] = None):
     return y.to(x.dtype)
 
 
+class SSDScanFn(torch.autograd.Function):
+    """``ssd_scan`` with a gradient: the kernel wrapper forward (grad mode
+    is off inside ``forward``), and a backward that recomputes the plain
+    chunked scan (``ssd_scan_plain``) on detached inputs under grad mode
+    and differentiates it.  The recompute's decay square [B, nc, H, Q, Q]
+    f32 lives only inside one layer's backward."""
+
+    @staticmethod
+    def forward(ctx, xh, dt, A, B_, C_, init_state, chunk: int,
+                want_state: bool):
+        y, final = SS.ssd_scan(xh, dt, A, B_, C_, chunk=chunk,
+                               init_state=init_state, want_state=want_state)
+        ctx.save_for_backward(xh, dt, A, B_, C_, init_state)
+        ctx.chunk = chunk
+        return y, final
+
+    @staticmethod
+    def backward(ctx, dy, dfinal):
+        saved = ctx.saved_tensors
+        need = ctx.needs_input_grad[:6]
+        ins = [None if t is None else t.detach().requires_grad_(n)
+               for t, n in zip(saved, need)]
+        with torch.enable_grad():
+            outs = SS.ssd_scan_plain(*ins[:5], chunk=ctx.chunk,
+                                     init_state=ins[5])
+        pairs = [(o, g) for o, g in zip(outs, (dy, dfinal))
+                 if g is not None]
+        wrt = [t for t, n in zip(ins, need) if n]
+        grads = iter(torch.autograd.grad(
+            [o for o, _ in pairs], wrt, [g for _, g in pairs],
+            allow_unused=True))
+        return (*(next(grads) if n else None for n in need), None, None)
+
+
 def ssd_chunk_scan(xh, dt, A, B_, C_, *, chunk: int, init_state=None,
                    want_state: bool = True):
     """Chunked SSD scan.  xh: [B, S, H, P]; dt: [B, S, H] (post-softplus);
     A: [H] (negative); B_, C_: [B, S, N].  Returns (y [B, S, H, P],
     final_state [B, H, N, P] or None unless ``want_state``).  A CUDA
-    tensor runs the ``ssd_scan`` kernel, a CPU tensor its plain version.
+    tensor runs the ``ssd_scan`` kernel, a CPU tensor its plain version;
+    when autograd records (grad mode on, an input requires grad) the
+    call goes through ``SSDScanFn``.
     """
     ins = (xh, dt, A, B_, C_, init_state)
-    if xh.device.type == "cuda" and torch.is_grad_enabled() and any(
+    if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in ins):
-        raise NotImplementedError(
-            f"{TRAIN_ON_CARD}: the ssd_scan kernel has no backward")
+        return SSDScanFn.apply(*ins, chunk, want_state)
     return SS.ssd_scan(xh, dt, A, B_, C_, chunk=chunk, init_state=init_state,
                        want_state=want_state)
 

@@ -1,8 +1,8 @@
 """The port's eval subsystem (``repro_torch.eval``) against the JAX
 package's (``repro.eval``), on the CPU.
 
-* The registry holds the six ported workloads, with the reference's
-  variants; ``serving`` raises "not ported yet".
+* The registry holds every workload of the reference, with its
+  variants (``serving`` with its policy map).
 * One short trial of each workload through both packages gives rows with
   the same keys (and the same ``stm_stats`` keys).
 * The headline functions give equal output on the same fixed rows.
@@ -13,7 +13,7 @@ package's (``repro.eval``), on the CPU.
 * ``reliability`` and ``durability``: a quick CPU row of each carries
   the reference row's keys, with kills recovered and the log replayed.
 * ``python -m repro_torch.eval --quick --device cpu`` exits 0 on all
-  six workloads; the results file keeps the reference's schema.
+  seven workloads; the results file keeps the reference's schema.
 """
 import dataclasses
 import json
@@ -32,9 +32,10 @@ def _short(spec, **params):
 
 def test_workload_registry_names():
     assert set(TE.WORKLOADS) == {"longread", "rwmix", "shardscale",
-                                 "structrq", "reliability", "durability"}
-    assert set(TE.NOT_PORTED) == {"serving"}
-    assert set(TE.WORKLOADS) | set(TE.NOT_PORTED) == set(JE.WORKLOADS)
+                                 "structrq", "serving", "reliability",
+                                 "durability"}
+    assert set(TE.WORKLOADS) == set(JE.WORKLOADS)
+    assert TE.WORKLOADS["serving"].POLICY == JE.WORKLOADS["serving"].POLICY
     assert TE.DEFAULT_BACKENDS == JE.DEFAULT_BACKENDS
     assert TE.UNVERSIONED == JE.UNVERSIONED
     for name, w in TE.WORKLOADS.items():
@@ -48,15 +49,6 @@ def test_workload_registry_names():
                 for s in ref.variants(quick)]
 
 
-@pytest.mark.parametrize("name", sorted(JE.WORKLOADS.keys()
-                                        - {"longread", "rwmix",
-                                           "shardscale", "structrq",
-                                           "reliability", "durability"}))
-def test_unported_workload_says_so(name):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        TE.run_eval(name, device="cpu", save=False)
-
-
 def test_unknown_workload():
     with pytest.raises(ValueError, match="unknown workload"):
         TE.run_eval("nope", device="cpu", save=False)
@@ -65,7 +57,8 @@ def test_unknown_workload():
 @pytest.mark.parametrize("workload,backend", [("longread", "mvstore"),
                                               ("rwmix", "tl2"),
                                               ("shardscale", "shardstore"),
-                                              ("structrq", "multiverse")])
+                                              ("structrq", "multiverse"),
+                                              ("serving", "modeq")])
 def test_rows_carry_the_reference_keys(workload, backend):
     jw, tw = JE.WORKLOADS[workload], TE.WORKLOADS[workload]
     extra = {"prefill": 60, "key_range": 240, "ref_window_s": 0.05} \
@@ -223,12 +216,30 @@ def _durability_rows():
     return rows
 
 
+def _serving_rows():
+    base = {"offered": 100, "shed": 0, "failed_aborts": 0, "violations": 0,
+            "snapshot_aborts": 0, "mixed_version_requests": 0}
+    return [
+        dict(base, backend="multiverse", target_qps=60.0, qps=58.0,
+             completed=100, p50_ms=21.0, p99_ms=30.0),
+        dict(base, backend="multiverse", target_qps=120.0, qps=110.0,
+             completed=97, p50_ms=22.0, p99_ms=31.0),
+        dict(base, backend="modeq", target_qps=120.0, qps=20.0,
+             completed=20, p50_ms=60.0, p99_ms=200.0, failed_aborts=70,
+             shed=10, snapshot_aborts=560),
+        dict(base, backend="unversioned", target_qps=120.0, qps=111.0,
+             completed=100, p50_ms=20.0, p99_ms=29.0,
+             mixed_version_requests=40),
+    ]
+
+
 @pytest.mark.parametrize("name,rows", [("longread", _longread_rows),
                                        ("rwmix", _rwmix_rows),
                                        ("structrq", _structrq_rows),
                                        ("shardscale", _shardscale_rows),
                                        ("reliability", _reliability_rows),
-                                       ("durability", _durability_rows)])
+                                       ("durability", _durability_rows),
+                                       ("serving", _serving_rows)])
 def test_headlines_match_reference(name, rows):
     fn = f"{name}_headline"
     from repro.eval import driver as JD
@@ -316,6 +327,11 @@ def test_cli_no_save_and_list(capsys):
     out = capsys.readouterr().out
     for name in JE.WORKLOADS:
         assert name in out
-    assert "not ported yet" in out
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        main(["--workload", "serving", "--device", "cpu", "--no-save"])
+    assert "not ported yet" not in out
+    assert main(["--workload", "serving", "--quick", "--device", "cpu",
+                 "--no-save"]) == 0
+    out = capsys.readouterr().out
+    assert "headline @ qps50: multiverse=" in out
+    assert "results ->" not in out
+    assert all(f" {b} " in out for b in ("multiverse", "modeq",
+                                         "unversioned"))

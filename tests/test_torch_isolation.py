@@ -156,9 +156,10 @@ def test_the_eval_defaults_to_the_card(entry):
 
 
 def test_unported_backends_say_so():
-    """Every backend of the JAX package is ported: ``shardstore`` builds a
-    ``ShardStoreHandle`` on the CPU when asked and needs the card
-    otherwise; the eval workloads still to port say so."""
+    """Every backend and eval workload of the JAX package is ported:
+    ``shardstore`` builds a ``ShardStoreHandle`` on the CPU when asked
+    and needs the card otherwise; ``serving`` runs on the CPU when
+    asked, without a torn read."""
     from repro_torch.api import make_tm
     from repro_torch.core.shardstore import ShardStoreHandle
 
@@ -171,6 +172,7 @@ def test_unported_backends_say_so():
             make_tm("shardstore", start_bg=False)
     from repro_torch.eval import run_eval
 
-    for workload in ("serving",):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            run_eval(workload, device="cpu", save=False)
+    rows, _ = run_eval("serving", device="cpu", quick=True, save=False)
+    assert [r["backend"] for r in rows] == ["multiverse", "modeq",
+                                            "unversioned"]
+    assert all(r["violations"] == 0 and r["drained"] for r in rows)

@@ -7,8 +7,10 @@ unit ``D`` replaced by seeded values so that every head decays, steps
 and skips differently; they are carried across by ``params_from_numpy``.
 Every other input is made with numpy from a seed.  float32 throughout,
 tolerance 2e-4 (``tests/test_kernels.py``'s model tolerance), greedy
-tokens identical.  The prefill scan is the port's plain ``ssd_scan`` on
-the CPU and the reference's XLA lowering, which its blocks run.
+tokens identical; one trainer step (the scans through ``SSDScanFn``)
+within 1e-4 of the reference trainer's.  The prefill scan is the port's
+plain ``ssd_scan`` on the CPU and the reference's XLA lowering, which its
+blocks run.
 """
 import dataclasses
 
@@ -413,28 +415,87 @@ def test_cli_serves_mamba_on_the_cpu_when_asked(capsys):
     assert "done on cpu: 2 requests x 3 tokens" in capsys.readouterr().out
 
 
-@pytest.mark.cuda
-def test_training_mamba_on_the_card_says_so():
-    """The scan kernel has no backward yet: on the card ``lm_loss`` with
-    parameters that require grad, and the ``Trainer``, raise
-    NotImplementedError instead of training without the gradient."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card (the CUDA ssd_scan kernel)")
+def _state_np(state):
+    """A train state's live blocks and moments as numpy, by path (either
+    package)."""
+    out = {}
+    for key, tree in (("live", state.mv.live), ("mu", state.opt.mu),
+                      ("nu", state.opt.nu)):
+        if isinstance(state.mv.clock, int):
+            out.update({key + p: _np(t) for p, t in T_MV._flatten(tree)})
+        else:
+            out.update({key + jax.tree_util.keystr(p): _np(x) for p, x in
+                        jax.tree_util.tree_flatten_with_path(tree)[0]})
+    return out
+
+
+@pytest.mark.parametrize("mode", ["Q", "U_fused"])
+def test_trainer_step_matches_the_reference(mode):
+    """One ``Trainer(device="cpu")`` step of the Mamba smoke config (its
+    scans through ``SSDScanFn``) against the reference trainer's step
+    from the same weights and batch, float32: loss, live blocks and
+    moments within 1e-4."""
+    from repro.configs import ShapeConfig as JShapeConfig
+    from repro.launch.train import Trainer as JTrainer
     from repro_torch.launch.train import Trainer
 
-    _, tc = _cfgs()
-    tp = ZOO.init_params(tc, torch.Generator(device="cuda").manual_seed(0))
-    leaves = SH.tree_map(lambda t: t.requires_grad_(), tp)
-    batch = {"tokens": torch.zeros((2, 32), dtype=torch.int32,
-                                   device="cuda"),
-             "labels": torch.zeros((2, 32), dtype=torch.int32,
-                                   device="cuda")}
-    msg = "training the Mamba family on the card is not ported yet"
-    with pytest.raises(NotImplementedError, match=msg):
-        ZOO.loss_fn(leaves, batch, tc, ParallelConfig())
-    with pytest.raises(NotImplementedError, match=msg):
-        Trainer(tc, ShapeConfig("s", 32, 2, "train"), device="cuda")
-    with torch.no_grad():                    # inference still runs
-        assert torch.isfinite(ZOO.loss_fn(leaves, batch, tc,
-                                          ParallelConfig()))
+    kw = dict(mode="U", fused_commit=True) if mode == "U_fused" \
+        else dict(mode="Q")
+    jc, tc = _cfgs()
+    jt = JTrainer(jc, JShapeConfig("t", 32, 2, "train"),
+                  mvcfg=JMVStoreConfig(**kw), seed=1)
+    init = jax.tree.map(np.asarray, jt.state.mv.live)
+    jstate, jm = jt.train_step(jt.state, jt.batch_at(0))
+    jt.controller.stop()
+    tt = Trainer(tc, ShapeConfig("t", 32, 2, "train"),
+                 mvcfg=MVStoreConfig(**kw), params=init, device="cpu")
+    tstate, tm = tt.train_step(tt.state, tt.batch_at(0))
+    tt.controller.stop()
+    assert tstate.mv.clock == int(jstate.mv.clock) == 1
+    np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
+                               rtol=1e-4, atol=1e-4)
+    got, want = _state_np(tstate), _state_np(jstate)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-4, atol=1e-4,
+                                   err_msg=k)
 
+
+@pytest.mark.cuda
+def test_training_mamba_on_the_card():
+    """On the card ``lm_loss`` differentiates through ``SSDScanFn`` (the
+    ``ssd_scan`` kernel forward, the plain scan's gradient backward): the
+    gradient equals the CPU's within 1e-4 (float32, TF32 off), and a
+    ``Trainer`` step trains, launching the kernel for each layer's
+    forward and recompute."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (the CUDA ssd_scan kernel)")
+    from repro_torch.kernels import ssd_scan as SS
+    from repro_torch.launch.train import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, tc = _cfgs()
+    tp = ZOO.init_params(tc, torch.Generator().manual_seed(0))
+    batch = {k: torch.from_numpy(np.random.default_rng(1).integers(
+        0, tc.vocab_size, (2, 32)).astype(np.int32))
+        for k in ("tokens", "labels")}
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        leaves = [t.to(dev).requires_grad_()
+                  for _, t in SH.leaves_with_path(tp)]
+        paths = [p for p, _ in SH.leaves_with_path(tp)]
+        view = T_MV._unflatten(tp, dict(zip(paths, leaves)))
+        loss = ZOO.loss_fn(view, {k: v.to(dev) for k, v in batch.items()},
+                           tc, ParallelConfig(remat="block"))
+        grads[dev] = torch.autograd.grad(loss, leaves)
+    for g, w in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-4)
+    tr = Trainer(tc, ShapeConfig("s", 32, 2, "train"),
+                 mvcfg=MVStoreConfig(mode="U", fused_commit=True),
+                 device="cuda")
+    SS.launches.reset()
+    state, metrics = tr.train_step(tr.state, tr.batch_at(0))
+    tr.controller.stop()
+    assert bool(torch.isfinite(metrics["loss"]))
+    assert state.mv.clock == 1
+    assert SS.launches.value == 2 * tc.n_layers

@@ -199,6 +199,36 @@ def test_mode_u_versions_and_ring_overflow():
     assert TM.ring_bytes(st) == 0
 
 
+def test_partial_versioning_mode_q():
+    """Only requested blocks get rings (``versioned_paths`` names them);
+    a snapshot mixes ring reads and validated live reads; in both
+    packages."""
+    cfg = TCfg(ring_slots=2, mode="Q")
+    st = TM.mv_init(_tree(), cfg, versioned="none")
+    paths = [p for p in TM.block_paths(st.live) if "a" in p]
+    assert TM.resolve_versioned(st.live, set(paths)) == frozenset(paths)
+    assert TM.resolve_versioned(st.live, "all") == \
+        frozenset(TM.block_paths(st.live))
+    st = TM.version_blocks(st, set(paths), cfg)
+    assert TM.versioned_paths(st) == frozenset(paths)
+    st = TM.mv_commit(st, _tree(5.0), local_mode="Q", cfg=cfg)
+    # reading at clock 0: 'a' resolves via the ring (old version), but
+    # the unversioned 'b' fails validation -> the reader aborts
+    _, ok = TM.mv_snapshot(st, read_clock=0)
+    assert not bool(ok)
+    view, ok = TM.mv_snapshot(st, read_clock=1)
+    assert bool(ok) and bool((view["a"] == 5.0).all())
+
+    jcfg = JCfg(ring_slots=2, mode="Q")
+    js = JM.mv_init(_to_j({"a": np.ones((4, 4), np.float32),
+                           "b": {"w": np.full(8, 2.0, np.float32)}}),
+                    jcfg, versioned="none")
+    assert JM.block_paths(js.live) == TM.block_paths(_tree())
+    assert JM.resolve_versioned(js.live, set(paths)) == frozenset(paths)
+    js = JM.version_blocks(js, set(paths), jcfg)
+    assert JM.versioned_paths(js) == TM.versioned_paths(st)
+
+
 def test_controller_full_mode_cycle():
     """The reference's synchronous walk Q -> QtoU -> U -> UtoQ -> Q."""
     params = TParams(k1=1, k2=1, k3=1, s=1)

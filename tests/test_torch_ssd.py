@@ -8,7 +8,12 @@ reference's sweep, 2e-3 at float32 and 5e-2 at bfloat16 (its own
 tolerances); the final state and a scan from a non-zero ``init_state``
 against ``repro.models.mamba.ssd_chunk_scan`` (the XLA route the model
 runs) and ``ref.ssd_scan_ref`` (the step-by-step recurrence), 2e-3.
+The gradients through ``models.mamba.SSDScanFn`` (the scan's
+``torch.autograd.Function``: the wrapper forward, the plain scan's
+gradient recomputed backward) against ``jax.grad`` of the XLA route, at
+decays under which the reference's whole-square ``exp`` stays finite.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -143,6 +148,92 @@ def test_steep_decay_stays_finite_forward_and_backward():
     _close(y, oracle_y, 2e-3)
     _close(state, oracle_s, 2e-3)
     grads = torch.autograd.grad((y.sum() + state.sum()), [xh, dt, A, b, c])
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+
+
+#: gradient cases: (B, S, H, P, N, chunk); the last is the short tile
+#: (Q = 200, three full 64-row tiles and a short one)
+GRAD_SHAPES = SWEEP + [(1, 400, 2, 8, 4, 200)]
+
+
+def _grad_inputs(shape, init, seed=3):
+    """Seeded float32 inputs at a mild decay (dt scaled by 0.3: cum_i -
+    cum_j stays well below exp's overflow over a whole chunk), an
+    init_state when ``init``, and seeded cotangents for y and the final
+    state."""
+    B, S, H, P, N, _ = shape
+    arrs = list(_inputs(B, S, H, P, N, seed=seed, dt_scale=0.3))
+    rng = np.random.default_rng(seed + 100)
+    arrs.append(rng.standard_normal((B, H, N, P)).astype(np.float32)
+                if init else None)
+    dy = rng.standard_normal((B, S, H, P)).astype(np.float32)
+    ds = rng.standard_normal((B, H, N, P)).astype(np.float32)
+    return arrs, dy, ds
+
+
+@pytest.mark.parametrize("init", [False, True], ids=["zero", "init_state"])
+@pytest.mark.parametrize("B,S,H,P,N,chunk", GRAD_SHAPES)
+def test_ssd_fn_grads_match_jax_grad(B, S, H, P, N, chunk, init):
+    """<dy, y> + <ds, final state> differentiated with respect to every
+    input: the port through ``ssd_chunk_scan`` -> ``SSDScanFn``, the
+    reference by ``jax.grad`` of its XLA ``ssd_chunk_scan``; 2e-3."""
+    shape = (B, S, H, P, N, chunk)
+    arrs, dy, ds = _grad_inputs(shape, init)
+    n = 6 if init else 5
+
+    def jloss(*xs):
+        y, st = J_MAMBA.ssd_chunk_scan(*xs[:5], chunk=chunk,
+                                       init_state=xs[5] if init else None)
+        return jnp.sum(y * dy) + jnp.sum(st * ds)
+
+    want = jax.grad(jloss, argnums=tuple(range(n)))(
+        *[jnp.asarray(a) for a in arrs[:n]])
+    ts = [torch.from_numpy(a).requires_grad_() for a in arrs[:n]]
+    y, st = T_MAMBA.ssd_chunk_scan(*ts[:5], chunk=chunk,
+                                   init_state=ts[5] if init else None)
+    assert type(y.grad_fn).__name__ == "SSDScanFnBackward"
+    loss = (y * torch.from_numpy(dy)).sum() + (st * torch.from_numpy(ds)
+                                               ).sum()
+    got = torch.autograd.grad(loss, ts)
+    for g, w, t in zip(got, want, ts):
+        assert g.dtype == t.dtype and g.shape == t.shape
+        _close(g, w, 2e-3)
+
+
+@pytest.mark.parametrize("want_state", [False, True])
+def test_ssd_fn_bf16_grads_keep_dtypes_and_equal_plain_autograd(want_state):
+    """bf16 xh, B_, C_ (dt, A f32): each gradient in its input's dtype,
+    and equal to autograd straight through ``ssd_scan_plain`` (the
+    Function's backward is that graph, recomputed)."""
+    arrs, dy, _ = _grad_inputs((2, 128, 4, 16, 8, 32), False)
+    base = _torch(arrs[:5], "bfloat16")
+    runs = []
+    for route in ("fn", "plain"):
+        ts = [t.clone().requires_grad_() for t in base]
+        if route == "fn":
+            y, st = T_MAMBA.ssd_chunk_scan(*ts, chunk=32,
+                                           want_state=want_state)
+        else:
+            y, st = SS.ssd_scan_plain(*ts, chunk=32)
+        assert (st is not None) == (route == "plain" or want_state)
+        loss = (y.float() * torch.from_numpy(dy)).sum()
+        if want_state:
+            loss = loss + st.square().sum()
+        runs.append(torch.autograd.grad(loss, ts))
+    for g, t, p in zip(runs[0], base, runs[1]):
+        assert g.dtype == t.dtype
+        torch.testing.assert_close(g, p, rtol=0, atol=0)
+
+
+def test_ssd_fn_steep_decay_gradient_stays_finite():
+    """The steep decay of ``test_steep_decay_stays_finite_forward_and_
+    backward`` through the Function: every gradient finite (the
+    recompute masks the exponent before ``exp``)."""
+    arrs = _inputs(1, 64, 2, 8, 4, seed=4, dt_scale=40.0)
+    ts = [t.clone().requires_grad_() for t in _torch(arrs, "float32")]
+    y, state = T_MAMBA.ssd_chunk_scan(*ts, chunk=64)
+    assert type(y.grad_fn).__name__ == "SSDScanFnBackward"
+    grads = torch.autograd.grad(y.sum() + state.sum(), ts)
     assert all(bool(torch.isfinite(g).all()) for g in grads)
 
 

@@ -226,6 +226,40 @@ def test_trainer_fused_matches_unfused(dtype, jax_runs):
                TOL["float32"])
 
 
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "mamba2-780m"])
+def test_cpu_runs_of_every_mode_equal_mode_q(arch):
+    """On the CPU, Mode U's versioned commit and its fused commit leave
+    Mode Q's losses, live blocks and moments bit for bit (float32, 2
+    steps from one set of weights): ``chip_smoke.py``'s train check holds
+    the card's runs of several modes against one CPU run of Mode Q."""
+    cfg = dataclasses.replace(smoke_config(arch), dtype="float32")
+    shape = ShapeConfig("modes", 32, 2, "train")
+    init = SH.tree_map(lambda t: t.numpy(), ZOO.init_params(
+        cfg, torch.Generator().manual_seed(0)))
+    runs = {}
+    for name in ("Q", "U", "U_fused"):
+        tr = Trainer(cfg, shape, mvcfg=MVStoreConfig(**RUNS[name]),
+                     params=init, device="cpu")
+        state, tr.state = tr.state, None
+        losses = []
+        for step in range(2):
+            state, metrics = tr.train_step(state, tr.batch_at(step))
+            losses.append(float(metrics["loss"]))
+        tr.controller.stop()
+        runs[name] = losses, {
+            f"{k}{p}": t for k, tree in (("live", state.mv.live),
+                                         ("mu", state.opt.mu),
+                                         ("nu", state.opt.nu))
+            for p, t in MVS._flatten(tree)}
+    want_losses, want = runs["Q"]
+    for name in ("U", "U_fused"):
+        losses, got = runs[name]
+        assert losses == want_losses, name
+        assert sorted(got) == sorted(want), name
+        for k in want:
+            assert torch.equal(got[k], want[k]), (name, k)
+
+
 @pytest.mark.parametrize("name", ["U", "U_fused"])
 def test_snapshot_during_training(name, jax_runs):
     """A reader one step behind gets a consistent view while commits keep
