@@ -159,10 +159,28 @@ failure exits non-zero and no result line is printed:
      failed, no Mode-U abort; at qps120 Mode Q aborts and the unversioned
      policy mixes versions; every Mode-U resolve one ``snapshot_select``
      a block;
-  9. the card's idle share: four of the trials, the two servers and the
-     trainers run again under a profiler trace of their GPU activity (the
-     trials for 2 s, the servers and each trainer, while it is still up
-     after phase 4, for 3 s).
+  9. the decoder families (``families_phase``), each at full width:
+     moonshot-v1-16b-a3b (MoE, 64 experts, 6 a token) and paligemma-3b
+     (256 seeded patch embeddings ahead of the tokens; ``flash_attention``
+     at head dim 256 over one kv head) at a depth of 2, the same seeded
+     weights on the card and on the CPU, held as phase 3 holds qwen2.5-3b,
+     and for moonshot the same experts chosen at every layer, token and
+     step; moonshot-v1-16b-a3b served at full depth (48 layers, 28.05 B
+     parameters, bf16, Mode Q, drawn on the card in slices of at most
+     1 GiB) as phase 4 serves qwen2.5-3b (every request completes, every
+     prefill runs ``flash_attention`` once a layer) and its Mode-Q commit
+     check; jamba-v0.1-52b served at one interleave period (8 of 32
+     layers: one attention layer through ``flash_attention``, seven Mamba
+     layers through ``ssd_scan`` at 128 heads of 64, d_state 16), its idle
+     share traced on the same server; llama4-scout-17b-a16e (4 of 48
+     layers) and deepseek-7b, minitron-4b and mistral-large-123b (2
+     layers each) one prefill of 4 x 512 tokens and 4 decode steps each:
+     finite logits and one ``flash_attention`` launch per attention layer;
+ 10. the card's idle share: four of the trials run again under a profiler
+     trace of their GPU activity for 2 s (each server, qwen2.5-3b's,
+     mamba2-780m's and jamba-v0.1-52b's, is traced for 3 s after its
+     serving trial's counted requests, and each trainer for 3 s while it
+     is still up after phase 4).
 
 The last two lines are the kernels summary and
 ``{"ok": true, "device": {...}}``.
@@ -2230,7 +2248,12 @@ SSD_CASES = {
     # a 200-token prompt: Q = 200, three full 64-row tiles and a short one
     "mamba_prompt_200": (1, 200, 48, 64, 128, 256, "bfloat16", "random"),
     "mamba_prompt_200_f32": (1, 200, 48, 64, 128, 256, "float32", "random"),
+    # jamba-v0.1-52b's Mamba layers: 128 heads of 64, d_state 16 (the
+    # kernel's N <= 64 instantiation), one 512-token prompt (timed)
+    "jamba_prefill_512": (1, 512, 128, 64, 16, 256, "bfloat16", "random"),
 }
+#: the cases timed (the first is the summary line's)
+SSD_TIMED = ("mamba_prefill_512", "jamba_prefill_512")
 #: the reference's SSD tolerances (rtol = atol): y in its dtype; the final
 #: state is float32 in both
 SSD_TOL = {"float32": 2e-3, "bfloat16": 5e-2}
@@ -2292,8 +2315,9 @@ def ssd_checks(torch, dev):
     """ssd_scan against its plain version on the card at every case of
     ``SSD_CASES``: each of its four launches alone against its plain
     stage (``ssd_stage_checks``), then the whole call, y within
-    ``SSD_TOL`` and the final state within 2e-3.  The prefill case is
-    timed: CUDA events, the profiler's kernel time, the plain version (no
+    ``SSD_TOL`` and the final state within 2e-3.  The two prefill cases
+    (``SSD_TIMED``: mamba2-780m's and jamba-v0.1-52b's) are timed: CUDA
+    events, the profiler's kernel time, the plain version (no
     single PyTorch call computes the scan: no library time).  The bound is
     the larger of ``ssd_macs`` at the peak of the route's arithmetic (bf16
     on the tensor cores, f32 off them) and the bytes of x, dt, A, B, C, y
@@ -2334,16 +2358,18 @@ def ssd_checks(torch, dev):
         check(y.dtype == dtype and st.dtype == torch.float32,
               f"ssd_scan ({name}): output dtypes {y.dtype}, {st.dtype}")
         errs[name] = {"y": err, "final_state": serr, "stages": stage_errs}
-        if name != KERNELS["ssd_scan"][2]:
+        if name not in SSD_TIMED:
             continue
-        timed = (args, q, st0)
+        if name == KERNELS["ssd_scan"][2]:
+            timed = (args, q, st0)
         Q = min(q, S)
         t_ops = 2 * B * ssd_macs(S, H, P, N, Q) / PEAK_OPS_PER_S[dt] * 1e3
         nbytes = (2 * xh.numel() * xh.element_size()
                   + 4 * (dts.numel() + A.numel() + 2 * st.numel())
                   + 2 * Bm.numel() * Bm.element_size())
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        def scan():
+
+        def scan(args=args, q=q, st0=st0):
             return SS.ssd_scan(*args, chunk=q, init_state=st0)
         rows[name] = kernel_row(
             torch, "ssd_scan", scan,
@@ -2355,8 +2381,10 @@ def ssd_checks(torch, dev):
                   f"{init} init_state, final state out",
             max_abs_err=err, final_state_max_abs_err=serr,
             stage_max_abs_err=stage_errs, tolerance=SSD_TOL[dt],
-            plain_ms=time_ms(torch, lambda: SS.ssd_scan_plain(
-                *args, chunk=q, init_state=st0), iters=20, warm=3),
+            plain_ms=time_ms(torch, lambda args=args, q=q, st0=st0:
+                             SS.ssd_scan_plain(*args, chunk=q,
+                                               init_state=st0),
+                             iters=20, warm=3),
             library_ms=None, library="none (no one call)",
             macs=B * ssd_macs(S, H, P, N, Q), bytes=nbytes,
             ops_ms=t_ops, bytes_ms=t_bytes, peak=dt,
@@ -3349,9 +3377,53 @@ def mvstore_trial(torch, name, duration_s=6.0, warmup_s=1.0, probe=None,
 
 ARCH = "qwen2.5-3b"
 MAMBA = "mamba2-780m"
+MOONSHOT = "moonshot-v1-16b-a3b"
+JAMBA = "jamba-v0.1-52b"
+PALIGEMMA = "paligemma-3b"
+SCOUT = "llama4-scout-17b-a16e"
+DENSE = ("deepseek-7b", "minitron-4b", "mistral-large-123b")
 BATCH, PROMPT, GEN, REQUESTS = 4, 512, 32, 8
-#: each served model: its prefill kernel, launched once per layer
+#: each trained model: its sequence kernel, launched once per layer
 PREFILL_KERNEL = {ARCH: "flash_attention", MAMBA: "ssd_scan"}
+#: the families phase's depth cuts (full width; one card does not hold
+#: the whole model): jamba one interleave period of its 32 layers (13.3 B
+#: of 52 B parameters), llama4-scout 4 of 48 layers (10.9 B), the dense
+#: three 2 layers (mistral-large-123b's 88 would be 246 GB)
+DEPTH = {JAMBA: 8, SCOUT: 4, "deepseek-7b": 2, "minitron-4b": 2,
+         "mistral-large-123b": 2}
+#: the vision prefix the model check puts ahead of paligemma's tokens
+PATCHES = {PALIGEMMA: 256}
+
+
+def _config(arch):
+    """``arch``'s full config, at its ``DEPTH`` cut where it has one."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if arch in DEPTH:
+        cfg = dataclasses.replace(cfg, n_layers=DEPTH[arch])
+    return cfg
+
+
+def _reduced(arch):
+    """The row's record of ``arch``'s depth cut (None at full depth)."""
+    from repro_torch.configs import get_config
+
+    return f"depth {DEPTH[arch]} of {get_config(arch).n_layers} layers" \
+        if arch in DEPTH else None
+
+
+def prefill_launches(cfg) -> dict:
+    """The kernel launches one prefill of ``cfg`` makes: one
+    ``flash_attention`` an attention layer, one ``ssd_scan`` a Mamba
+    layer (whatever the batch: a launch takes every row)."""
+    from repro_torch.models.transformer import layer_kinds, n_groups
+
+    out = defaultdict(int)
+    for mixer, _ in layer_kinds(cfg):
+        out["flash_attention" if mixer == "attn" else "ssd_scan"] += \
+            n_groups(cfg)
+    return dict(out)
 
 
 def free_card(torch):
@@ -3369,23 +3441,71 @@ def _grow(torch, cache, extra):
                   for n, t in kv.items()} for sub, kv in cache.items()}
 
 
+class _Routes:
+    """While entered, records every MoE layer's expert choices by run
+    (``run`` names the run being driven), wrapping
+    ``repro_torch.models.moe.select``.  A run in ``pinned`` is given the
+    choices run ``"cpu32"`` made at the same call instead of its own
+    (its own are kept in ``natural``); ``margin`` keeps each run's
+    smallest gap between a token's k-th and (k+1)-th router
+    probabilities."""
+
+    def __init__(self, torch, pinned=()):
+        self.torch, self.pinned = torch, set(pinned)
+        self.run = None
+        self.picks, self.natural = defaultdict(list), defaultdict(list)
+        self.margin = {}
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        inner, torch = moe.select, self.torch
+
+        def recording(x, w, k):
+            probs, top, sel = inner(x, w, k)
+            v = torch.topk(probs, k + 1, dim=-1).values
+            gap = float((v[..., k - 1] - v[..., k]).min())
+            self.margin[self.run] = min(gap, self.margin.get(self.run, 1.0))
+            if self.run in self.pinned:
+                self.natural[self.run].append(sel.cpu())
+                sel = self.picks["cpu32"][len(self.picks[self.run])].to(
+                    sel.device)
+                top = torch.gather(probs, -1, sel)
+            self.picks[self.run].append(sel.cpu())
+            return probs, top, sel
+
+        self._mod, self._inner = moe, inner
+        moe.select = recording
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.select = self._inner
+
+
 def model_check(torch, dev, arch=ARCH, prompt=(2, 64)):
     """``arch`` at full width and a depth of 2 layers: one set of
-    seeded bf16 weights (``materialize`` on the CPU), run as bf16 and,
-    upcast, as float32, on the card and on the CPU: prefill of
-    ``prompt`` tokens and 4 decode steps, every run fed the CPU float32
-    run's greedy tokens; each card prefill must launch the arch's
-    prefill kernel once per layer.  float32: the card's logits within
-    2e-4 of the CPU's and the same greedy tokens (TF32 off).  bfloat16:
-    an element-wise tolerance does not survive two layers at this width
-    (two CPU bf16 routes that differ only in the order of their float32
-    sums differ by more than 2e-2), so each bf16 run is held against the
-    float32 logits of the same weights: the card's mean and max error
-    must stay within twice the CPU's.  A fault on the path (mask, scale,
-    head mapping, cache write, decay, state carry) moves logits by 0.1-1;
-    bf16 rounding by ~0.01.  qwen2.5-3b runs 2 x 64 tokens; mamba2-780m
-    2 x 512, two chunks of 256, so the scan's state also crosses a chunk
-    inside the kernel before decode takes it over."""
+    seeded bf16 weights (``materialize`` on the card, copied to the
+    CPU), run as bf16 and, upcast, as float32, on the card and on the
+    CPU: prefill of ``prompt`` tokens (for paligemma-3b behind
+    ``PATCHES`` seeded patch embeddings) and 4 decode steps, every run
+    fed the CPU float32 run's greedy tokens; each card prefill must
+    launch the arch's prefill kernels once per layer.  float32: the
+    card's logits within 2e-4 of the CPU's and the same greedy tokens
+    (TF32 off); for a MoE model also the same experts chosen at every
+    layer, token and step (the smallest top-k margin printed).
+    bfloat16: an element-wise tolerance does not survive two layers at
+    this width (two CPU bf16 routes that differ only in the order of
+    their float32 sums differ by more than 2e-2), so each bf16 run is
+    held against the float32 logits of the same weights: the card's mean
+    and max error must stay within twice the CPU's.  A MoE model's bf16
+    runs take the float32 CPU run's expert choices (a choice is
+    discrete: bf16 rounding flips near-ties, each flip moving a token's
+    output by as much as a fault would); how often their own choices
+    differ is printed.  A fault on the path (mask, scale, head mapping,
+    cache write, decay, state carry, dispatch, combine) moves logits by
+    0.1-1; bf16 rounding by ~0.01.  qwen2.5-3b runs 2 x 64 tokens;
+    mamba2-780m 2 x 512, two chunks of 256, so the scan's state also
+    crosses a chunk inside the kernel before decode takes it over."""
     from repro_torch import kernels as K
     from repro_torch.configs import ParallelConfig, get_config
     from repro_torch.launch.sharding import tree_map
@@ -3395,59 +3515,88 @@ def model_check(torch, dev, arch=ARCH, prompt=(2, 64)):
     pcfg = ParallelConfig(remat="none", attn_block_q=64, attn_block_k=64)
     cfg16 = dataclasses.replace(get_config(arch), n_layers=2)
     cfg32 = dataclasses.replace(cfg16, dtype="float32")
-    p16 = zoo.init_params(cfg16, torch.Generator().manual_seed(SEED))
+    p16 = zoo.init_params(cfg16, torch.Generator(device=dev).manual_seed(
+        SEED))
     p32 = tree_map(lambda t: t.float(), p16)
-    toks = torch.from_numpy(np.random.default_rng(SEED).integers(
-        0, cfg16.vocab_size, prompt).astype(np.int32))
+    rng = np.random.default_rng(SEED)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg16.vocab_size, prompt).astype(np.int32))}
+    if arch in PATCHES:
+        batch["patch_embeds"] = torch.from_numpy(rng.standard_normal(
+            (prompt[0], PATCHES[arch], cfg16.d_model), dtype=np.float32)
+        ).to(torch.bfloat16)
+    moe = bool(cfg16.moe.num_experts)
+    routes = _Routes(torch, pinned=("cpu16", "card16") if moe else ())
     runs = {}
     K.reset_launch_counts()
-    for name, p, cfg, d in (("cpu32", p32, cfg32, "cpu"),
-                            ("cpu16", p16, cfg16, "cpu"),
-                            ("card32", p32, cfg32, dev),
-                            ("card16", p16, cfg16, dev)):
-        p = tree_map(lambda t: t.to(d), p)
-        logits, cache, clen = zoo.prefill_fn(
-            p, {"tokens": toks.to(d)}, cfg, pcfg)
-        runs[name] = [logits, _grow(torch, cache, 4), clen, p, cfg, d]
-    kernel = PREFILL_KERNEL[arch]
-    check(K.launch_counts()[kernel] == 4,
-          f"the card's prefills did not run {kernel} once per layer")
-    steps = []
-    for step in range(5):
-        lg = {n: r[0].float().cpu() for n, r in runs.items()}
-        ref = lg["cpu32"]
-        tok = torch.argmax(ref, dim=-1).to(torch.int32)
-        try:
-            err32 = max_abs_err(torch, lg["card32"], ref, "float32")
-        except Failed as e:
-            raise Failed(f"card != CPU at float32, step {step}: {e}")
-        check(torch.equal(torch.argmax(lg["card32"], dim=-1)
-                          .to(torch.int32), tok),
-              f"card and CPU greedy tokens differ at float32, step {step}")
-        e_card = (lg["card16"] - ref).abs()
-        e_cpu = (lg["cpu16"] - ref).abs()
-        row = {"step": step, "f32_max_abs_err": err32,
-               "bf16_card_vs_cpu_max_abs_err":
-                   float((lg["card16"] - lg["cpu16"]).abs().max()),
-               "bf16_vs_f32_mean_err": {"card": float(e_card.mean()),
-                                        "cpu": float(e_cpu.mean())},
-               "bf16_vs_f32_max_err": {"card": float(e_card.max()),
-                                       "cpu": float(e_cpu.max())}}
-        steps.append(row)
-        check(row["bf16_vs_f32_mean_err"]["card"]
-              <= 2 * row["bf16_vs_f32_mean_err"]["cpu"]
-              and row["bf16_vs_f32_max_err"]["card"]
-              <= 2 * row["bf16_vs_f32_max_err"]["cpu"],
-              f"the card's bf16 logits are off the float32 reference by "
-              f"more than twice the CPU's bf16 logits, step {step}: {row}")
-        if step == 4:
-            break
-        for r in runs.values():
-            r[0], r[1], r[2] = zoo.decode_fn(r[3], r[1], r[2],
-                                             tok.to(r[5]), r[4], pcfg)
+    with routes:
+        for name, cfg, d in (("cpu32", cfg32, "cpu"), ("cpu16", cfg16, "cpu"),
+                             ("card32", cfg32, dev), ("card16", cfg16, dev)):
+            p = tree_map(lambda t: t.to(d), p32 if cfg is cfg32 else p16)
+            routes.run = name
+            logits, cache, clen = zoo.prefill_fn(
+                p, {k: v.to(d) for k, v in batch.items()}, cfg, pcfg)
+            runs[name] = [logits, _grow(torch, cache, 4), clen, p, cfg, d]
+        for kernel, n in prefill_launches(cfg16).items():
+            check(K.launch_counts()[kernel] == 2 * n,
+                  f"the card's prefills did not run {kernel} once per "
+                  "layer")
+        steps = []
+        for step in range(5):
+            lg = {n: r[0].float().cpu() for n, r in runs.items()}
+            ref = lg["cpu32"]
+            tok = torch.argmax(ref, dim=-1).to(torch.int32)
+            try:
+                err32 = max_abs_err(torch, lg["card32"], ref, "float32")
+            except Failed as e:
+                raise Failed(f"card != CPU at float32, step {step}: {e}")
+            check(torch.equal(torch.argmax(lg["card32"], dim=-1)
+                              .to(torch.int32), tok),
+                  f"card and CPU greedy tokens differ at float32, step "
+                  f"{step}")
+            e_card = (lg["card16"] - ref).abs()
+            e_cpu = (lg["cpu16"] - ref).abs()
+            row = {"step": step, "f32_max_abs_err": err32,
+                   "bf16_card_vs_cpu_max_abs_err":
+                       float((lg["card16"] - lg["cpu16"]).abs().max()),
+                   "bf16_vs_f32_mean_err": {"card": float(e_card.mean()),
+                                            "cpu": float(e_cpu.mean())},
+                   "bf16_vs_f32_max_err": {"card": float(e_card.max()),
+                                           "cpu": float(e_cpu.max())}}
+            steps.append(row)
+            check(row["bf16_vs_f32_mean_err"]["card"]
+                  <= 2 * row["bf16_vs_f32_mean_err"]["cpu"]
+                  and row["bf16_vs_f32_max_err"]["card"]
+                  <= 2 * row["bf16_vs_f32_max_err"]["cpu"],
+                  f"the card's bf16 logits are off the float32 reference "
+                  f"by more than twice the CPU's bf16 logits, step {step}: "
+                  f"{row}")
+            if step == 4:
+                break
+            for name, r in runs.items():
+                routes.run = name
+                r[0], r[1], r[2] = zoo.decode_fn(r[3], r[1], r[2],
+                                                 tok.to(r[5]), r[4], pcfg)
     out = {"model_check": arch, "layers": 2, "prompt": list(prompt),
-           "decode_steps": 4, "f32_tolerance": TOLERANCE["float32"],
+           "prefix_embeds": PATCHES.get(arch, 0), "decode_steps": 4,
+           "f32_tolerance": TOLERANCE["float32"],
            "f32_greedy_tokens_equal": True, "steps": steps}
+    if moe:
+        card, cpu = routes.picks["card32"], routes.picks["cpu32"]
+        same = len(card) == len(cpu) and all(
+            torch.equal(a, b) for a, b in zip(card, cpu))
+        choices = sum(t.numel() for t in cpu)
+        out.update({
+            "moe_calls": len(cpu), "expert_choices": choices,
+            "f32_experts_equal": same,
+            "f32_min_topk_margin": {"card": routes.margin["card32"],
+                                    "cpu": routes.margin["cpu32"]},
+            "bf16_own_choices_differing_from_f32": {
+                r: sum(int((a != b).sum()) for a, b in
+                       zip(routes.natural[r], cpu))
+                for r in ("card16", "cpu16")}})
+        check(same, f"{arch}: the card's float32 run chose other experts "
+                    "than the CPU's")
     emit(out)
     del runs, p16, p32
     free_card(torch)
@@ -3455,19 +3604,17 @@ def model_check(torch, dev, arch=ARCH, prompt=(2, 64)):
 
 
 def _prompts(arch=ARCH):
-    from repro_torch.configs import get_config
-
     return np.random.default_rng(SEED).integers(
-        0, get_config(arch).vocab_size, (REQUESTS, PROMPT)).astype(np.int32)
+        0, _config(arch).vocab_size, (REQUESTS, PROMPT)).astype(np.int32)
 
 
 def _server(mode, arch=ARCH):
     """The server on the card, its parameters drawn from ``SEED``; Mode U
     versions every block in a 2-slot ring."""
-    from repro_torch.configs import MVStoreConfig, get_config
+    from repro_torch.configs import MVStoreConfig
     from repro_torch.launch.serve import Server
 
-    return Server(get_config(arch), batch=BATCH, prompt_len=PROMPT,
+    return Server(_config(arch), batch=BATCH, prompt_len=PROMPT,
                   max_len=PROMPT + GEN, seed=SEED,
                   mvcfg=MVStoreConfig(mode=mode, ring_slots=2))
 
@@ -3479,18 +3626,24 @@ def _fresh_metrics(server):
     server.metrics = server.scheduler.metrics = ServeMetrics(seed=SEED)
 
 
-def serving_trial(torch, launches, arch=ARCH):
-    """``Server`` over ``arch`` at full width and depth, Mode Q: one
-    warm-up request, then 8 seeded requests through 4 slots.  Launch
-    counters are set to 0 just before the 8 and read just after; every
-    prefill must have run the arch's prefill kernel (``flash_attention``
-    for qwen2.5-3b, ``ssd_scan`` for mamba2-780m) once per layer."""
+def serving_trial(torch, launches, arch=ARCH, idle_window_s=0.0):
+    """``Server`` over ``arch`` at full width (and full depth, or its
+    ``DEPTH`` cut), Mode Q: one warm-up request, then 8 seeded requests
+    through 4 slots.  Launch counters are set to 0 just before the 8 and
+    read just after; every prefill must have run its prefill kernels
+    (``flash_attention`` an attention layer, ``ssd_scan`` a Mamba layer:
+    ``prefill_launches``) once per layer.  With ``idle_window_s``, the same
+    server then serves under a profiler trace for that long
+    (``idle_trace``; its launches are not counted)."""
     from repro_torch import kernels as K
+    from repro_torch.models import model_zoo as zoo
 
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     server = _server("Q", arch)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
     prompts = _prompts(arch)
     server.serve_batch(prompts[:1], 2)                  # warm-up
     _fresh_metrics(server)
@@ -3510,10 +3663,13 @@ def serving_trial(torch, launches, arch=ARCH):
     toks = np.array([r.tokens for r in reqs])
     per_token = [(r.t_done - r.t_first_token) / (len(r.tokens) - 1)
                  for r in reqs]
+    cfg = server.cfg
     row = {"trial": f"serve_{arch}", "mode": "Q", "batch": BATCH,
            "prompt_len": PROMPT, "gen": GEN, "requests": REQUESTS,
-           "init_s": init_s, "seconds": dt,
-           "tokens_per_s": toks.size / dt,
+           "layers": cfg.n_layers, "reduced": _reduced(arch),
+           "params": zoo.param_counts(cfg)["total"],
+           "init_s": init_s, "init_max_memory_allocated": init_peak,
+           "seconds": dt, "tokens_per_s": toks.size / dt,
            "ttft_ms_p50": m.ttft.percentile(50) * 1e3,
            "ttft_ms_p99": m.ttft.percentile(99) * 1e3,
            "per_token_ms_p50": float(np.percentile(per_token, 50)) * 1e3,
@@ -3525,12 +3681,14 @@ def serving_trial(torch, launches, arch=ARCH):
     emit(row)
     check(m.completed == REQUESTS and toks.shape == (REQUESTS, GEN),
           "serving: not every request completed")
-    check(bool(((toks >= 0) & (toks < server.cfg.padded_vocab())).all()),
+    check(bool(((toks >= 0) & (toks < cfg.padded_vocab())).all()),
           "serving: a token outside the padded vocab")
-    kernel, layers = PREFILL_KERNEL[arch], server.cfg.n_layers
-    check(counts[kernel] >= layers * REQUESTS,
-          f"serving {arch}: {counts[kernel]} {kernel} launches for "
-          f"{REQUESTS} prefills of {layers} layers")
+    for kernel, n in prefill_launches(cfg).items():
+        check(counts[kernel] >= n * REQUESTS,
+              f"serving {arch}: {counts[kernel]} {kernel} launches for "
+              f"{REQUESTS} prefills of {n} such layers")
+    if idle_window_s:
+        idle_trace(torch, server, arch, idle_window_s)
     del server
     free_card(torch)
     return row, toks
@@ -3619,14 +3777,13 @@ def snapshot_checks(torch, launches, served, arch=ARCH, modes=("U", "Q")):
     return rows
 
 
-def serving_idle_window(torch, window_s=3.0, arch=ARCH):
-    """A 3 s window of the Mode-Q server under load (the queue kept at
-    8 requests) under a profiler trace of its GPU activity."""
+def idle_trace(torch, server, arch, window_s=3.0):
+    """``window_s`` of the Mode-Q ``server`` under load (the queue kept at
+    8 requests) under a profiler trace of its GPU activity: prints the
+    card's busy time and idle share and its prefill kernels' time."""
     from torch.profiler import ProfilerActivity
 
-    server = _server("Q", arch)
     prompts = _prompts(arch)
-    server.serve_batch(prompts[:1], 2)                  # warm-up
     prof = torch.profiler.profile(activities=[ProfilerActivity.CUDA])
     pending, i, done = [], 0, 0
     prof.start()
@@ -3641,9 +3798,103 @@ def serving_idle_window(torch, window_s=3.0, arch=ARCH):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     prof.stop()
-    del server
+    gpu = gpu_events(prof)
+    busy_us = sum(e["dur"] for e in gpu)
+    row = {"trace": f"serve_{arch}", "window_s": dt, "gpu_events": len(gpu),
+           "requests_completed": done,
+           "device_busy_ms": busy_us / 1e3 if gpu else None,
+           "device_idle_share": 1 - busy_us / 1e3 / (dt * 1e3) if gpu
+           else None}
+    for kernel in prefill_launches(server.cfg):
+        row[f"{kernel}_ms"] = kernel_us(gpu, DEVICE_KERNELS[kernel]) / 1e3 \
+            if gpu else None
+    emit(row)
+    return row
+
+
+def prefill_decode_trial(torch, launches, arch):
+    """``arch`` at full width and its ``DEPTH`` cut, bf16, weights drawn on
+    the card from ``SEED``: one prefill of 4 x 512 seeded tokens
+    (``zoo.prefill_fn``) and 4 greedy decode steps.  Gates: finite logits
+    at every step, and exactly one ``flash_attention`` launch per
+    attention layer in the prefill (each launch takes the 4 rows).
+    Records the parameters, the init, prefill and per-step times (host
+    clock, each ending in a sync) and the peak memory."""
+    from repro_torch import kernels as K
+    from repro_torch.configs import ParallelConfig
+    from repro_torch.models import model_zoo as zoo
+
+    cfg = _config(arch)
+    pcfg = ParallelConfig(remat="none", attn_block_q=PROMPT,
+                          attn_block_k=PROMPT)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = zoo.init_params(cfg, torch.Generator(device=CARD)
+                             .manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    toks = torch.from_numpy(_prompts(arch)[:BATCH]).to(CARD)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, cache, clen = zoo.prefill_fn(params, {"tokens": toks}, cfg,
+                                             pcfg)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        prefill = K.launch_counts()
+        finite = [bool(torch.isfinite(logits).all())]
+        cache, step_s = _grow(torch, cache, 4), []
+        for _ in range(4):
+            t0 = time.perf_counter()
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            logits, cache, clen = zoo.decode_fn(params, cache, clen, tok,
+                                                cfg, pcfg)
+            finite.append(bool(torch.isfinite(logits).all()))
+            step_s.append(time.perf_counter() - t0)
+    counts = K.launch_counts()
+    for k, v in counts.items():
+        launches[k] += v
+    row = {"trial": f"prefill_decode_{arch}", "layers": cfg.n_layers,
+           "reduced": _reduced(arch),
+           "params": zoo.param_counts(cfg)["total"], "batch": BATCH,
+           "prompt_len": PROMPT, "decode_steps": 4, "init_s": init_s,
+           "prefill_s": prefill_s, "decode_step_ms": [t * 1e3
+                                                      for t in step_s],
+           "logits_finite": finite,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "prefill_launches": prefill, "launches": counts}
+    emit(row)
+    check(all(finite), f"{arch}: non-finite logits")
+    want = prefill_launches(cfg)["flash_attention"]
+    check(prefill["flash_attention"] == want,
+          f"{arch}: {prefill['flash_attention']} flash_attention launches "
+          f"in a prefill of {want} attention layers")
+    del params, cache, logits
     free_card(torch)
-    return dt, prof, done
+    return row
+
+
+def families_phase(torch, dev):
+    """The decoder families beside qwen2.5-3b and mamba2-780m, each at full
+    width: moonshot-v1-16b-a3b and paligemma-3b card = CPU
+    (``model_check``, depth 2; paligemma behind 256 patch embeddings);
+    moonshot-v1-16b-a3b served at full depth (48 layers, 28.05 B
+    parameters, Mode Q) and its Mode-Q commit check; jamba-v0.1-52b served
+    at one interleave period (its idle share traced on the same server);
+    llama4-scout-17b-a16e and the three dense archs one prefill and 4
+    decode steps each (``prefill_decode_trial``).  Each trial frees the
+    card before the next.  Returns the launch totals of the trials."""
+    t0 = time.perf_counter()
+    totals = defaultdict(int)
+    model_check(torch, dev, arch=MOONSHOT)
+    model_check(torch, dev, arch=PALIGEMMA)
+    _, toks = serving_trial(torch, totals, arch=MOONSHOT)
+    snapshot_checks(torch, totals, toks, arch=MOONSHOT, modes=("Q",))
+    serving_trial(torch, totals, arch=JAMBA, idle_window_s=3.0)
+    for arch in (SCOUT,) + DENSE:
+        prefill_decode_trial(torch, totals, arch)
+    emit({"families_phase_seconds": time.perf_counter() - t0})
+    return totals
 
 
 # ---------------------------------------------------------------------------
@@ -4417,7 +4668,7 @@ def move_engine(torch, src, dst):
     src.stop()
 
 
-def at_scale_trial(torch, kind, window_s=4.0, warmup_s=0.5):
+def at_scale_trial(torch, kind, window_s=2.0, warmup_s=0.5):
     """One structure at the size ``AT_SCALE`` gives, on multiverse on the
     card, prefilled through its insert path ``PREFILL_PER_TXN`` keys to a
     transaction, then one reader beside one updater:
@@ -5797,12 +6048,12 @@ def main_path(torch):
 
 
 def idle_shares(torch):
-    """The card's idle share in four trials (2 s windows) and the two
-    model servers (3 s), each run again under a ``torch.profiler`` trace of
-    its GPU activity (kernels, copies, memsets): idle share = 1 - busy
-    time / window.  Kept apart
-    from the main path, whose numbers stay untraced; its launches are not
-    counted."""
+    """The card's idle share in four trials (2 s windows), each run again
+    under a ``torch.profiler`` trace of its GPU activity (kernels, copies,
+    memsets): idle share = 1 - busy time / window.  Kept apart from the
+    main path, whose numbers stay untraced; its launches are not counted.
+    (The model servers' traces are taken on the serving trials' own
+    servers, after their counted requests: ``idle_trace``.)"""
     from torch.profiler import ProfilerActivity
 
     from repro_torch import kernels as K
@@ -5828,15 +6079,6 @@ def idle_shares(torch):
         emit({"trace": name, "window_s": row["seconds"], "gpu_events": n,
               "device_busy_ms": busy_us / 1e3 if n else None,
               "device_idle_share": 1 - busy_us / 1e3 / window_ms if n
-              else None})
-    for arch, kernel in PREFILL_KERNEL.items():
-        dt, prof, done = serving_idle_window(torch, arch=arch)
-        n, busy_us, k_us = gpu_activity(prof, DEVICE_KERNELS[kernel])
-        emit({"trace": f"serve_{arch}", "window_s": dt, "gpu_events": n,
-              "requests_completed": done,
-              "device_busy_ms": busy_us / 1e3 if n else None,
-              f"{kernel}_ms": k_us / 1e3 if n else None,
-              "device_idle_share": 1 - busy_us / 1e3 / (dt * 1e3) if n
               else None})
     K.reset_launch_counts()
 
@@ -5887,36 +6129,57 @@ def main() -> int:
           "fused_adamw_within_tolerance": True,
           "ssd_scan_within_tolerance": True})
 
+    laps, t_lap = {}, t_run
+
+    def lap(name):
+        """Records the seconds since the previous lap under ``name``."""
+        nonlocal t_lap
+        now = time.perf_counter()
+        laps[name] = now - t_lap
+        t_lap = now
+
+    lap("build_and_kernel_checks")
     schedule_check(torch)
+    lap("schedules")
     model_check(torch, dev)
     model_check(torch, dev, arch=MAMBA, prompt=(2, 512))
+    lap("model_checks")
     train_check(torch, dev)
     train_check(torch, dev, arch=MAMBA)
+    lap("train_checks")
     launches = main_path(torch)
-    served, toks = serving_trial(torch, launches)
+    lap("stm_trials")
+    served, toks = serving_trial(torch, launches, idle_window_s=3.0)
     snapshot_checks(torch, launches, toks)
     free_card(torch)
-    _, toks = serving_trial(torch, launches, arch=MAMBA)
+    _, toks = serving_trial(torch, launches, arch=MAMBA, idle_window_s=3.0)
     snapshot_checks(torch, launches, toks, arch=MAMBA, modes=("U",))
     free_card(torch)
+    lap("servers")
     train_trial(torch, launches)
     train_trial(torch, launches, arch=MAMBA)
     supervisor_drill(torch)
+    lap("trainers")
     t0 = time.perf_counter()
     for part in (eval_phase(torch), structures_phase(torch)):
         for k, v in part.items():
             launches[k] += v
     emit({"eval_and_structures_seconds": time.perf_counter() - t0})
-    for k, v in shard_phase(torch).items():
-        launches[k] += v
-    for k, v in reliability_phase(torch).items():
-        launches[k] += v
-    for k, v in serving_phase(torch).items():
-        launches[k] += v
+    lap("phase5_eval_and_structures")
+    for name, phase in (("phase6_shards", shard_phase),
+                        ("phase7_reliability", reliability_phase),
+                        ("phase8_serving", serving_phase),
+                        ("phase9_families",
+                         lambda torch: families_phase(torch, dev))):
+        for k, v in phase(torch).items():
+            launches[k] += v
+        lap(name)
     for k in KERNELS:
         check(launches[k] > 0, f"kernel {k} was never launched on the main "
                                "path")
     idle_shares(torch)
+    lap("phase10_idle_shares")
+    emit({"phase_seconds": laps})
 
     summary = []
     for name, (src, replaces, n) in KERNELS.items():

@@ -3,15 +3,19 @@
 the model registry.
 
 ``get_config('<arch-id>')`` takes the architectures the port serves
-(``REGISTRY``); the JAX package's other architectures raise "not ported
-yet".  ``smoke_config`` reduces a config the way the reference does, for
-CPU tests.
+(``REGISTRY``: every decoder-only family of the JAX package); its
+encoder-decoder architecture raises "not ported yet".  ``smoke_config``
+reduces a config exactly as the reference does, for CPU tests.
 """
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs import mamba2_780m, qwen2_5_3b
+from repro_torch.configs import (deepseek_7b, jamba_v0_1_52b,
+                                 llama4_scout_17b_a16e, mamba2_780m,
+                                 minitron_4b, mistral_large_123b,
+                                 moonshot_v1_16b_a3b, paligemma_3b,
+                                 qwen2_5_3b)
 from repro_torch.configs.base import (
     SHAPES,
     MambaConfig,
@@ -24,14 +28,15 @@ from repro_torch.configs.base import (
 )
 
 REGISTRY: dict[str, ModelConfig] = {
-    m.CONFIG.name: m.CONFIG for m in (mamba2_780m, qwen2_5_3b)}
+    m.CONFIG.name: m.CONFIG
+    for m in (jamba_v0_1_52b, paligemma_3b, qwen2_5_3b, deepseek_7b,
+              mistral_large_123b, minitron_4b, mamba2_780m,
+              llama4_scout_17b_a16e, moonshot_v1_16b_a3b)}
 
 ARCH_IDS = sorted(REGISTRY)
 
 #: the JAX package's architectures that the port does not serve yet
-NOT_PORTED = ("deepseek-7b", "jamba-v0.1-52b", "llama4-scout-17b-a16e",
-              "minitron-4b", "mistral-large-123b", "moonshot-v1-16b-a3b",
-              "paligemma-3b", "seamless-m4t-medium")
+NOT_PORTED = ("seamless-m4t-medium",)
 
 
 def get_config(name: str) -> ModelConfig:
@@ -50,26 +55,41 @@ def get_shape(name: str) -> ShapeConfig:
 
 
 def smoke_config(name: str) -> ModelConfig:
-    """A reduced config of the same family as ``name`` (the reference's
-    reduction: width 64, 4 heads of 16 keeping the GQA ratio, d_ff 128,
-    vocab 512, 2 layers)."""
+    """A reduced config of the same family as ``name``: the reference's
+    reduction field for field.  Width 64, 4 heads of 16 keeping the GQA
+    ratio, d_ff 128, vocab 512; depth 8 for a hybrid (one interleave
+    period of the reduced pattern), else 2; at most 8 experts, at most 2
+    a token, 64 wide; the hybrid interleave cut to one attention layer in
+    4 at offset 2; a frontend of at most 8 positions."""
     full = get_config(name)
+    n_layers = {"hybrid": 8, "moe": 2, "ssm": 2}.get(full.family, 2)
+    if full.is_encdec:
+        n_layers = 2
     kv_ratio = max(1, full.n_heads // max(full.n_kv_heads, 1))
     n_heads = 4 if full.n_heads else 0
     n_kv = max(1, n_heads // kv_ratio) if n_heads else 0
+    moe = full.moe
+    if moe.num_experts:
+        moe = dataclasses.replace(
+            moe, num_experts=min(8, moe.num_experts),
+            experts_per_token=min(2, moe.experts_per_token), d_ff_expert=64)
     return dataclasses.replace(
         full,
         name=full.name + "-smoke",
-        n_layers=2,
+        n_layers=n_layers,
         d_model=64,
         n_heads=n_heads,
         n_kv_heads=n_kv,
         head_dim=16 if n_heads else 0,
         d_ff=128 if full.d_ff else 0,
         vocab_size=512,
+        moe=moe,
         mamba=dataclasses.replace(full.mamba, d_state=16, head_dim=8,
                                   chunk=32),
+        n_encoder_layers=2 if full.is_encdec else 0,
         frontend_len=min(full.frontend_len, 8),
+        attn_layer_period=full.attn_layer_period and 4,
+        attn_layer_offset=full.attn_layer_offset and 2,
     )
 
 

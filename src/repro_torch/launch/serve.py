@@ -31,7 +31,11 @@ cache instead of being zero-padded to ``max_len`` (decode masks by
         --requests 8 --prompt-len 512 --gen 32
     python -m repro_torch.launch.serve --arch mamba2-780m \
         --prompt-len 512 --gen 32
+    python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b \
+        --prompt-len 512 --gen 32
     python -m repro_torch.launch.serve --smoke --device cpu
+    python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b --smoke \
+        --device cpu
 """
 from __future__ import annotations
 
@@ -275,6 +279,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.frontend != "none" or cfg.is_encdec:
+        print(f"note: {args.arch} needs frontend embeds; serving the "
+              "text path only")
     server = Server(cfg, batch=args.batch, prompt_len=args.prompt_len,
                     max_len=args.prompt_len + args.gen, device=args.device)
     rng = np.random.default_rng(0)

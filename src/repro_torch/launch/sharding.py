@@ -65,6 +65,12 @@ def leaves_with_path(tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:
         yield prefix, tree
 
 
+#: the largest float32 draw ``materialize`` makes at once; a larger leaf
+#: is drawn in slices of this size (moonshot-v1-16b-a3b's stacked expert
+#: leaves are 35 GB as float32, 18 GB once cast)
+DRAW_CAP_BYTES = 1 << 30
+
+
 def materialize(meta_tree, generator: torch.Generator,
                 device=None, dtype_override: Optional[str] = None):
     """A tree of ``ParamMeta`` as initialized tensors on ``device`` (the
@@ -72,9 +78,13 @@ def materialize(meta_tree, generator: torch.Generator,
     in path order: normal leaves are N(0, 1) in float32 scaled by
     ``scale / sqrt(fan_in)`` (fan_in = the second-last dim, else the
     last), then cast — the reference's rule; the values differ from the
-    reference's, whose generator is JAX's."""
+    reference's, whose generator is JAX's.  A leaf is drawn into its
+    final dtype in consecutive slices of its flattened leading axes, none
+    above ``DRAW_CAP_BYTES`` as float32, so the transient stays bounded
+    whatever the leaf's size."""
     device = torch.device(device if device is not None
                           else generator.device)
+    step = max(1, DRAW_CAP_BYTES // 4)
     out = {}
     for path, m in leaves_with_path(meta_tree):
         dt = torch_dtype(dtype_override or m.dtype)
@@ -85,9 +95,13 @@ def materialize(meta_tree, generator: torch.Generator,
         else:
             fan_in = m.shape[-2] if len(m.shape) >= 2 else m.shape[-1]
             std = m.scale / max(fan_in, 1) ** 0.5
-            a = torch.randn(m.shape, generator=generator,
-                            dtype=torch.float32, device=device)
-            a = a.mul_(std).to(dt)
+            a = torch.empty(m.shape, dtype=dt, device=device)
+            flat = a.view(-1)
+            for lo in range(0, flat.numel(), step):
+                n = min(step, flat.numel() - lo)
+                flat[lo:lo + n] = torch.randn(
+                    n, generator=generator, dtype=torch.float32,
+                    device=device).mul_(std)
         out[path] = a
     return _rebuild(meta_tree, out)
 

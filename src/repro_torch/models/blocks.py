@@ -1,8 +1,10 @@
-"""Decoder sub-layers: attention / mamba mixers + dense FFN, pre-norm.
+"""Decoder sub-layers: attention / mamba mixers + dense / MoE FFN,
+pre-norm.
 
-The ``("attn", "dense")``, ``("mamba", "none")`` and ``("mamba",
-"dense")`` kinds of the reference's ``models/blocks.py``.  The moe FFN is
-not ported yet and raises.
+Every kind of the reference's ``models/blocks.py`` that a decoder-only
+model builds: an ``attn`` or ``mamba`` mixer, then a ``dense``, ``moe``
+or no (``none``) FFN.  (The cross-attention of ``attn_meta(cross=)``
+comes with the encoder-decoder family.)
 """
 from __future__ import annotations
 
@@ -15,15 +17,8 @@ from repro_torch.launch.sharding import ParamMeta
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import mamba as mamba_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import apply_rope, rmsnorm, rmsnorm_meta
-
-
-def _check_kind(kind) -> None:
-    mixer, ffn = kind
-    if mixer not in ("attn", "mamba") or ffn not in ("dense", "none"):
-        raise NotImplementedError(
-            f"sub-layer kind {kind} is not ported yet (mixers attn and "
-            "mamba, FFN dense or none)")
 
 
 # ---------------------------------------------------------------------------
@@ -114,7 +109,6 @@ def attn_decode(p, x, cfg: ModelConfig, pcfg: ParallelConfig, *,
 
 
 def sublayer_meta(cfg: ModelConfig, kind: Tuple[str, str]) -> dict:
-    _check_kind(kind)
     mixer, ffn = kind
     d = cfg.d_model
     m = {"norm_mixer": rmsnorm_meta(d)}
@@ -125,20 +119,24 @@ def sublayer_meta(cfg: ModelConfig, kind: Tuple[str, str]) -> dict:
     if ffn == "dense":
         m["ffn"] = ffn_mod.ffn_meta(d, cfg.d_ff, cfg.dtype)
         m["norm_ffn"] = rmsnorm_meta(d)
+    elif ffn == "moe":
+        m["moe"] = moe_mod.moe_meta(d, cfg.moe, cfg.dtype)
+        m["norm_ffn"] = rmsnorm_meta(d)
     return m
 
 
 def sublayer_apply(p, x, kind, cfg: ModelConfig, pcfg: ParallelConfig, *,
                    positions, cache=None, cache_len=None,
-                   want_cache: bool = False):
+                   want_cache: bool = False, moe_groups=None):
     """Apply one (mixer, ffn) sub-layer.
 
     Sequence mode: cache is None (no cache wanted, or prefill with
     ``want_cache``).  Decode mode: cache is this sub-layer's ``{"k", "v"}``
     or Mamba state ``{"ssm", "conv_x", "conv_B", "conv_C"}`` and is
-    updated in place.  Returns (y, new_cache_or_None, aux_loss).
+    updated in place.  ``moe_groups``: a MoE FFN's routing group count
+    (``moe.moe_apply``'s ``groups``).  Returns (y, new_cache_or_None,
+    aux_loss).
     """
-    _check_kind(kind)
     mixer, ffn = kind
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache = None
@@ -174,4 +172,10 @@ def sublayer_apply(p, x, kind, cfg: ModelConfig, pcfg: ParallelConfig, *,
     if ffn == "dense":
         h = rmsnorm(x, p["norm_ffn"], cfg.rms_eps)
         x = x + ffn_mod.ffn_apply(p["ffn"], h)
+    elif ffn == "moe":
+        h = rmsnorm(x, p["norm_ffn"], cfg.rms_eps)
+        y, aux = moe_mod.moe_apply(p["moe"], h, cfg.moe,
+                                   capacity_factor=pcfg.moe_capacity_factor,
+                                   groups=moe_groups)
+        x = x + y
     return x, new_cache, aux

@@ -1,19 +1,20 @@
 """Unified model interface: meta / init / loss / prefill / decode / cache,
-and ``params_from_numpy``, which carries a parameter tree across from
-numpy.
+the shapes of a cell's inputs and a concrete batch of them, and
+``params_from_numpy``, which carries a parameter tree across from numpy.
 
-The decoder-only stack with attention or Mamba-2 mixers; encoder-decoder
-configs raise "not ported yet", and so does a MoE FFN
-(``models/blocks``).
+The decoder-only stack (attention or Mamba-2 mixers, dense or MoE FFNs,
+a vision frontend's prefix embeddings); encoder-decoder configs raise
+"not ported yet".  The modality frontend is a stub, as in the reference:
+a vision batch hands the model precomputed patch embeddings.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict
 
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig, ParallelConfig
+from repro_torch.configs.base import ModelConfig, ParallelConfig, ShapeConfig
 from repro_torch.launch.sharding import (leaves_with_path, materialize,
                                          tree_map)
 from repro_torch.models import transformer
@@ -43,7 +44,8 @@ def loss_fn(params, batch, cfg: ModelConfig, pcfg: ParallelConfig):
 
 def prefill_fn(params, batch, cfg: ModelConfig, pcfg: ParallelConfig):
     _decoder_only(cfg)
-    return transformer.lm_prefill(params, batch["tokens"], cfg, pcfg)
+    return transformer.lm_prefill(params, batch["tokens"], cfg, pcfg,
+                                  prefix_embeds=batch.get("patch_embeds"))
 
 
 def decode_fn(params, cache, cache_len, token, cfg: ModelConfig,
@@ -57,6 +59,58 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
                device=None):
     _decoder_only(cfg)
     return transformer.init_cache(cfg, batch, max_len, dtype, device)
+
+
+def _text_len(cfg: ModelConfig, shape: ShapeConfig) -> int:
+    if cfg.frontend == "vision":
+        return shape.seq_len - cfg.frontend_len
+    return shape.seq_len
+
+
+def batch_shapes(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
+    """(shape, dtype, logical axes) of every model input of a cell, as the
+    reference gives them: a vision cell's ``seq_len`` counts its patch
+    positions, so its text is ``frontend_len`` shorter."""
+    B = shape.global_batch
+    st = _text_len(cfg, shape)
+    tok_ax = ("batch", None)
+    emb_ax = ("batch", None, None)
+    if shape.kind == "decode":
+        return {"token": ((B,), torch.int32, ("batch",)),
+                "cache_len": ((B,), torch.int32, ("batch",))}
+    out = {"tokens": ((B, st), torch.int32, tok_ax)}
+    if shape.kind == "train":
+        out["labels"] = ((B, st), torch.int32, tok_ax)
+    if cfg.frontend == "vision":
+        out["patch_embeds"] = ((B, cfg.frontend_len, cfg.d_model),
+                               torch.bfloat16, emb_ax)
+    if cfg.frontend == "audio":
+        out["frame_embeds"] = ((B, cfg.frontend_len, cfg.d_model),
+                               torch.bfloat16, emb_ax)
+    return out
+
+
+def concrete_batch(cfg: ModelConfig, shape: ShapeConfig,
+                   generator: torch.Generator, device=None):
+    """A concrete batch of a cell's inputs drawn from ``generator`` (on
+    ``device``, the generator's by default): token ids uniform over the
+    vocab, a decode cell's ``cache_len`` at ``seq_len - 1``, embeddings
+    N(0, 1) in bfloat16."""
+    device = torch.device(device if device is not None
+                          else generator.device)
+    out = {}
+    for name, (shp, dt, _) in batch_shapes(cfg, shape).items():
+        if name == "cache_len":
+            out[name] = torch.full(shp, max(shape.seq_len - 1, 1),
+                                   dtype=dt, device=device)
+        elif dt == torch.int32:
+            out[name] = torch.randint(0, cfg.vocab_size, shp,
+                                      generator=generator, dtype=dt,
+                                      device=device)
+        else:
+            out[name] = torch.randn(shp, generator=generator,
+                                    device=device).to(dt)
+    return out
 
 
 def param_counts(cfg: ModelConfig) -> Dict[str, int]:
@@ -100,5 +154,6 @@ def params_from_numpy(tree, device=None):
     return tree_map(one, tree)
 
 
-__all__ = ["decode_fn", "init_cache", "init_params", "loss_fn", "model_meta",
-           "param_counts", "params_from_numpy", "prefill_fn"]
+__all__ = ["batch_shapes", "concrete_batch", "decode_fn", "init_cache",
+           "init_params", "loss_fn", "model_meta", "param_counts",
+           "params_from_numpy", "prefill_fn"]

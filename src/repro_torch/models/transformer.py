@@ -1,13 +1,15 @@
 """Decoder-only LM: stacked layer groups, prefill and decode.
 
 Layers are stacked in *groups* of one interleave period, as in the
-reference (period 1 for a uniform dense arch: group g is layer g), so a
-parameter tree and a cache tree read the same in both packages: every
+reference (period 1 for a uniform arch: group g is layer g; 8 for
+jamba's 1:7 attention:mamba interleave with MoE every second layer), so
+a parameter tree and a cache tree read the same in both packages: every
 leaf under ``layers`` leads with the group axis.  The reference scans the
 groups (``lax.scan``); here a Python loop walks them.  Training
-(``lm_loss``) recomputes each group in its backward when ``pcfg.remat``
-is ``"block"`` (the reference's ``jax.checkpoint`` of the group body),
-through ``torch.utils.checkpoint``.
+(``lm_loss``) recomputes each group in its backward unless ``pcfg.remat``
+is ``"none"`` (the reference's ``jax.checkpoint`` of the group body),
+through ``torch.utils.checkpoint``; ``"group:k"`` also checkpoints each
+run of k consecutive groups around that, keeping one residual per run.
 """
 from __future__ import annotations
 
@@ -115,20 +117,30 @@ def _groups(tree, n: int) -> list:
 
 
 def lm_forward(params, tokens, cfg: ModelConfig, pcfg: ParallelConfig, *,
-               want_cache: bool = False):
-    """tokens: [B, S].  Returns (hidden [B, S, d], cache, aux); the
-    cache's leaves lead with the group axis: attention's k/v [groups, B,
-    S, kv*dh], a Mamba layer's state (``init_cache``).  With ``pcfg.remat ==
-    "block"`` and no cache wanted, a forward that autograd records keeps
-    only each group's input and recomputes the group in the backward.
-    (The reference's prefix embeddings come with the vision and audio
-    frontends.)"""
+               prefix_embeds=None, want_cache: bool = False):
+    """tokens: [B, S_text]; ``prefix_embeds`` [B, F, d] (a vision
+    frontend's patch embeddings) go ahead of the token embeddings, the
+    positions running over the whole sequence.  Returns (hidden [B,
+    S_total, d], cache, aux); the cache's leaves lead with the group
+    axis: attention's k/v [groups, B, S_total, kv*dh], a Mamba layer's
+    state (``init_cache``).  With ``pcfg.remat`` other than ``"none"`` and
+    no cache wanted, a forward that autograd records keeps only each
+    group's input and recomputes the group in the backward; with
+    ``"group:k"`` it keeps only each run of k groups' input, the run
+    recomputed (each group again checkpointed) in the backward."""
     kinds = layer_kinds(cfg)
-    remat_on = pcfg.remat != "none" and not want_cache
-    if remat_on and pcfg.remat != "block":
-        raise NotImplementedError(
-            f"remat {pcfg.remat!r} is not ported yet (only 'block')")
+    G = n_groups(cfg)
+    remat_on = pcfg.remat != "none" and not want_cache \
+        and torch.is_grad_enabled()
+    k = 1
+    if remat_on and pcfg.remat.startswith("group:"):
+        k = int(pcfg.remat.split(":")[1])
+        if G % k:
+            raise ValueError(f"remat {pcfg.remat!r}: {G} groups do not "
+                             f"split into runs of {k}")
     h = embed_lookup(params["embed"], tokens, pcfg)
+    if prefix_embeds is not None:
+        h = torch.cat([prefix_embeds.to(h.dtype), h], dim=1)
     S = h.shape[1]
     positions = torch.arange(S, device=h.device)[None, :]
 
@@ -142,16 +154,28 @@ def lm_forward(params, tokens, cfg: ModelConfig, pcfg: ParallelConfig, *,
             gc[f"sub{j}"] = c
         return h, aux, gc
 
+    def run(h, aux, gps):
+        for gp in gps:
+            h, aux, _ = checkpoint(group_body, h, aux, gp,
+                                   use_reentrant=False,
+                                   preserve_rng_state=False)
+        return h, aux
+
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     caches = []
-    for gp in _groups(params["layers"], n_groups(cfg)):
-        if remat_on and torch.is_grad_enabled():
-            h, aux, gc = checkpoint(group_body, h, aux, gp,
+    groups = _groups(params["layers"], G)
+    if remat_on:
+        for i in range(0, G, k):
+            if k > 1:
+                h, aux = checkpoint(run, h, aux, groups[i:i + k],
                                     use_reentrant=False,
                                     preserve_rng_state=False)
-        else:
+            else:
+                h, aux = run(h, aux, groups[i:i + 1])
+    else:
+        for gp in groups:
             h, aux, gc = group_body(h, aux, gp)
-        caches.append(gc)
+            caches.append(gc)
     cache = None
     if want_cache:
         cache = {sub: {n: torch.stack([c[sub][n] for c in caches])
@@ -162,11 +186,14 @@ def lm_forward(params, tokens, cfg: ModelConfig, pcfg: ParallelConfig, *,
 
 
 def lm_loss(params, batch, cfg: ModelConfig, pcfg: ParallelConfig):
-    """batch: tokens [B, S], labels [B, S].  Returns the scalar loss."""
-    if batch.get("patch_embeds") is not None:
-        raise NotImplementedError(
-            "prefix embeddings (the vision frontend) are not ported yet")
-    h, _, aux = lm_forward(params, batch["tokens"], cfg, pcfg)
+    """batch: tokens [B, S_text], labels [B, S_text], optional
+    patch_embeds [B, F, d] (whose positions get no loss).  Returns the
+    scalar loss, the MoE layers' aux loss included."""
+    prefix = batch.get("patch_embeds")
+    h, _, aux = lm_forward(params, batch["tokens"], cfg, pcfg,
+                           prefix_embeds=prefix)
+    if prefix is not None:
+        h = h[:, prefix.shape[1]:]
     logits = lm_logits(params, h, cfg)
     return softmax_xent(logits, batch["labels"], cfg.vocab_size) + aux
 
@@ -203,9 +230,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
 # ---------------------------------------------------------------------------
 
 
-def lm_prefill(params, tokens, cfg: ModelConfig, pcfg: ParallelConfig):
-    """Returns (last-position logits [B, V], cache, cache_len [B])."""
-    h, cache, _ = lm_forward(params, tokens, cfg, pcfg, want_cache=True)
+def lm_prefill(params, tokens, cfg: ModelConfig, pcfg: ParallelConfig, *,
+               prefix_embeds=None):
+    """Returns (last-position logits [B, V], cache, cache_len [B]); the
+    cache and its length cover ``prefix_embeds``' positions too."""
+    h, cache, _ = lm_forward(params, tokens, cfg, pcfg,
+                             prefix_embeds=prefix_embeds, want_cache=True)
     logits = lm_logits(params, h[:, -1:], cfg)[:, 0]
     B, S = h.shape[0], h.shape[1]
     return logits, cache, torch.full((B,), S, dtype=torch.int32,
@@ -217,8 +247,8 @@ def lm_decode_step(params, cache, cache_len, token, cfg: ModelConfig,
     """One decode step.  token: [B] int32; cache_len: [B] valid positions.
 
     The cache is updated IN PLACE (the reference threads it through the
-    scan carry, which XLA aliases in place too).  Returns (logits [B, V],
-    cache, cache_len + 1).
+    scan carry, which XLA aliases in place too).  A MoE layer routes the
+    batch as one group.  Returns (logits [B, V], cache, cache_len + 1).
     """
     kinds = layer_kinds(cfg)
     h = embed_lookup(params["embed"], token[:, None], pcfg)
@@ -228,7 +258,7 @@ def lm_decode_step(params, cache, cache_len, token, cfg: ModelConfig,
         for j, kind in enumerate(kinds):
             h, _, _ = blocks.sublayer_apply(
                 gp[f"sub{j}"], h, kind, cfg, pcfg, positions=None,
-                cache=gc[f"sub{j}"], cache_len=cache_len)
+                cache=gc[f"sub{j}"], cache_len=cache_len, moe_groups=1)
     h = rmsnorm(h, params["final_norm"], cfg.rms_eps)
     logits = lm_logits(params, h, cfg)[:, 0]
     return logits, cache, cache_len + 1

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCH_IDS as J_ARCH_IDS
 from repro.configs import ParallelConfig as JParallelConfig
 from repro.configs import get_config as j_get_config
 from repro.configs import smoke_config as j_smoke_config
@@ -301,12 +302,62 @@ def test_materialize_follows_the_init_rules():
 
 
 def test_unported_archs_and_kinds_say_so():
+    """The encoder-decoder family alone still raises "not ported yet";
+    every sub-layer kind a decoder-only config builds, the MoE ones
+    included, has its parameters."""
+    from repro_torch.configs import NOT_PORTED
+    assert NOT_PORTED == ("seamless-m4t-medium",)
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        get_config("jamba-v0.1-52b")
+        get_config("seamless-m4t-medium")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
-    cfg = smoke_config(ARCH)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        BLK.sublayer_meta(cfg, ("mamba", "moe"))
+    cfg = smoke_config("jamba-v0.1-52b")
+    for kind in (("attn", "moe"), ("mamba", "moe")):
+        m = BLK.sublayer_meta(cfg, kind)
+        assert set(m["moe"]) == {"w_router", "w_gate", "w_up", "w_down"}
+        assert "norm_ffn" in m
     with pytest.raises(NotImplementedError, match="not ported yet"):
         ZOO.model_meta(dataclasses.replace(cfg, is_encdec=True))
+
+
+@pytest.mark.parametrize("arch", J_ARCH_IDS)
+def test_smoke_config_is_the_references(arch):
+    """``smoke_config`` reduces every architecture of the JAX package's
+    registry field for field as the reference does (depth by family, the
+    MoE reduction, the hybrid interleave); the port's full configs equal
+    the reference's too."""
+    from repro_torch.configs import NOT_PORTED
+    if arch in NOT_PORTED:
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            smoke_config(arch)
+        return
+    for mine, ref in ((smoke_config(arch), j_smoke_config(arch)),
+                      (get_config(arch), j_get_config(arch))):
+        assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
+
+
+def test_materialize_bounds_its_float32_draw(monkeypatch):
+    """A leaf larger than ``DRAW_CAP_BYTES`` as float32 is drawn in
+    slices no larger than the cap, into its final dtype, and its values
+    keep the init rule's std (scale / sqrt(fan_in))."""
+    from repro_torch.launch.sharding import ParamMeta
+    monkeypatch.setattr(SH, "DRAW_CAP_BYTES", 4096)
+    draws = []
+    randn = torch.randn
+
+    def recording(*shape, **kw):
+        t = randn(*shape, **kw)
+        draws.append(t.numel() * t.element_size())
+        return t
+
+    monkeypatch.setattr(SH.torch, "randn", recording)
+    meta = {"w": ParamMeta((6, 40, 256), (None, None, None), scale=2.0,
+                           dtype="bfloat16"),
+            "b": ParamMeta((100,), (None,), dtype="float32")}
+    out = SH.materialize(meta, torch.Generator().manual_seed(3))
+    assert max(draws) <= 4096
+    assert sum(draws) == 4 * (6 * 40 * 256 + 100)
+    w = out["w"]
+    assert w.dtype == torch.bfloat16 and tuple(w.shape) == (6, 40, 256)
+    assert abs(float(w.float().std()) - 2.0 / 40 ** 0.5) < 0.01
+    assert abs(float(out["b"].std()) - 100 ** -0.5) < 0.03
