@@ -98,8 +98,9 @@ failure exits non-zero and no result line is printed:
      while a reader one step behind must get ``ok`` snapshots equal, leaf
      checksum for leaf checksum, to the previous step's live parameters;
      the losses must be finite and fall; then the same for mamba2-780m
-     (48 layers, 780,222,720 parameters; every layer of every step
-     through ``ssd_scan`` by ``SSDScanFn``, forward and recompute); and
+     for 12 steps (48 layers, 780,222,720 parameters; every layer of
+     every step through ``ssd_scan`` by ``SSDScanFn``, forward and
+     recompute); and
      a supervisor drill at the reduced config (a failure injected at step
      3, checkpoints every 2 steps) must finish with the losses of an
      uninterrupted run;
@@ -176,6 +177,19 @@ failure exits non-zero and no result line is printed:
      layers) and deepseek-7b, minitron-4b and mistral-large-123b (2
      layers each) one prefill of 4 x 512 tokens and 4 decode steps each:
      finite logits and one ``flash_attention`` launch per attention layer;
+     then the encoder-decoder family (``seamless_phase``, 9b):
+     seamless-m4t-medium at 2 encoder and 2 decoder layers over 2 x 256
+     seeded frame embeddings, held as phase 3 holds qwen2.5-3b (each card
+     prefill one ``flash_attention`` an encoder layer, two a decoder
+     layer); served at full width and depth (977,860,608 parameters,
+     bf16) from Mode-U snapshots through ``make_prefill_step`` /
+     ``make_decode_step`` (4 x 4096 bf16 frame embeddings, 4 x 512
+     tokens, 32 greedy steps: every step ``ok``, the live parameters'
+     tokens, 36 ``flash_attention`` launches a prefill, one
+     ``snapshot_select`` a block a step; its idle share traced); and
+     trained by ``Trainer`` for 10 Mode-U fused steps beside the data
+     pipeline's float32 frames (the encoder in float32), gated as phase
+     4's trainers;
  10. the card's idle share: four of the trials run again under a profiler
      trace of their GPU activity for 2 s (each server, qwen2.5-3b's,
      mamba2-780m's and jamba-v0.1-52b's, is traced for 3 s after its
@@ -2159,6 +2173,12 @@ FLASH_CASES = {
     "d256_ragged_f32": (1, 200, 200, 8, 1, 256, True, "float32"),
     # a seamless-style cross-attention: 100 queries over 77 keys
     "cross_d64_bf16": (2, 100, 77, 16, 16, 64, False, "bfloat16"),
+    # seamless-m4t-medium at full width (its serving trial's prefill): the
+    # encoder over 4096 frames, and the decoder's 512 tokens over them
+    "seamless_encoder_4096": (4, 4096, 4096, 16, 16, 64, False,
+                              "bfloat16"),
+    "seamless_cross_512x4096": (4, 512, 4096, 16, 16, 64, False,
+                                "bfloat16"),
     # a head dim the 64-wide padding leaves ragged
     "ragged_d40_bf16": (2, 100, 77, 4, 1, 40, False, "bfloat16"),
     # rows not 16-byte aligned (D % 8 != 0): masked element loads/stores
@@ -2208,6 +2228,9 @@ def flash_checks(torch, dev):
             raise Failed(f"flash_attention != plain ({name}): {e}")
         pairs = Sq * (Sq + 1) // 2 if causal else Sq * Sk
         ops = 4 * B * H * D * pairs
+        # the plain version at seamless's encoder size takes ~50 ms a call
+        plain_iters = dict(iters=10, warm=2) if B * H * pairs > 2 ** 28 \
+            else dict(iters=50, warm=5)
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         t_ops = ops / PEAK_OPS_PER_S[dt] * 1e3
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -2219,7 +2242,7 @@ def flash_checks(torch, dev):
                   f"{'causal' if causal else 'non-causal'} {dt}",
             max_abs_err=err, tolerance=TOLERANCE[dt],
             plain_ms=time_ms(torch, lambda: FA.flash_attention_plain(
-                q, k, v, causal=causal), iters=50, warm=5),
+                q, k, v, causal=causal), **plain_iters),
             library_ms=time_ms(torch, lambda: sdpa(
                 qt, kt, vt, is_causal=causal, enable_gqa=True)),
             library="scaled_dot_product_attention(enable_gqa=True)",
@@ -3382,9 +3405,12 @@ JAMBA = "jamba-v0.1-52b"
 PALIGEMMA = "paligemma-3b"
 SCOUT = "llama4-scout-17b-a16e"
 DENSE = ("deepseek-7b", "minitron-4b", "mistral-large-123b")
+SEAMLESS = "seamless-m4t-medium"
 BATCH, PROMPT, GEN, REQUESTS = 4, 512, 32, 8
 #: each trained model: its sequence kernel, launched once per layer
-PREFILL_KERNEL = {ARCH: "flash_attention", MAMBA: "ssd_scan"}
+#: (per attention of an encoder-decoder: ``prefill_launches``)
+PREFILL_KERNEL = {ARCH: "flash_attention", MAMBA: "ssd_scan",
+                  SEAMLESS: "flash_attention"}
 #: the families phase's depth cuts (full width; one card does not hold
 #: the whole model): jamba one interleave period of its 32 layers (13.3 B
 #: of 52 B parameters), llama4-scout 4 of 48 layers (10.9 B), the dense
@@ -3393,6 +3419,8 @@ DEPTH = {JAMBA: 8, SCOUT: 4, "deepseek-7b": 2, "minitron-4b": 2,
          "mistral-large-123b": 2}
 #: the vision prefix the model check puts ahead of paligemma's tokens
 PATCHES = {PALIGEMMA: 256}
+#: the frame embeddings the model check hands seamless-m4t-medium's encoder
+FRAMES = {SEAMLESS: 256}
 
 
 def _config(arch):
@@ -3416,9 +3444,13 @@ def _reduced(arch):
 def prefill_launches(cfg) -> dict:
     """The kernel launches one prefill of ``cfg`` makes: one
     ``flash_attention`` an attention layer, one ``ssd_scan`` a Mamba
-    layer (whatever the batch: a launch takes every row)."""
+    layer (whatever the batch: a launch takes every row); an
+    encoder-decoder's ``flash_attention`` once an encoder layer and twice
+    a decoder layer (self and cross)."""
     from repro_torch.models.transformer import layer_kinds, n_groups
 
+    if cfg.is_encdec:
+        return {"flash_attention": cfg.n_encoder_layers + 2 * cfg.n_layers}
     out = defaultdict(int)
     for mixer, _ in layer_kinds(cfg):
         out["flash_attention" if mixer == "attn" else "ssd_scan"] += \
@@ -3434,11 +3466,17 @@ def free_card(torch):
 
 def _grow(torch, cache, extra):
     """A prefill cache with ``extra`` zeroed positions appended to its
-    k/v leaves (a Mamba state has no sequence axis)."""
-    return {sub: {n: torch.cat([t, t.new_zeros(t.shape[:2] + (extra,)
-                                               + t.shape[3:])], dim=2)
-                  if n in ("k", "v") else t
-                  for n, t in kv.items()} for sub, kv in cache.items()}
+    self-attention k/v leaves (a Mamba state has no sequence axis; an
+    encoder-decoder's ``cross_k``/``cross_v`` keep the frames')."""
+    def grow(n, t):
+        if isinstance(t, dict):
+            return {m: grow(m, u) for m, u in t.items()}
+        if n not in ("k", "v"):
+            return t
+        return torch.cat([t, t.new_zeros(t.shape[:2] + (extra,)
+                                         + t.shape[3:])], dim=2)
+
+    return {n: grow(n, t) for n, t in cache.items()}
 
 
 class _Routes:
@@ -3505,7 +3543,13 @@ def model_check(torch, dev, arch=ARCH, prompt=(2, 64)):
     cache write, decay, state carry, dispatch, combine) moves logits by
     0.1-1; bf16 rounding by ~0.01.  qwen2.5-3b runs 2 x 64 tokens;
     mamba2-780m 2 x 512, two chunks of 256, so the scan's state also
-    crosses a chunk inside the kernel before decode takes it over."""
+    crosses a chunk inside the kernel before decode takes it over.
+    seamless-m4t-medium (2 encoder and 2 decoder layers) runs 2 x 64
+    tokens over ``FRAMES`` seeded frame embeddings, bf16 and, for the
+    float32 runs, upcast (frames narrower than the weights would change
+    the encoder's carry dtype, which the reference refuses); each card
+    prefill launches ``flash_attention`` once an encoder layer and twice
+    a decoder layer."""
     from repro_torch import kernels as K
     from repro_torch.configs import ParallelConfig, get_config
     from repro_torch.launch.sharding import tree_map
@@ -3525,6 +3569,10 @@ def model_check(torch, dev, arch=ARCH, prompt=(2, 64)):
         batch["patch_embeds"] = torch.from_numpy(rng.standard_normal(
             (prompt[0], PATCHES[arch], cfg16.d_model), dtype=np.float32)
         ).to(torch.bfloat16)
+    if arch in FRAMES:
+        batch["frame_embeds"] = torch.from_numpy(rng.standard_normal(
+            (prompt[0], FRAMES[arch], cfg16.d_model), dtype=np.float32)
+        ).to(torch.bfloat16)
     moe = bool(cfg16.moe.num_experts)
     routes = _Routes(torch, pinned=("cpu16", "card16") if moe else ())
     runs = {}
@@ -3533,9 +3581,11 @@ def model_check(torch, dev, arch=ARCH, prompt=(2, 64)):
         for name, cfg, d in (("cpu32", cfg32, "cpu"), ("cpu16", cfg16, "cpu"),
                              ("card32", cfg32, dev), ("card16", cfg16, dev)):
             p = tree_map(lambda t: t.to(d), p32 if cfg is cfg32 else p16)
+            b = {k: v.to(d) for k, v in batch.items()}
+            if "frame_embeds" in b and cfg is cfg32:
+                b["frame_embeds"] = b["frame_embeds"].float()
             routes.run = name
-            logits, cache, clen = zoo.prefill_fn(
-                p, {k: v.to(d) for k, v in batch.items()}, cfg, pcfg)
+            logits, cache, clen = zoo.prefill_fn(p, b, cfg, pcfg)
             runs[name] = [logits, _grow(torch, cache, 4), clen, p, cfg, d]
         for kernel, n in prefill_launches(cfg16).items():
             check(K.launch_counts()[kernel] == 2 * n,
@@ -3578,7 +3628,8 @@ def model_check(torch, dev, arch=ARCH, prompt=(2, 64)):
                 r[0], r[1], r[2] = zoo.decode_fn(r[3], r[1], r[2],
                                                  tok.to(r[5]), r[4], pcfg)
     out = {"model_check": arch, "layers": 2, "prompt": list(prompt),
-           "prefix_embeds": PATCHES.get(arch, 0), "decode_steps": 4,
+           "prefix_embeds": PATCHES.get(arch, 0),
+           "frame_embeds": FRAMES.get(arch, 0), "decode_steps": 4,
            "f32_tolerance": TOLERANCE["float32"],
            "f32_greedy_tokens_equal": True, "steps": steps}
     if moe:
@@ -3897,6 +3948,161 @@ def families_phase(torch, dev):
     return totals
 
 
+def encdec_serving_trial(torch, launches, arch=SEAMLESS,
+                         idle_window_s=2.5):
+    """``arch`` (seamless-m4t-medium) at full width and depth, bf16,
+    weights drawn on the card from ``SEED`` into an MVStore in Mode U
+    (every block versioned, 2 ring slots), served the way the reference
+    can serve the family (its ``Server`` hands a prefill no frame
+    embeddings): ``make_prefill_step`` over a ``concrete_batch`` of 4 x
+    4096 bf16 frame embeddings and 4 x 512 tokens, then 32 greedy
+    ``make_decode_step`` steps, all at read clock 0.  Launch counters are
+    set to 0 just before (after one warm-up prefill) and read just after.
+    Gates: every step ``ok``, finite logits, the tokens of the same calls
+    on the live parameters, 36 ``flash_attention`` launches in the
+    prefill (12 encoder, 12 decoder self, 12 cross) and one
+    ``snapshot_select`` a versioned block a step.  Records the init,
+    prefill and per-step times (host clock, each ending in a sync), the
+    peak memory and, over ``idle_window_s`` of further prefills and
+    decode steps under a profiler trace, the card's idle share."""
+    from torch.profiler import ProfilerActivity
+
+    from repro_torch import kernels as K
+    from repro_torch.configs import (MVStoreConfig, ParallelConfig,
+                                     ShapeConfig, get_config)
+    from repro_torch.core import mvstore
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import model_zoo as zoo
+
+    cfg = get_config(arch)
+    pcfg = ParallelConfig(remat="none", attn_block_q=PROMPT,
+                          attn_block_k=PROMPT)
+    mvcfg = MVStoreConfig(mode="U", ring_slots=2)
+    gen = torch.Generator(device=CARD).manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mv = mvstore.mv_init(zoo.init_params(cfg, gen), mvcfg, versioned="all")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    batch = zoo.concrete_batch(cfg, ShapeConfig("serve_encdec", PROMPT,
+                                                BATCH, "prefill"), gen)
+    prefill = steps_mod.make_prefill_step(cfg, pcfg, mvcfg)
+    decode = steps_mod.make_decode_step(cfg, pcfg, mvcfg)
+    rc = mv.clock
+
+    def generate(step_s=None):
+        """The prefill and GEN decode steps from the snapshot at ``rc``:
+        (greedy tokens [B, GEN], the steps' ok flags, finite flags)."""
+        t0 = time.perf_counter()
+        logits, cache, clen, ok = prefill(mv, batch, rc)
+        cache, toks, oks = _grow(torch, cache, GEN), [], [ok]
+        finite = [torch.isfinite(logits).all()]
+        if step_s is not None:
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        for _ in range(GEN):
+            t0 = time.perf_counter()
+            toks.append(torch.argmax(logits, dim=-1).to(torch.int32))
+            logits, cache, clen, ok = decode(mv, cache, clen, toks[-1], rc)
+            oks.append(ok)
+            finite.append(torch.isfinite(logits).all())
+            if step_s is not None:
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+        return torch.stack(toks, 1), torch.stack(oks), torch.stack(finite)
+
+    with torch.no_grad():
+        prefill(mv, batch, rc)                            # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        step_s = []
+        toks, oks, finite = generate(step_s)
+        counts = K.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        for k, v in counts.items():
+            launches[k] += v
+        logits, cache, clen = zoo.prefill_fn(mv.live, batch, cfg, pcfg)
+        cache, live = _grow(torch, cache, GEN), []
+        for _ in range(GEN):
+            live.append(torch.argmax(logits, dim=-1).to(torch.int32))
+            logits, cache, clen = zoo.decode_fn(mv.live, cache, clen,
+                                                live[-1], cfg, pcfg)
+        same = bool(torch.equal(toks, torch.stack(live, 1)))
+        del logits, cache
+        prof = torch.profiler.profile(activities=[ProfilerActivity.CUDA])
+        prof.start()
+        t0, rounds = time.perf_counter(), 0
+        while time.perf_counter() - t0 < idle_window_s:
+            generate()
+            rounds += 1
+        torch.cuda.synchronize()
+        window = time.perf_counter() - t0
+        prof.stop()
+    K.reset_launch_counts()
+    gpu = gpu_events(prof)
+    busy_us = sum(e["dur"] for e in gpu)
+    n_blocks = len(mv.ring)
+    row = {"trial": f"serve_{arch}", "mode": "U", "ring_slots": 2,
+           "route": "make_prefill_step / make_decode_step",
+           "batch": BATCH, "frames": cfg.frontend_len,
+           "frames_dtype": str(batch["frame_embeds"].dtype),
+           "prompt_len": PROMPT, "gen": GEN, "layers":
+           [cfg.n_encoder_layers, cfg.n_layers],
+           "params": zoo.param_counts(cfg)["total"],
+           "versioned_blocks": n_blocks, "init_s": init_s,
+           "init_max_memory_allocated": init_peak,
+           "prefill_s": step_s[0],
+           "per_token_ms_p50": float(np.percentile(step_s[1:], 50)) * 1e3,
+           "per_token_ms_p99": float(np.percentile(step_s[1:], 99)) * 1e3,
+           "tokens_per_s": BATCH * GEN / sum(step_s[1:]),
+           "steps_ok": int(oks.sum()), "steps": GEN + 1,
+           "tokens_equal_live": same,
+           "max_memory_allocated": peak, "launches": counts,
+           "trace_window_s": window, "trace_rounds": rounds,
+           "gpu_events": len(gpu),
+           "device_busy_ms": busy_us / 1e3 if gpu else None,
+           "device_idle_share": 1 - busy_us / 1e3 / (window * 1e3)
+           if gpu else None,
+           "flash_attention_ms": kernel_us(
+               gpu, DEVICE_KERNELS["flash_attention"]) / 1e3
+           if gpu else None}
+    emit(row)
+    check(bool(oks.all()), f"serve {arch}: a snapshot step was not ok")
+    check(bool(finite.all()), f"serve {arch}: non-finite logits")
+    check(same, f"serve {arch}: the snapshot's tokens differ from the "
+                "live parameters'")
+    want = prefill_launches(cfg)["flash_attention"]
+    check(counts["flash_attention"] == want,
+          f"serve {arch}: {counts['flash_attention']} flash_attention "
+          f"launches in a prefill of {want} attentions")
+    check(counts["snapshot_select"] == n_blocks * (GEN + 1),
+          f"serve {arch}: {counts['snapshot_select']} snapshot_select "
+          f"launches for {n_blocks} blocks x {GEN + 1} steps")
+    del mv, batch
+    free_card(torch)
+    return row
+
+
+def seamless_phase(torch, dev):
+    """The encoder-decoder family at full width: seamless-m4t-medium card =
+    CPU (``model_check``, 2 encoder and 2 decoder layers over 2 x 256
+    frames), served from Mode-U snapshots (``encdec_serving_trial``) and
+    trained (``train_trial``, ``SEAMLESS_TRAIN_STEPS`` steps, AdamW
+    warming up over ``SEAMLESS_WARMUP``, one step traced: a step takes
+    ~2.9 s).  Returns
+    the launch totals of the trials."""
+    t0 = time.perf_counter()
+    totals = defaultdict(int)
+    model_check(torch, dev, arch=SEAMLESS)
+    encdec_serving_trial(torch, totals)
+    train_trial(torch, totals, arch=SEAMLESS, steps=SEAMLESS_TRAIN_STEPS,
+                warmup=SEAMLESS_WARMUP, trace_s=0.0)
+    emit({"seamless_phase_seconds": time.perf_counter() - t0})
+    return totals
+
+
 # ---------------------------------------------------------------------------
 # the trainer: qwen2.5-3b trained into the MVStore
 # ---------------------------------------------------------------------------
@@ -4047,31 +4253,66 @@ def _checksums(torch, tree):
     return {p: (int(a), int(b)) for p, (a, b) in out.items()}
 
 
+def flash_f32_split(gpu, steps):
+    """Per step of a traced training window: the device ms of
+    ``flash_attention``'s float32 (FMA) launches, and of those among them
+    with the largest grid (an encoder-decoder's encoder over its frames:
+    more query tiles than the cross-attention's text), from the trace's
+    kernel records (None without grid records)."""
+    fma = [e for e in gpu if e["cat"] == "kernel"
+           and "flash_attention_kernel_fma" in e["name"]]
+    grids = [int(np.prod(e.get("args", {}).get("grid", [0]))) for e in fma]
+    big = max(grids, default=0)
+    return {"flash_f32_launches": len(fma),
+            "flash_f32_device_ms_per_step":
+                sum(e["dur"] for e in fma) / 1e3 / steps,
+            "flash_f32_largest_grid": big or None,
+            "flash_f32_largest_grid_device_ms_per_step":
+                sum(e["dur"] for e, g in zip(fma, grids) if g == big)
+                / 1e3 / steps if big else None}
+
+
 #: each trained model's parameter count at full width and depth
-TRAIN_PARAMS = {ARCH: 3_397_627_904, MAMBA: 780_222_720}
+TRAIN_PARAMS = {ARCH: 3_397_627_904, MAMBA: 780_222_720,
+                SEAMLESS: 977_860_608}
+#: seamless-m4t-medium's training steps (its step is ~4x qwen2.5-3b's),
+#: and the AdamW warm-up that lets a loss fall within them: at the
+#: ``Trainer``'s default of 10 warm-up steps, qwen2.5-3b's and
+#: mamba2-780m's losses held flat through their first 10 steps
+SEAMLESS_TRAIN_STEPS, SEAMLESS_WARMUP = 10, 2
+#: mamba2-780m's training steps (20 until the seamless phase joined the
+#: run; its loss falls from step 10, as the warm-up ends)
+MAMBA_TRAIN_STEPS = 12
 
 
-def train_trial(torch, launches, arch=ARCH):
+def train_trial(torch, launches, arch=ARCH, steps=TRAIN_STEPS, warmup=10,
+                trace_s=3.0):
     """``Trainer`` over ``arch`` at full width and depth (bfloat16,
-    random weights from ``SEED``, 4 x 512 tokens a step) for 20 steps
+    random weights from ``SEED``, 4 x 512 tokens a step; for
+    seamless-m4t-medium beside the data pipeline's 4096 float32 frame
+    embeddings, so its encoder runs in float32) for ``steps`` steps
     under ``TrainSupervisor.run`` (checkpoints beyond the last step: one
-    would be 40 GB of ``.npy`` for qwen2.5-3b), Mode U with the fused
-    commit and a 2-slot ring.  Launch counters are set to 0 just before
+    would be 40 GB of ``.npy`` for qwen2.5-3b), AdamW warming up over
+    ``warmup`` steps (the ``Trainer``'s default 10), Mode U with the
+    fused commit and a 2-slot ring.  Launch counters are set to 0 just before
     the run and read just after; every step must launch ``fused_adamw``
     once per leaf and the arch's sequence kernel (``flash_attention``,
     or ``ssd_scan`` through ``SSDScanFn``) at least twice per layer
-    (forward and recompute).
+    (forward and recompute; an encoder-decoder's 36 attentions).
     After each step a reader one step behind must get an ``ok`` snapshot
-    whose leaf checksums are the previous step's live ones.  Then a 3 s
-    window of further steps under a profiler trace (idle share, the
+    whose leaf checksums are the previous step's live ones.  Then a
+    window of further steps (at least one, for ``trace_s``) under a
+    profiler trace (idle share, the
     device time per step of ``fused_adamw`` and of the sequence
-    kernel)."""
+    kernel; for ``flash_attention`` also of its float32 (FMA) launches,
+    and of those with the largest grid: an encoder-decoder's encoder)."""
     from torch.profiler import ProfilerActivity
 
     from repro_torch import kernels as K
     from repro_torch.configs import MVStoreConfig, ShapeConfig, get_config
     from repro_torch.core import mvstore
     from repro_torch.launch.train import Trainer
+    from repro_torch.optim import adamw
     from repro_torch.runtime.fault_tolerance import TrainSupervisor
 
     cfg = get_config(arch)
@@ -4080,6 +4321,7 @@ def train_trial(torch, launches, arch=ARCH):
     trainer = Trainer(cfg, ShapeConfig("train_chip", TRAIN_SEQ, TRAIN_BATCH,
                                        "train"),
                       mvcfg=MVStoreConfig(mode="U", fused_commit=True),
+                      opt_cfg=adamw.AdamWConfig(warmup_steps=warmup),
                       seed=SEED)
     state, trainer.state = trainer.state, None
     torch.cuda.synchronize()
@@ -4103,7 +4345,7 @@ def train_trial(torch, launches, arch=ARCH):
         mark[0] = time.perf_counter()
 
     ckpt_dir = os.path.join(HERE, "build", "train_ckpt")
-    sup = TrainSupervisor(ckpt_dir=ckpt_dir, ckpt_every=TRAIN_STEPS + 1,
+    sup = TrainSupervisor(ckpt_dir=ckpt_dir, ckpt_every=steps + 1,
                           reader=trainer.snapshot_reader())
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -4113,7 +4355,7 @@ def train_trial(torch, launches, arch=ARCH):
     try:
         step, state = sup.run(state=state, train_step=trainer.train_step,
                               batch_at=trainer.batch_at,
-                              n_steps=TRAIN_STEPS, on_step=on_step)
+                              n_steps=steps, on_step=on_step)
     finally:
         sup.manager.close()
         shutil.rmtree(ckpt_dir, ignore_errors=True)
@@ -4129,6 +4371,7 @@ def train_trial(torch, launches, arch=ARCH):
     tokens = TRAIN_SEQ * TRAIN_BATCH
     row = {"trial": f"train_{arch}", "mode": "U", "fused_commit": True,
            "ring_slots": 2, "seq": TRAIN_SEQ, "batch": TRAIN_BATCH,
+           "warmup_steps": warmup,
            "steps": step, "params": n_params, "leaves": n_leaves,
            "init_s": init_s, "seconds": dt, "losses": losses,
            "first_step_s": step_s[0],
@@ -4143,27 +4386,27 @@ def train_trial(torch, launches, arch=ARCH):
            "launches": counts}
     check(n_params == TRAIN_PARAMS[arch],
           f"train {arch}: {n_params} parameters")
-    check(step == TRAIN_STEPS and sup.restarts == 0,
+    check(step == steps and sup.restarts == 0,
           f"train: {step} steps, {sup.restarts} restarts: {sup.events}")
     check(all(np.isfinite(losses)), f"train: a loss is not finite: {losses}")
     check(np.mean(losses[-5:]) < np.mean(losses[:5]),
           f"train: the loss did not fall: {losses}")
     check(all(snaps), "train: a one-behind snapshot was not ok or not the "
                       f"previous step's parameters: {snaps}")
-    check(counts["fused_adamw"] == n_leaves * TRAIN_STEPS,
+    check(counts["fused_adamw"] == n_leaves * steps,
           f"train: {counts['fused_adamw']} fused_adamw launches for "
-          f"{n_leaves} leaves x {TRAIN_STEPS} steps")
-    check(counts[seq_kernel] >= 2 * cfg.n_layers * TRAIN_STEPS,
+          f"{n_leaves} leaves x {steps} steps")
+    layers = prefill_launches(cfg)[seq_kernel]
+    check(counts[seq_kernel] >= 2 * layers * steps,
           f"train: {counts[seq_kernel]} {seq_kernel} launches for "
-          f"{cfg.n_layers} layers x (forward + recompute) x "
-          f"{TRAIN_STEPS} steps")
+          f"{layers} layers x (forward + recompute) x {steps} steps")
     check(counts["snapshot_select"] > 0, "train: no snapshot_select launch")
 
     # phase 9's window, taken while the trainer is up
     prof = torch.profiler.profile(activities=[ProfilerActivity.CUDA])
     prof.start()
     t0, n, enqueue = time.perf_counter(), 0, 0.0
-    while time.perf_counter() - t0 < 3.0:
+    while not n or time.perf_counter() - t0 < trace_s:
         t1 = time.perf_counter()
         state, metrics = trainer.train_step(state, trainer.batch_at(step + n))
         enqueue += time.perf_counter() - t1
@@ -4188,6 +4431,8 @@ def train_trial(torch, launches, arch=ARCH):
                 if ev else None,
                 f"{seq_kernel}_device_ms_per_step": seq_us / 1e3 / n
                 if ev else None})
+    if seq_kernel == "flash_attention" and ev:
+        row.update(flash_f32_split(gpu, n))
     emit(row)
     K.reset_launch_counts()
     return row
@@ -4309,9 +4554,11 @@ class _MirrorHits:
     which the mirror resolved at least one word
     (``MultiversePolicy._bulk_versioned_gather``) into a batch on the
     card: each such batch writes its hits with one ``scatter_write``
-    launch.  Whether a
-    batch has hits depends on a writer racing the read, so a timed run
-    may have none.  ``take()`` returns the count since the last call."""
+    launch.  A call's hits are the entries its own ``ok`` array turned
+    True (the policy's shared hit counter would also show another
+    thread's hits landing during the call).  Whether a batch has hits
+    depends on a writer racing the read, so a timed run may have none.
+    ``take()`` returns the count since the last call."""
 
     def __init__(self):
         self.batches = 0
@@ -4323,10 +4570,10 @@ class _MirrorHits:
 
         inner = MultiversePolicy._bulk_versioned_gather
 
-        def counted(policy, eng, addrs, vals, *a):
-            before = policy.stats_version_gather_hits
-            out = inner(policy, eng, addrs, vals, *a)
-            self.batches += (policy.stats_version_gather_hits > before
+        def counted(policy, eng, addrs, vals, ok, *a):
+            misses = int((~ok).sum())
+            out = inner(policy, eng, addrs, vals, ok, *a)
+            self.batches += (int((~out[1]).sum()) < misses
                              and isinstance(vals, torch.Tensor)
                              and vals.is_cuda)
             return out
@@ -6157,7 +6404,7 @@ def main() -> int:
     free_card(torch)
     lap("servers")
     train_trial(torch, launches)
-    train_trial(torch, launches, arch=MAMBA)
+    train_trial(torch, launches, arch=MAMBA, steps=MAMBA_TRAIN_STEPS)
     supervisor_drill(torch)
     lap("trainers")
     t0 = time.perf_counter()
@@ -6170,7 +6417,9 @@ def main() -> int:
                         ("phase7_reliability", reliability_phase),
                         ("phase8_serving", serving_phase),
                         ("phase9_families",
-                         lambda torch: families_phase(torch, dev))):
+                         lambda torch: families_phase(torch, dev)),
+                        ("phase9b_seamless",
+                         lambda torch: seamless_phase(torch, dev))):
         for k, v in phase(torch).items():
             launches[k] += v
         lap(name)

@@ -2,10 +2,10 @@
 (``paper_stm.MultiverseParams``), the store's ``base.MVStoreConfig`` and
 the model registry.
 
-``get_config('<arch-id>')`` takes the architectures the port serves
-(``REGISTRY``: every decoder-only family of the JAX package); its
-encoder-decoder architecture raises "not ported yet".  ``smoke_config``
-reduces a config exactly as the reference does, for CPU tests.
+``get_config('<arch-id>')`` takes every architecture of the JAX
+package's registry (``REGISTRY``: the decoder-only families and the
+encoder-decoder seamless-m4t-medium).  ``smoke_config`` reduces a config
+exactly as the reference does, for CPU tests.
 """
 from __future__ import annotations
 
@@ -15,7 +15,7 @@ from repro_torch.configs import (deepseek_7b, jamba_v0_1_52b,
                                  llama4_scout_17b_a16e, mamba2_780m,
                                  minitron_4b, mistral_large_123b,
                                  moonshot_v1_16b_a3b, paligemma_3b,
-                                 qwen2_5_3b)
+                                 qwen2_5_3b, seamless_m4t_medium)
 from repro_torch.configs.base import (
     SHAPES,
     MambaConfig,
@@ -31,21 +31,20 @@ REGISTRY: dict[str, ModelConfig] = {
     m.CONFIG.name: m.CONFIG
     for m in (jamba_v0_1_52b, paligemma_3b, qwen2_5_3b, deepseek_7b,
               mistral_large_123b, minitron_4b, mamba2_780m,
-              llama4_scout_17b_a16e, moonshot_v1_16b_a3b)}
+              llama4_scout_17b_a16e, moonshot_v1_16b_a3b,
+              seamless_m4t_medium)}
 
 ARCH_IDS = sorted(REGISTRY)
 
 #: the JAX package's architectures that the port does not serve yet
-NOT_PORTED = ("seamless-m4t-medium",)
+NOT_PORTED = ()
 
 
 def get_config(name: str) -> ModelConfig:
-    if name in REGISTRY:
-        return REGISTRY[name]
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported yet; ported: {', '.join(ARCH_IDS)}")
-    raise KeyError(f"unknown arch {name!r}; available: {', '.join(ARCH_IDS)}")
+    if name not in REGISTRY:
+        raise KeyError(
+            f"unknown arch {name!r}; available: {', '.join(ARCH_IDS)}")
+    return REGISTRY[name]
 
 
 def get_shape(name: str) -> ShapeConfig:

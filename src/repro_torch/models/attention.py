@@ -21,7 +21,10 @@ that has silently lost its graph.
 
 Products of bf16 inputs are taken in f32 (the reference's
 ``preferred_element_type=float32``); softmax weights are cast to v's
-dtype before ``p . v``, which sums in f32.
+dtype before ``p . v``, which sums in f32.  q, k and v of mixed dtypes
+(the encoder-decoder's bf16 decoder queries against a float32 encoder's
+keys and values) are promoted as the reference's einsums promote them:
+the kernel runs at the promoted dtype, and the output comes back in q's.
 """
 from __future__ import annotations
 
@@ -42,7 +45,10 @@ def blockwise_attention(q, k, v, *, causal: bool, block_q: int = 1024,
     sequence lengths; causal requires Sq == Sk and equal blocks, and the
     blocks must tile the sequences, as in the reference (the kernel's
     own tiles are fixed and mask the ragged edge).  Where autograd
-    needs a gradient it goes through ``FlashAttentionFn``.
+    needs a gradient it goes through ``FlashAttentionFn``.  Mixed dtypes
+    run at ``torch.promote_types`` of the three (never a float32 k or v
+    cast down), the output cast to q's dtype, as the reference's
+    ``out.astype(q.dtype)``.
     """
     Sq, Sk = q.shape[1], k.shape[1]
     bq = min(block_q, Sq)
@@ -51,9 +57,15 @@ def blockwise_attention(q, k, v, *, causal: bool, block_q: int = 1024,
         assert Sq == Sk, "causal blockwise attention needs Sq == Sk"
         bq = bk = min(bq, bk)
     assert Sq % bq == 0 and Sk % bk == 0, (Sq, bq, Sk, bk)
+    out_dtype = q.dtype
+    if not q.dtype == k.dtype == v.dtype:
+        t = torch.promote_types(torch.promote_types(q.dtype, k.dtype),
+                                v.dtype)
+        q, k, v = q.to(t), k.to(t), v.to(t)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return FlashAttentionFn.apply(q, k, v, causal, scale)
-    return FA.flash_attention(q, k, v, causal=causal, scale=scale)
+        return FlashAttentionFn.apply(q, k, v, causal, scale).to(out_dtype)
+    return FA.flash_attention(q, k, v, causal=causal,
+                              scale=scale).to(out_dtype)
 
 
 def naive_attention(q, k, v, *, causal: bool, scale: Optional[float] = None):

@@ -1,14 +1,15 @@
-"""Decoder sub-layers: attention / mamba mixers + dense / MoE FFN,
-pre-norm.
+"""Sub-layers: attention / mamba mixers + dense / MoE FFN, pre-norm.
 
-Every kind of the reference's ``models/blocks.py`` that a decoder-only
-model builds: an ``attn`` or ``mamba`` mixer, then a ``dense``, ``moe``
-or no (``none``) FFN.  (The cross-attention of ``attn_meta(cross=)``
-comes with the encoder-decoder family.)
+Every kind of the reference's ``models/blocks.py``: an ``attn`` or
+``mamba`` mixer, then a ``dense``, ``moe`` or no (``none``) FFN, for the
+decoder-only stacks; and the attention the encoder-decoder family builds
+from (``models/encdec.py``): bidirectional self-attention, and
+cross-attention (``attn_meta(cross=True)``, ``attn_apply(kv_source=)``,
+``attn_decode(cross=True)``).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -18,7 +19,8 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.common import apply_rope, rmsnorm, rmsnorm_meta
+from repro_torch.models.common import apply_rope, matmul, rmsnorm, \
+    rmsnorm_meta
 
 
 # ---------------------------------------------------------------------------
@@ -26,7 +28,9 @@ from repro_torch.models.common import apply_rope, rmsnorm, rmsnorm_meta
 # ---------------------------------------------------------------------------
 
 
-def attn_meta(cfg: ModelConfig) -> dict:
+def attn_meta(cfg: ModelConfig, cross: bool = False) -> dict:
+    """The projections; a QKV bias where the config has one, except on a
+    cross-attention."""
     d, h, kv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
     dh = cfg.resolved_head_dim
     m = {
@@ -35,7 +39,7 @@ def attn_meta(cfg: ModelConfig) -> dict:
         "w_v": ParamMeta((d, kv * dh), ("fsdp", "kv_flat"), dtype=cfg.dtype),
         "w_o": ParamMeta((h * dh, d), ("tp", "fsdp"), dtype=cfg.dtype),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         m["b_q"] = ParamMeta((h * dh,), ("tp",), init="zeros",
                              dtype=cfg.dtype)
         m["b_k"] = ParamMeta((kv * dh,), ("kv_flat",), init="zeros",
@@ -45,61 +49,84 @@ def attn_meta(cfg: ModelConfig) -> dict:
     return m
 
 
-def _qkv(p, x):
-    q = x @ p["w_q"]
-    k = x @ p["w_k"]
-    v = x @ p["w_v"]
+def _qkv(p, x, src=None):
+    """q from ``x``, k and v from ``src`` (``x`` itself by default), each
+    product promoted as JAX promotes it (``common.matmul``)."""
+    src = x if src is None else src
+    q = matmul(x, p["w_q"])
+    k = matmul(src, p["w_k"])
+    v = matmul(src, p["w_v"])
     if "b_q" in p:
         q, k, v = q + p["b_q"], k + p["b_k"], v + p["b_v"]
     return q, k, v
 
 
 def attn_apply(p, x, cfg: ModelConfig, pcfg: ParallelConfig, *,
-               positions, causal: bool = True, want_cache: bool = False):
-    """Full-sequence self-attention (prefill).  x: [B, S, d].
-    Returns y or (y, (k_flat, v_flat)) when ``want_cache``.  (The
-    reference's cross-attention comes with the encoder-decoder family.)
-    """
+               positions, causal: bool = True,
+               kv_source: Optional[torch.Tensor] = None,
+               use_rope: bool = True, want_cache: bool = False):
+    """Full-sequence attention (train / prefill / encoder / cross).
+    x: [B, S, d].  ``kv_source`` [B, Sk, d] switches to cross-attention:
+    k and v come from it, and RoPE (unless ``use_rope`` is off) puts them
+    at ``arange(Sk)``, q at ``positions``.  Returns y or (y, (k_flat,
+    v_flat)) when ``want_cache``, k as rotated."""
     B, S, _ = x.shape
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    q, k, v = _qkv(p, x)
-    qh = apply_rope(q.reshape(B, S, h, dh), positions, cfg.rope_theta)
-    kh = apply_rope(k.reshape(B, S, kv, dh), positions, cfg.rope_theta)
-    vh = v.reshape(B, S, kv, dh)
+    q, k, v = _qkv(p, x, kv_source)
+    Sk = k.shape[1]
+    qh = q.reshape(B, S, h, dh)
+    kh = k.reshape(B, Sk, kv, dh)
+    vh = v.reshape(B, Sk, kv, dh)
+    if use_rope:
+        qh = apply_rope(qh, positions, cfg.rope_theta)
+        kh = apply_rope(kh, positions if kv_source is None else
+                        torch.arange(Sk, device=x.device)[None],
+                        cfg.rope_theta)
     o = attn_mod.attention(qh, kh, vh, causal=causal, impl=pcfg.attn_impl,
                            block_q=pcfg.attn_block_q,
                            block_k=pcfg.attn_block_k)
-    y = o.reshape(B, S, h * dh) @ p["w_o"]
+    y = matmul(o.reshape(B, S, h * dh), p["w_o"])
     if want_cache:
         return y, (kh.reshape(B, -1, kv * dh), vh.reshape(B, -1, kv * dh))
     return y
 
 
 def attn_decode(p, x, cfg: ModelConfig, pcfg: ParallelConfig, *,
-                cache_k, cache_v, cache_len):
+                cache_k, cache_v, cache_len, cross: bool = False,
+                cross_len=None):
     """One-token decode.  x: [B, 1, d]; cache_*: [B, Smax, kv*dh];
-    cache_len: [B] valid positions.  Writes this token's k/v into the
-    cache IN PLACE (row b, position ``cache_len[b]``); a position past
-    the cache is dropped, as the reference's scatter drops it.  Returns
-    (y, cache_k, cache_v), the caches being the tensors passed in."""
+    cache_len: [B] valid positions.  Self-attention writes this token's
+    k/v into the cache IN PLACE (row b, position ``cache_len[b]``; a
+    position past the cache is dropped, as the reference's scatter drops
+    it) and attends ``cache_len + 1`` positions.  Cross-attention
+    (``cross``) writes nothing, gives q no RoPE and attends the first
+    ``cross_len`` positions.  Returns (y, cache_k, cache_v), the caches
+    being the tensors passed in."""
     B = x.shape[0]
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    q, k, v = _qkv(p, x)
-    pos = cache_len[:, None]
-    qh = apply_rope(q.reshape(B, 1, h, dh), pos, cfg.rope_theta)
-    kh = apply_rope(k.reshape(B, 1, kv, dh), pos, cfg.rope_theta)
     S = cache_k.shape[1]
-    bidx = torch.arange(B, device=x.device)
-    keep = (cache_len < S)[:, None]
-    at = torch.clamp(cache_len, max=S - 1).long()
-    for cache, new in ((cache_k, kh), (cache_v, v)):
-        new = new.reshape(B, kv * dh).to(cache.dtype)
-        cache.index_put_((bidx, at), torch.where(keep, new, cache[bidx, at]))
+    if cross:                      # k and v are the cache's: q alone
+        qh = matmul(x, p["w_q"]).reshape(B, 1, h, dh)
+        valid = cross_len
+    else:
+        q, k, v = _qkv(p, x)
+        qh = q.reshape(B, 1, h, dh)
+        pos = cache_len[:, None]
+        qh = apply_rope(qh, pos, cfg.rope_theta)
+        kh = apply_rope(k.reshape(B, 1, kv, dh), pos, cfg.rope_theta)
+        bidx = torch.arange(B, device=x.device)
+        keep = (cache_len < S)[:, None]
+        at = torch.clamp(cache_len, max=S - 1).long()
+        for cache, new in ((cache_k, kh), (cache_v, v)):
+            new = new.reshape(B, kv * dh).to(cache.dtype)
+            cache.index_put_((bidx, at),
+                             torch.where(keep, new, cache[bidx, at]))
+        valid = cache_len + 1
     kc = cache_k.reshape(B, S, kv, dh)
     vc = cache_v.reshape(B, S, kv, dh)
-    o = attn_mod.decode_attention(qh[:, 0], kc, vc, cache_len + 1,
+    o = attn_mod.decode_attention(qh[:, 0], kc, vc, valid,
                                   chunk=pcfg.decode_attn_chunk)
-    y = o.reshape(B, 1, h * dh) @ p["w_o"]
+    y = matmul(o.reshape(B, 1, h * dh), p["w_o"])
     return y, cache_k, cache_v
 
 

@@ -1,5 +1,5 @@
-"""Shared model components: RMSNorm, rotary position embeddings and the
-loss.
+"""Shared model components: RMSNorm, rotary position embeddings, the
+loss and JAX's promotion of a mixed-dtype product.
 
 The norm and RoPE compute in float32 and cast back to the input's dtype,
 exactly as the reference's ``models/common.py`` does; the cross entropy
@@ -10,6 +10,18 @@ from __future__ import annotations
 import torch
 
 from repro_torch.launch.sharding import ParamMeta
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` under JAX's type promotion: where the dtypes differ (a
+    float32 frame embedding against bf16 weights, or bf16 frames against
+    float32 weights), the narrower operand is cast up to
+    ``torch.promote_types`` of the two, as ``jnp.matmul`` does; torch's
+    ``@`` refuses mixed dtypes."""
+    if a.dtype != b.dtype:
+        t = torch.promote_types(a.dtype, b.dtype)
+        a, b = a.to(t), b.to(t)
+    return a @ b
 
 
 def rmsnorm_meta(d: int) -> ParamMeta:

@@ -2,10 +2,11 @@
 the shapes of a cell's inputs and a concrete batch of them, and
 ``params_from_numpy``, which carries a parameter tree across from numpy.
 
-The decoder-only stack (attention or Mamba-2 mixers, dense or MoE FFNs,
-a vision frontend's prefix embeddings); encoder-decoder configs raise
-"not ported yet".  The modality frontend is a stub, as in the reference:
-a vision batch hands the model precomputed patch embeddings.
+Dispatched on the family, as the reference: the decoder-only stack
+(attention or Mamba-2 mixers, dense or MoE FFNs, a vision frontend's
+prefix embeddings) and the encoder-decoder (``models/encdec.py``).  The
+modality frontend is a stub, as in the reference: a vision batch hands
+the model precomputed patch embeddings, an audio batch frame embeddings.
 """
 from __future__ import annotations
 
@@ -17,17 +18,12 @@ import torch
 from repro_torch.configs.base import ModelConfig, ParallelConfig, ShapeConfig
 from repro_torch.launch.sharding import (leaves_with_path, materialize,
                                          tree_map)
-from repro_torch.models import transformer
-
-
-def _decoder_only(cfg: ModelConfig) -> None:
-    if cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder family is not ported yet")
+from repro_torch.models import encdec, transformer
 
 
 def model_meta(cfg: ModelConfig) -> dict:
-    _decoder_only(cfg)
+    if cfg.is_encdec:
+        return encdec.encdec_meta(cfg)
     return transformer.lm_meta(cfg)
 
 
@@ -38,26 +34,32 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None):
 
 
 def loss_fn(params, batch, cfg: ModelConfig, pcfg: ParallelConfig):
-    _decoder_only(cfg)
+    if cfg.is_encdec:
+        return encdec.encdec_loss(params, batch, cfg, pcfg)
     return transformer.lm_loss(params, batch, cfg, pcfg)
 
 
 def prefill_fn(params, batch, cfg: ModelConfig, pcfg: ParallelConfig):
-    _decoder_only(cfg)
+    if cfg.is_encdec:
+        return encdec.encdec_prefill(params, batch, cfg, pcfg)
     return transformer.lm_prefill(params, batch["tokens"], cfg, pcfg,
                                   prefix_embeds=batch.get("patch_embeds"))
 
 
 def decode_fn(params, cache, cache_len, token, cfg: ModelConfig,
               pcfg: ParallelConfig):
-    _decoder_only(cfg)
+    if cfg.is_encdec:
+        return encdec.encdec_decode_step(params, cache, cache_len, token,
+                                         cfg, pcfg)
     return transformer.lm_decode_step(params, cache, cache_len, token, cfg,
                                       pcfg)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
                device=None):
-    _decoder_only(cfg)
+    if cfg.is_encdec:
+        return encdec.encdec_init_cache(cfg, batch, max_len,
+                                        cfg.frontend_len, dtype, device)
     return transformer.init_cache(cfg, batch, max_len, dtype, device)
 
 

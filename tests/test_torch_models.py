@@ -302,22 +302,29 @@ def test_materialize_follows_the_init_rules():
 
 
 def test_unported_archs_and_kinds_say_so():
-    """The encoder-decoder family alone still raises "not ported yet";
-    every sub-layer kind a decoder-only config builds, the MoE ones
-    included, has its parameters."""
-    from repro_torch.configs import NOT_PORTED
-    assert NOT_PORTED == ("seamless-m4t-medium",)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        get_config("seamless-m4t-medium")
-    with pytest.raises(KeyError):
+    """Nothing is left unported: ``NOT_PORTED`` is empty, the
+    encoder-decoder seamless-m4t-medium is registered (the reference's
+    config field for field) and builds the encoder-decoder tree, and an
+    unknown arch raises ``KeyError``; every sub-layer kind a
+    decoder-only config builds, the MoE ones included, has its
+    parameters."""
+    from repro_torch.configs import ARCH_IDS, NOT_PORTED, REGISTRY
+    assert NOT_PORTED == ()
+    assert ARCH_IDS == J_ARCH_IDS
+    cfg = get_config("seamless-m4t-medium")
+    assert REGISTRY["seamless-m4t-medium"] is cfg and cfg.is_encdec
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(
+        j_get_config("seamless-m4t-medium"))
+    with pytest.raises(KeyError, match="unknown arch"):
         get_config("no-such-arch")
     cfg = smoke_config("jamba-v0.1-52b")
     for kind in (("attn", "moe"), ("mamba", "moe")):
         m = BLK.sublayer_meta(cfg, kind)
         assert set(m["moe"]) == {"w_router", "w_gate", "w_up", "w_down"}
         assert "norm_ffn" in m
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        ZOO.model_meta(dataclasses.replace(cfg, is_encdec=True))
+    meta = ZOO.model_meta(dataclasses.replace(cfg, is_encdec=True))
+    assert sorted(meta) == ["decoder", "embed", "enc_norm", "encoder",
+                            "final_norm", "lm_head"]
 
 
 @pytest.mark.parametrize("arch", J_ARCH_IDS)
