@@ -4,8 +4,12 @@
     python3 chip_smoke.py
 
 Needs one CUDA card, the CUDA toolkit (``nvcc``) and this checkout; it
-imports nothing of JAX or of the JAX package.  Phases, in order — any
-failure exits non-zero and no result line is printed:
+imports nothing of JAX or of the JAX package.  Phases, in order (but the
+checks of phase 3 run before those of phase 2: the CPU runs of the
+full-width train checks start in a thread at the beginning and run
+beside the build, the schedules and the model checks, which trace and
+time nothing) — any failure exits non-zero and no result line is
+printed:
 
   1. the card's name and power limit (``nvidia-smi``), then the build of
      the kernels from ``src/repro_torch/csrc`` (timed), and the
@@ -59,7 +63,10 @@ failure exits non-zero and no result line is printed:
      and Mode U fused on the card and on the CPU from the same weights:
      losses, parameters and moments within 1e-4, the fused run within
      2e-3 of the unfused one (the JAX package's ``tests/test_train_e2e
-     .py`` tolerance);
+     .py`` tolerance), and each run's second step counted by
+     ``launch.roofline.count()`` on both devices: the same flops and
+     bytes, integer for integer, as the CPU run of the same mode (the
+     CPU's plain routes, the card's kernels);
   4. the main path: ``make_tm(b, n, array_heap=True)`` on the card drives
      the longread (scan4096 on every backend, scan1M on multiverse) and
      rwmix (w1024, every backend) traffic in threads (2 s windows); TL2
@@ -113,7 +120,10 @@ failure exits non-zero and no result line is printed:
      multiverse (``AT_SCALE``: a 49,152-key hashmap serving whole-map
      size queries beside an updater that moves keys, 12,288-key trees
      serving 10,000-key range queries beside an updater that moves value
-     within fixed key pairs), and one quiescent query of each under a
+     within fixed key pairs; each prefilled on a CPU engine in a process
+     spawned at the start of the run, its state carried to the card in
+     one copy each of the heap, the lock row and the clock; 1 s windows),
+     and one quiescent query of each under a
      profiler trace: one ``gather_bracketed`` launch and at most two
      device-to-host copies per traversal round, no copy or wait inside
      ``expand``/``advance``, and the round's host time split;
@@ -189,12 +199,23 @@ failure exits non-zero and no result line is printed:
      ``snapshot_select`` a block a step; its idle share traced); and
      trained by ``Trainer`` for 10 Mode-U fused steps beside the data
      pipeline's float32 frames (the encoder in float32), gated as phase
-     4's trainers;
+     4's trainers; then the
+     family trainers (``family_training_phase``, 9c): paligemma-3b and
+     moonshot-v1-16b-a3b card = CPU at their reduced configs in float32
+     (losses, parameters and moments within 1e-4; the counted steps
+     the CPU's to the flop and the byte), then each trained at full
+     width (paligemma-3b whole, 3,035,703,296 parameters; moonshot at 6
+     of 48 layers, 4,094,453,760) for 10 and 20 Mode-U fused steps of
+     4 x 512 positions, gated as phase 4's trainers.  Every trainer's and every
+     full-width server's last step is counted (one train step, one
+     decode step of the 4 slots): ``model_flops``, the counted flops and
+     bytes, ``mfu`` and ``roofline_terms`` go to
+     ``build/roofline.jsonl``, and their table is printed;
  10. the card's idle share: four of the trials run again under a profiler
-     trace of their GPU activity for 2 s (each server, qwen2.5-3b's,
-     mamba2-780m's and jamba-v0.1-52b's, is traced for 3 s after its
-     serving trial's counted requests, and each trainer for 3 s while it
-     is still up after phase 4).
+     trace of their GPU activity for ``TRACE_S`` (1 s; each server,
+     qwen2.5-3b's, mamba2-780m's and jamba-v0.1-52b's, is traced as long
+     after its serving trial's counted requests, and each trainer for
+     one step while it is still up).
 
 The last two lines are the kernels summary and
 ``{"ok": true, "device": {...}}``.
@@ -222,9 +243,6 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM data-sheet memory rate
-#: H100 SXM data-sheet peaks (dense): bf16 tensor cores; f32 off them
-PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 SEED = 0
 #: the card phase 7 compares against the CPU (a CPU rehearsal sets "cpu")
 CARD = "cuda"
@@ -283,6 +301,9 @@ DEVICE_KERNELS = {
 }
 GPU_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 TRACE_DIR = os.path.join(HERE, "build", "traces")
+#: the idle-share traces' window: each server after its counted requests
+#: and the four phase-10 trials
+TRACE_S = 1.0
 
 
 class Failed(Exception):
@@ -474,13 +495,15 @@ def kernel_checks(torch, dev, rng):
     from repro_torch.kernels import validate as VK
     from repro_torch.kernels import version_select as VS
     from repro_torch.kernels._lib import to_device
+    from repro_torch.launch.roofline import HBM_BW
 
+    t_start = time.perf_counter()
     big = 1 << 62
     H = 1_000_000
     rows = {}
 
     def bound(nbytes):
-        return nbytes / HBM_BYTES_PER_S * 1e3
+        return nbytes / HBM_BW * 1e3
 
     # gather_read / scatter_write over a 1,000,000-word row
     row_np = rng.integers(-big, big, H, dtype=np.int64)
@@ -578,15 +601,25 @@ def kernel_checks(torch, dev, rng):
                     ts_t, data_t, base)),
                 library_ms=None,
                 bound_ms=bound((2 * 8 * 4 + 12) * n))
-    rows.update(mirror_select_checks(torch, dev, rng, bound))
-    rows.update(host_path_checks(torch, dev, rng, row))
-    rows.update(commit_fused_checks(torch, dev, rng, bound))
-    rows.update(snapshot_select_checks(torch, dev, rng, bound))
-    rows.update(flash_checks(torch, dev))
-    rows.update(adamw_checks(torch, dev))
-    rows.update(ssd_checks(torch, dev))
-    ssd_grad_checks(torch, dev)
-    attention_grad_checks(torch, dev)
+    split = {"integer_kernels": time.perf_counter() - t_start}
+
+    def timed(name, fn, *args):
+        t1 = time.perf_counter()
+        out = fn(torch, dev, *args)
+        split[name] = time.perf_counter() - t1
+        return out
+
+    rows.update(timed("mirror_select", mirror_select_checks, rng, bound))
+    rows.update(timed("host_paths", host_path_checks, rng, row))
+    rows.update(timed("commit_fused", commit_fused_checks, rng, bound))
+    rows.update(timed("snapshot_select", snapshot_select_checks, rng,
+                      bound))
+    rows.update(timed("flash_attention", flash_checks))
+    rows.update(timed("fused_adamw", adamw_checks))
+    rows.update(timed("ssd_scan", ssd_checks))
+    timed("ssd_grad", ssd_grad_checks)
+    timed("attention_grad", attention_grad_checks)
+    emit({"kernel_checks_split_seconds": split})
     return rows
 
 
@@ -2070,7 +2103,7 @@ def snapshot_select_checks(torch, dev, rng, bound):
                                                                  5)),
         library_ms=float(np.median(lib_ms)), library_ms_runs=lib_ms,
         library="ring[slot].clone()",
-        bound_ms=bound(2 * 4 * n + 4 * R + 4))}}
+        bound_ms=bound(SS.work(ring, ts, 5)[1]))}}
 
 
 def snapshot_select_host_split(torch, dev, ring, ts, slot, calls=1000):
@@ -2170,6 +2203,10 @@ FLASH_CASES = {
     "train_fwd_b4_512": (4, 512, 512, 16, 2, 128, True, "bfloat16"),
     # paligemma-3b's heads (8 query heads over one kv head of 256)
     "mqa_d256_512": (1, 512, 512, 8, 1, 256, True, "bfloat16"),
+    # the paligemma-3b and moonshot-v1-16b-a3b trainers' forward (4 x 512
+    # positions a step)
+    "paligemma_train_b4_512": (4, 512, 512, 8, 1, 256, True, "bfloat16"),
+    "moonshot_train_b4_512": (4, 512, 512, 16, 16, 128, True, "bfloat16"),
     "d256_ragged_f32": (1, 200, 200, 8, 1, 256, True, "float32"),
     # a seamless-style cross-attention: 100 queries over 77 keys
     "cross_d64_bf16": (2, 100, 77, 16, 16, 64, False, "bfloat16"),
@@ -2211,6 +2248,7 @@ def flash_checks(torch, dev):
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.roofline import HBM_BW, PEAK_FLOPS
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rows = {}
@@ -2231,9 +2269,9 @@ def flash_checks(torch, dev):
         # the plain version at seamless's encoder size takes ~50 ms a call
         plain_iters = dict(iters=10, warm=2) if B * H * pairs > 2 ** 28 \
             else dict(iters=50, warm=5)
-        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-        t_ops = ops / PEAK_OPS_PER_S[dt] * 1e3
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        nbytes = FA.work(q, k, v, causal=causal)[1]
+        t_ops = ops / PEAK_FLOPS[dt] * 1e3
+        t_bytes = nbytes / HBM_BW * 1e3
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         rows[name] = kernel_row(
             torch, "flash_attention",
@@ -2348,6 +2386,7 @@ def ssd_checks(torch, dev):
     import torch.nn.functional as F
 
     from repro_torch.kernels import ssd_scan as SS
+    from repro_torch.launch.roofline import HBM_BW, PEAK_FLOPS
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rows, errs = {}, {}
@@ -2386,11 +2425,9 @@ def ssd_checks(torch, dev):
         if name == KERNELS["ssd_scan"][2]:
             timed = (args, q, st0)
         Q = min(q, S)
-        t_ops = 2 * B * ssd_macs(S, H, P, N, Q) / PEAK_OPS_PER_S[dt] * 1e3
-        nbytes = (2 * xh.numel() * xh.element_size()
-                  + 4 * (dts.numel() + A.numel() + 2 * st.numel())
-                  + 2 * Bm.numel() * Bm.element_size())
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = 2 * B * ssd_macs(S, H, P, N, Q) / PEAK_FLOPS[dt] * 1e3
+        nbytes = SS.work(*args, chunk=q, init_state=st0)[1]
+        t_bytes = nbytes / HBM_BW * 1e3
 
         def scan(args=args, q=q, st0=st0):
             return SS.ssd_scan(*args, chunk=q, init_state=st0)
@@ -2569,12 +2606,6 @@ ADAMW_TOL = {"bfloat16": 2e-2, "float32": 1e-5}
 ADAMW_KW = dict(b1=0.9, b2=0.95, eps=1e-8)
 
 
-def adamw_bytes(p, g) -> int:
-    """Bytes one fused_adamw pass must move: read p, g, m, v; write p',
-    m', v' and the ring row (24 per element at bf16)."""
-    return p.numel() * (3 * p.element_size() + g.element_size() + 16)
-
-
 def adamw_checks(torch, dev):
     """fused_adamw against its plain version on the card at every case of
     ``ADAMW_CASES`` (slot 2 of 3 or 1 of 2; lr 3e-3, scale 0.7, step 3;
@@ -2584,6 +2615,7 @@ def adamw_checks(torch, dev):
     port: it writes no ring and takes one dtype per group, so its
     moments are bf16 here).  The bound is bytes."""
     from repro_torch.kernels import fused_adamw as FA
+    from repro_torch.launch.roofline import HBM_BW
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     errs, bitwise, rows = {}, {}, {}
@@ -2633,7 +2665,8 @@ def adamw_checks(torch, dev):
             mm, vv, rr = m.clone(), v.clone(), ring.clone()
             lib = [p.clone()], [g], [m.to(p.dtype)], [v.to(p.dtype)]
             steps = [torch.tensor(3.0, device=dev)]
-            t_bytes = adamw_bytes(p, g) / HBM_BYTES_PER_S * 1e3
+            t_bytes = FA.work(p, g, mm, vv, rr, slot, scalars)[1] \
+                / HBM_BW * 1e3
             rows[name] = kernel_row(
                 torch, "fused_adamw",
                 lambda: FA.fused_adamw(p, g, mm, vv, rr, slot, scalars, **kw),
@@ -3410,7 +3443,8 @@ BATCH, PROMPT, GEN, REQUESTS = 4, 512, 32, 8
 #: each trained model: its sequence kernel, launched once per layer
 #: (per attention of an encoder-decoder: ``prefill_launches``)
 PREFILL_KERNEL = {ARCH: "flash_attention", MAMBA: "ssd_scan",
-                  SEAMLESS: "flash_attention"}
+                  SEAMLESS: "flash_attention", PALIGEMMA: "flash_attention",
+                  MOONSHOT: "flash_attention"}
 #: the families phase's depth cuts (full width; one card does not hold
 #: the whole model): jamba one interleave period of its 32 layers (13.3 B
 #: of 52 B parameters), llama4-scout 4 of 48 layers (10.9 B), the dense
@@ -3685,8 +3719,12 @@ def serving_trial(torch, launches, arch=ARCH, idle_window_s=0.0):
     (``flash_attention`` an attention layer, ``ssd_scan`` a Mamba layer:
     ``prefill_launches``) once per layer.  With ``idle_window_s``, the same
     server then serves under a profiler trace for that long
-    (``idle_trace``; its launches are not counted)."""
+    (``idle_trace``; its launches are not counted).  Last, one batched
+    decode step of the 4 slots counted by ``launch.roofline.count()``
+    (``roofline_read``)."""
     from repro_torch import kernels as K
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import roofline as RL
     from repro_torch.models import model_zoo as zoo
 
     torch.cuda.reset_peak_memory_stats()
@@ -3740,6 +3778,14 @@ def serving_trial(torch, launches, arch=ARCH, idle_window_s=0.0):
               f"{REQUESTS} prefills of {n} such layers")
     if idle_window_s:
         idle_trace(torch, server, arch, idle_window_s)
+    clocks = [server.executor.current_clock()] * BATCH
+    with RL.count() as rec:
+        server.executor.decode(list(range(BATCH)), clocks)
+    K.reset_launch_counts()
+    roofline_read(torch, rec, cfg, ShapeConfig(
+        f"decode_{BATCH}x{PROMPT + GEN}", PROMPT + GEN, BATCH, "decode"),
+        arch, row["per_token_ms_p50"] / 1e3, mode="Q",
+        peak=row["max_memory_allocated"], reduced=row["reduced"])
     del server
     free_card(torch)
     return row, toks
@@ -3828,7 +3874,7 @@ def snapshot_checks(torch, launches, served, arch=ARCH, modes=("U", "Q")):
     return rows
 
 
-def idle_trace(torch, server, arch, window_s=3.0):
+def idle_trace(torch, server, arch, window_s=TRACE_S):
     """``window_s`` of the Mode-Q ``server`` under load (the queue kept at
     8 requests) under a profiler trace of its GPU activity: prints the
     card's busy time and idle share and its prefill kernels' time."""
@@ -3941,7 +3987,7 @@ def families_phase(torch, dev):
     model_check(torch, dev, arch=PALIGEMMA)
     _, toks = serving_trial(torch, totals, arch=MOONSHOT)
     snapshot_checks(torch, totals, toks, arch=MOONSHOT, modes=("Q",))
-    serving_trial(torch, totals, arch=JAMBA, idle_window_s=3.0)
+    serving_trial(torch, totals, arch=JAMBA, idle_window_s=TRACE_S)
     for arch in (SCOUT,) + DENSE:
         prefill_decode_trial(torch, totals, arch)
     emit({"families_phase_seconds": time.perf_counter() - t0})
@@ -3949,7 +3995,7 @@ def families_phase(torch, dev):
 
 
 def encdec_serving_trial(torch, launches, arch=SEAMLESS,
-                         idle_window_s=2.5):
+                         idle_window_s=TRACE_S):
     """``arch`` (seamless-m4t-medium) at full width and depth, bf16,
     weights drawn on the card from ``SEED`` into an MVStore in Mode U
     (every block versioned, 2 ring slots), served the way the reference
@@ -3964,13 +4010,16 @@ def encdec_serving_trial(torch, launches, arch=SEAMLESS,
     ``snapshot_select`` a versioned block a step.  Records the init,
     prefill and per-step times (host clock, each ending in a sync), the
     peak memory and, over ``idle_window_s`` of further prefills and
-    decode steps under a profiler trace, the card's idle share."""
+    decode steps under a profiler trace, the card's idle share; last, one
+    decode step from the snapshot counted by ``launch.roofline.count()``
+    (``roofline_read``)."""
     from torch.profiler import ProfilerActivity
 
     from repro_torch import kernels as K
     from repro_torch.configs import (MVStoreConfig, ParallelConfig,
                                      ShapeConfig, get_config)
     from repro_torch.core import mvstore
+    from repro_torch.launch import roofline as RL
     from repro_torch.launch import steps as steps_mod
     from repro_torch.models import model_zoo as zoo
 
@@ -4030,6 +4079,10 @@ def encdec_serving_trial(torch, launches, arch=SEAMLESS,
             logits, cache, clen = zoo.decode_fn(mv.live, cache, clen,
                                                 live[-1], cfg, pcfg)
         same = bool(torch.equal(toks, torch.stack(live, 1)))
+        cache = _grow(torch, cache, 1)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        with RL.count() as rec:
+            decode(mv, cache, clen, tok, rc)
         del logits, cache
         prof = torch.profiler.profile(activities=[ProfilerActivity.CUDA])
         prof.start()
@@ -4080,6 +4133,11 @@ def encdec_serving_trial(torch, launches, arch=SEAMLESS,
     check(counts["snapshot_select"] == n_blocks * (GEN + 1),
           f"serve {arch}: {counts['snapshot_select']} snapshot_select "
           f"launches for {n_blocks} blocks x {GEN + 1} steps")
+    check(rec.kernels.get("snapshot_select", [0])[0] == n_blocks,
+          f"serve {arch}: the counted decode step's kernels {rec.kernels}")
+    roofline_read(torch, rec, cfg, ShapeConfig(
+        f"decode_{BATCH}x{PROMPT + GEN}", PROMPT + GEN, BATCH, "decode"),
+        arch, row["per_token_ms_p50"] / 1e3, mode="U", peak=peak)
     del mv, batch
     free_card(torch)
     return row
@@ -4089,17 +4147,34 @@ def seamless_phase(torch, dev):
     """The encoder-decoder family at full width: seamless-m4t-medium card =
     CPU (``model_check``, 2 encoder and 2 decoder layers over 2 x 256
     frames), served from Mode-U snapshots (``encdec_serving_trial``) and
-    trained (``train_trial``, ``SEAMLESS_TRAIN_STEPS`` steps, AdamW
-    warming up over ``SEAMLESS_WARMUP``, one step traced: a step takes
+    trained (``train_trial``, ``STEPS`` steps, AdamW
+    warming up over ``TRAIN_WARMUP``, one step traced: a step takes
     ~2.9 s).  Returns
     the launch totals of the trials."""
     t0 = time.perf_counter()
     totals = defaultdict(int)
     model_check(torch, dev, arch=SEAMLESS)
     encdec_serving_trial(torch, totals)
-    train_trial(torch, totals, arch=SEAMLESS, steps=SEAMLESS_TRAIN_STEPS,
-                warmup=SEAMLESS_WARMUP, trace_s=0.0)
+    train_trial(torch, totals, arch=SEAMLESS)
     emit({"seamless_phase_seconds": time.perf_counter() - t0})
+    return totals
+
+
+def family_training_phase(torch, dev):
+    """paligemma-3b and moonshot-v1-16b-a3b trained: each card = CPU at
+    its reduced config in float32 (``train_check(smoke=True)``; float32
+    keeps moonshot's expert choices the CPU's), then
+    ``train_trial`` at full width (moonshot at its ``TRAIN_DEPTH``),
+    ``STEPS`` Mode-U fused steps each, one step traced and
+    one counted; the card is freed between them.  Returns the launch
+    totals of the trials."""
+    t0 = time.perf_counter()
+    totals = defaultdict(int)
+    for arch in (PALIGEMMA, MOONSHOT):
+        train_check(torch, dev, arch=arch, smoke=True)
+    for arch in (PALIGEMMA, MOONSHOT):
+        train_trial(torch, totals, arch=arch)
+    emit({"family_training_phase_seconds": time.perf_counter() - t0})
     return totals
 
 
@@ -4117,7 +4192,9 @@ FUSED_TOL = 2e-3            # fused vs unfused (tests/test_train_e2e.py)
 #: mode_q``), so qwen2.5-3b's one CPU run serves all three (a second one
 #: took 30-38 s of the run); mamba2-780m's fused run keeps its own
 CPU_RUN = {ARCH: {"Q": "Q", "U": "Q", "U_fused": "Q"},
-           MAMBA: {"Q": "Q", "U": "Q", "U_fused": "U_fused"}}
+           MAMBA: {"Q": "Q", "U": "Q", "U_fused": "U_fused"},
+           PALIGEMMA: {"Q": "Q", "U": "U", "U_fused": "U_fused"},
+           MOONSHOT: {"Q": "Q", "U": "U", "U_fused": "U_fused"}}
 
 
 def _state_leaves(state):
@@ -4138,57 +4215,133 @@ def _tree_err(torch, got, want, tol, dev):
                            "float32", tol) for k in want)
 
 
-def train_check(torch, dev, arch=ARCH):
-    """The trainer on the card against the trainer on the CPU: ``arch``
-    at full width and a depth of 2 layers, float32 (TF32 off), one set of
-    seeded weights, 2 steps of 2 x 64 tokens in Mode Q (adamw.apply +
-    mv_commit, no ring), Mode U (the same with a 2-slot ring) and Mode U
-    fused (``fused_adamw`` per leaf), each against the CPU's run of
-    ``CPU_RUN[arch][mode]`` (one CPU run serves several).  Losses,
-    live blocks and moments within 1e-4; the card's fused run within 2e-3
-    of its unfused one.  The card's runs must launch the arch's sequence
-    kernel
-    (``flash_attention``, or ``ssd_scan`` through ``SSDScanFn``) for each
-    layer's forward and recompute, and the fused run ``fused_adamw`` once
-    per leaf and step."""
+def _train_check_cfg(arch, smoke):
+    """``(cfg, shape)`` of ``arch``'s train check: float32, at full width
+    and a depth of 2 layers or (``smoke``) at ``smoke_config``, 2 x 64
+    positions."""
+    from repro_torch.configs import ShapeConfig, get_config, smoke_config
+
+    base = smoke_config(arch) if smoke else \
+        dataclasses.replace(get_config(arch), n_layers=2)
+    return (dataclasses.replace(base, dtype="float32"),
+            ShapeConfig("train_check", 64, 2, "train"))
+
+
+def _train_modes():
+    from repro_torch.configs import MVStoreConfig
+
+    return {"Q": MVStoreConfig(mode="Q"), "U": MVStoreConfig(mode="U"),
+            "U_fused": MVStoreConfig(mode="U", fused_commit=True)}
+
+
+def _train_run(torch, cfg, shape, init, mvcfg, where):
+    """Two ``Trainer`` steps on ``where`` from ``init``, the second counted
+    by ``launch.roofline.count()``: ``(losses, state leaves, launch
+    counts, count record)``.  The launch counters are set to 0 only for
+    the card (the CPU launches nothing, and its runs may overlap other
+    phases' counts)."""
     from repro_torch import kernels as K
-    from repro_torch.configs import MVStoreConfig, ShapeConfig, get_config
-    from repro_torch.launch.sharding import tree_map
+    from repro_torch.launch import roofline as RL
     from repro_torch.launch.train import Trainer
+
+    if torch.device(where).type != "cpu":
+        K.reset_launch_counts()
+    tr = Trainer(cfg, shape, mvcfg=mvcfg, params=init, device=where)
+    state, tr.state = tr.state, None
+    losses = []
+    state, metrics = tr.train_step(state, tr.batch_at(0))
+    losses.append(float(metrics["loss"]))
+    with RL.count(device=torch.device(where).type) as rec:
+        state, metrics = tr.train_step(state, tr.batch_at(1))
+    losses.append(float(metrics["loss"]))
+    tr.controller.stop()
+    return losses, _state_leaves(state), K.launch_counts(), rec
+
+
+def train_cpu_runs(torch, arch, smoke=False):
+    """The CPU side of ``arch``'s train check: ``(init, {mode: (run,
+    seconds)})``, one run per mode ``CPU_RUN[arch]`` names, from weights
+    drawn on the CPU from ``SEED`` (``init``, numpy: the card's runs
+    start from them too)."""
+    from repro_torch.launch.sharding import tree_map
     from repro_torch.models import model_zoo as zoo
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = dataclasses.replace(get_config(arch), n_layers=2, dtype="float32")
-    shape = ShapeConfig("train_check", 64, 2, "train")
+    cfg, shape = _train_check_cfg(arch, smoke)
     init = tree_map(lambda t: t.numpy(), zoo.init_params(
         cfg, torch.Generator().manual_seed(SEED)))
-    modes = {"Q": MVStoreConfig(mode="Q"), "U": MVStoreConfig(mode="U"),
-             "U_fused": MVStoreConfig(mode="U", fused_commit=True)}
-    rows, card, cpu_runs = {}, {}, {}
-
-    def run(mvcfg, where):
-        K.reset_launch_counts()
-        tr = Trainer(cfg, shape, mvcfg=mvcfg, params=init, device=where)
-        state, tr.state = tr.state, None
-        losses = []
-        for step in range(2):
-            state, metrics = tr.train_step(state, tr.batch_at(step))
-            losses.append(float(metrics["loss"]))
-        tr.controller.stop()
-        return losses, _state_leaves(state), K.launch_counts()
-
-    for name, mvcfg in modes.items():
-        secs = {}
-        ref = CPU_RUN[arch][name]
-        if ref not in cpu_runs:
-            t0 = time.perf_counter()
-            cpu_runs = {ref: run(modes[ref], "cpu")}
-            secs["cpu"] = time.perf_counter() - t0
+    modes, runs = _train_modes(), {}
+    for ref in dict.fromkeys(CPU_RUN[arch].values()):
         t0 = time.perf_counter()
-        lg, tg, counts = run(mvcfg, dev)
+        runs[ref] = (_train_run(torch, cfg, shape, init, modes[ref], "cpu"),
+                     time.perf_counter() - t0)
+    return init, runs
+
+
+class CPUReference:
+    """The full-width train checks' CPU runs (``train_cpu_runs`` of each
+    arch in turn), computed in a thread started at the beginning of the
+    run, beside the build, the schedules and the model checks: on the
+    host of an NVIDIA H100 80GB HBM3 (700.00 W) they took 42-87 s, most
+    of it elementwise AdamW over 466 M float32 parameters.  ``get`` waits for an arch's runs and
+    re-raises the thread's error."""
+
+    def __init__(self, torch, archs):
+        self._out, self._done = {}, {a: threading.Event() for a in archs}
+        # not a daemon: a failed run exits only once the thread is done
+        self._thread = threading.Thread(target=self._run, args=(torch,),
+                                        name="cpu-reference")
+        self._thread.start()
+
+    def _run(self, torch):
+        for arch, done in self._done.items():
+            try:
+                self._out[arch] = train_cpu_runs(torch, arch)
+            except BaseException as e:          # handed to get()
+                self._out[arch] = e
+            done.set()
+
+    def get(self, arch):
+        t0 = time.perf_counter()
+        self._done[arch].wait()
+        out = self._out.pop(arch)
+        if isinstance(out, BaseException):
+            raise out
+        return out, time.perf_counter() - t0
+
+
+def train_check(torch, dev, arch=ARCH, smoke=False, cpu=None):
+    """The trainer on the card against the trainer on the CPU: ``arch``
+    at full width and a depth of 2 layers (or, ``smoke``, at the
+    reduced config of ``smoke_config``), float32 (TF32 off), one set of
+    seeded weights, 2 steps of 2 x 64 positions in Mode Q (adamw.apply +
+    mv_commit, no ring), Mode U (the same with a 2-slot ring) and Mode U
+    fused (``fused_adamw`` per leaf), each against the CPU's run of
+    ``CPU_RUN[arch][mode]`` (one CPU run serves several; ``cpu``, when
+    given, is a ``CPUReference``, which computed them beforehand).
+    Losses, live blocks and moments within 1e-4; the card's fused run
+    within 2e-3 of its unfused one.  The card's runs must launch the
+    arch's sequence kernel (``flash_attention``, or ``ssd_scan`` through
+    ``SSDScanFn``) for each layer's forward and recompute, and the fused
+    run ``fused_adamw`` once per leaf and step.  Each run's second step
+    is counted (``launch.roofline.count()``: the CPU's plain routes, the
+    card's kernels); a card run's flops and bytes must equal those of
+    the CPU run of its own mode, wherever there is one."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    waited = None
+    if cpu is None:
+        init, cpu_runs = train_cpu_runs(torch, arch, smoke)
+    else:
+        (init, cpu_runs), waited = cpu.get(arch)
+    cfg, shape = _train_check_cfg(arch, smoke)
+    modes, rows, card = _train_modes(), {}, {}
+    for name, mvcfg in modes.items():
+        ref = CPU_RUN[arch][name]
+        (lc, tc, _, rec_c), cpu_s = cpu_runs[ref]
+        secs = {"cpu": cpu_s, "cpu_run": ref}
+        t0 = time.perf_counter()
+        lg, tg, counts, rec_g = _train_run(torch, cfg, shape, init, mvcfg,
+                                           dev)
         secs[str(dev)] = time.perf_counter() - t0
-        lc, tc, _ = cpu_runs[ref]
-        secs["cpu_run"] = ref
         t0 = time.perf_counter()
         try:
             row = {"mode": name,
@@ -4200,10 +4353,23 @@ def train_check(torch, dev, arch=ARCH):
                    "losses_card": lg, "losses_cpu": lc,
                    "launches": {k: counts[k] for k in ("flash_attention",
                                                        "ssd_scan",
-                                                       "fused_adamw")}}
+                                                       "fused_adamw")},
+                   "counted_step": {"card": [rec_g.flops, rec_g.bytes],
+                                    "cpu": [rec_c.flops, rec_c.bytes],
+                                    "cpu_mode": ref}}
         except Failed as e:
             raise Failed(f"train check {arch}, Mode {name}: card != CPU: "
                          f"{e}")
+        if ref == name:
+            same = (rec_g.flops, rec_g.bytes) == (rec_c.flops, rec_c.bytes)
+            row["counted_step"]["equal"] = same
+            if not same:
+                diff = {k: (rec_g.by_op.get(k), rec_c.by_op.get(k))
+                        for k in set(rec_g.by_op) | set(rec_c.by_op)
+                        if rec_g.by_op.get(k) != rec_c.by_op.get(k)}
+                raise Failed(f"train check {arch}, Mode {name}: the counted "
+                             f"step differs between the card and the CPU "
+                             f"(card, cpu by operation): {diff}")
         secs["compare"] = time.perf_counter() - t0
         row["seconds"] = secs
         seq_kernel = PREFILL_KERNEL[arch]
@@ -4227,7 +4393,9 @@ def train_check(torch, dev, arch=ARCH):
                       dev))
     except Failed as e:
         raise Failed(f"train check {arch}: fused != unfused on the card: {e}")
-    out = {"train_check": arch, "layers": 2, "tokens": [2, 64], "steps": 2,
+    out = {"train_check": arch, "smoke": smoke, "layers": cfg.n_layers,
+           "width": cfg.d_model, "tokens": [2, 64], "steps": 2,
+           "cpu_reference_waited_s": waited,
            "tolerance": TRAIN_TOL, "fused_vs_unfused_max_abs_err": fused_err,
            "fused_tolerance": FUSED_TOL, "modes": rows}
     emit(out)
@@ -4272,54 +4440,119 @@ def flash_f32_split(gpu, steps):
                 / 1e3 / steps if big else None}
 
 
-#: each trained model's parameter count at full width and depth
+#: each trained model's parameter count at full width and its
+#: ``TRAIN_DEPTH`` (full depth where it has none)
 TRAIN_PARAMS = {ARCH: 3_397_627_904, MAMBA: 780_222_720,
-                SEAMLESS: 977_860_608}
-#: seamless-m4t-medium's training steps (its step is ~4x qwen2.5-3b's),
-#: and the AdamW warm-up that lets a loss fall within them: at the
-#: ``Trainer``'s default of 10 warm-up steps, qwen2.5-3b's and
-#: mamba2-780m's losses held flat through their first 10 steps
-SEAMLESS_TRAIN_STEPS, SEAMLESS_WARMUP = 10, 2
-#: mamba2-780m's training steps (20 until the seamless phase joined the
-#: run; its loss falls from step 10, as the warm-up ends)
-MAMBA_TRAIN_STEPS = 12
+                SEAMLESS: 977_860_608, PALIGEMMA: 3_035_703_296,
+                MOONSHOT: 4_094_453_760}
+#: the trainers' depth cuts (full width): moonshot-v1-16b-a3b at 6 of 48
+#: layers, 4.09 B parameters, ~65.5 GB in Mode U before activations (a
+#: fused step keeps ~16 B a parameter: bf16 live and ring slots, f32
+#: moments, bf16 gradients)
+TRAIN_DEPTH = {MOONSHOT: 6}
+#: the AdamW warm-up of each trainer (``Trainer``'s default 10 elsewhere):
+#: at 10, a trainer's first 10 losses stay flat
+TRAIN_WARMUP = {SEAMLESS: 2, PALIGEMMA: 2, MOONSHOT: 2}
+#: each trainer's steps where it is not ``TRAIN_STEPS``: mamba2-780m 12
+#: (its loss falls from step 10, as the warm-up ends), seamless-m4t-medium
+#: (a step ~4x qwen2.5-3b's) and paligemma-3b 10; moonshot-v1-16b-a3b
+#: keeps 20, since after 10 steps its loss had not fallen yet (the mean
+#: of its last 5 above that of its first 5, 12.700 against 12.685)
+STEPS = {MAMBA: 12, SEAMLESS: 10, PALIGEMMA: 10}
 
 
-def train_trial(torch, launches, arch=ARCH, steps=TRAIN_STEPS, warmup=10,
-                trace_s=3.0):
-    """``Trainer`` over ``arch`` at full width and depth (bfloat16,
-    random weights from ``SEED``, 4 x 512 tokens a step; for
-    seamless-m4t-medium beside the data pipeline's 4096 float32 frame
-    embeddings, so its encoder runs in float32) for ``steps`` steps
-    under ``TrainSupervisor.run`` (checkpoints beyond the last step: one
-    would be 40 GB of ``.npy`` for qwen2.5-3b), AdamW warming up over
-    ``warmup`` steps (the ``Trainer``'s default 10), Mode U with the
-    fused commit and a 2-slot ring.  Launch counters are set to 0 just before
+#: the rows ``roofline_read`` writes to ``build/roofline.jsonl`` (the
+#: JAX package's ``benchmarks/roofline_report`` row keys)
+ROOFLINE_ROWS = []
+ROOFLINE_JSONL = os.path.join(HERE, "build", "roofline.jsonl")
+
+
+def roofline_read(torch, rec, cfg, shape, arch, step_s, *, mode, peak,
+                  reduced=None):
+    """One row of the roofline table from a step counted on the card
+    (``rec``, a ``launch.roofline.count()`` record) and the step's p50
+    time ``step_s``: ``model_flops``, the counted flops and bytes, the
+    bytes of score-shaped products (the plain attention backward's),
+    ``mfu`` (model flops over the step's time at the bf16 peak), the
+    hardware share (counted flops over the same) and
+    ``roofline_terms``."""
+    from repro_torch.launch import roofline as RL
+    from repro_torch.models import model_zoo as zoo
+
+    S = shape.seq_len
+    scores = {(S, S)} if shape.kind != "decode" else set()
+    if cfg.is_encdec and shape.kind != "decode":
+        scores |= {(cfg.frontend_len, cfg.frontend_len),
+                   (S, cfg.frontend_len)}
+    mf = zoo.model_flops(cfg, shape)
+    at_peak = step_s * RL.PEAK_FLOPS["bfloat16"]
+    terms = RL.roofline_terms(cfg, shape, cost=rec.cost(),
+                              collectives=RL.collective_bytes(rec),
+                              n_chips=1)
+    row = {"arch": arch, "shape": shape.name, "mesh": "1xH100",
+           "mv_mode": mode, "status": "ok", "reduced": reduced,
+           "memory": {"peak_bytes_per_device": peak},
+           "layers": cfg.n_layers, "batch": shape.global_batch,
+           "seq_len": S, "model_flops": mf, "flops": rec.flops,
+           "bytes": rec.bytes,
+           "attention_score_bytes": sum(RL.attention_score_bytes(rec, q, k)
+                                        for q, k in sorted(scores)),
+           "step_s_p50": step_s, "mfu": mf / at_peak,
+           "hw_flops_share": rec.flops / at_peak,
+           "kernels": rec.kernels, "roofline": terms}
+    emit({"roofline_row": f"{shape.kind}_{arch}", **row})
+    check(mf > 0 and rec.flops > 0 and rec.bytes > 0
+          and np.isfinite(row["mfu"]) and not rec.collectives,
+          f"roofline {arch} {shape.name}: {rec.summary()}")
+    ROOFLINE_ROWS.append(row)
+    return row
+
+
+def train_trial(torch, launches, arch=ARCH):
+    """``Trainer`` over ``arch`` at full width and depth, or its
+    ``TRAIN_DEPTH`` cut (bfloat16, random weights from ``SEED``, 4 x 512
+    positions a step: for paligemma-3b 256 patch embeddings and 256
+    tokens; for seamless-m4t-medium beside the data pipeline's 4096
+    float32 frame embeddings, so its encoder runs in float32) for
+    ``STEPS`` steps under ``TrainSupervisor.run`` (checkpoints beyond the
+    last step: one would be 40 GB of ``.npy`` for qwen2.5-3b), AdamW
+    warming up over ``TRAIN_WARMUP`` steps (the ``Trainer``'s default
+    10 where it has none), Mode U with the fused commit and a 2-slot
+    ring.  Launch counters are set to 0 just before
     the run and read just after; every step must launch ``fused_adamw``
     once per leaf and the arch's sequence kernel (``flash_attention``,
     or ``ssd_scan`` through ``SSDScanFn``) at least twice per layer
     (forward and recompute; an encoder-decoder's 36 attentions).
     After each step a reader one step behind must get an ``ok`` snapshot
-    whose leaf checksums are the previous step's live ones.  Then a
-    window of further steps (at least one, for ``trace_s``) under a
-    profiler trace (idle share, the
-    device time per step of ``fused_adamw`` and of the sequence
-    kernel; for ``flash_attention`` also of its float32 (FMA) launches,
-    and of those with the largest grid: an encoder-decoder's encoder)."""
+    whose leaf checksums are the previous step's live ones.  Then one
+    more step under a profiler trace (idle share, the device time of
+    ``fused_adamw`` and of the sequence kernel; for ``flash_attention``
+    also of its float32 (FMA) launches, and of those with the largest
+    grid: an encoder-decoder's encoder).
+    Last, one more step counted by ``launch.roofline.count()``
+    (``roofline_read``)."""
     from torch.profiler import ProfilerActivity
 
     from repro_torch import kernels as K
     from repro_torch.configs import MVStoreConfig, ShapeConfig, get_config
     from repro_torch.core import mvstore
+    from repro_torch.kernels import fused_adamw as FW
+    from repro_torch.launch import roofline as RL
     from repro_torch.launch.train import Trainer
     from repro_torch.optim import adamw
     from repro_torch.runtime.fault_tolerance import TrainSupervisor
 
     cfg = get_config(arch)
+    reduced = None
+    if arch in TRAIN_DEPTH:
+        reduced = f"depth {TRAIN_DEPTH[arch]} of {cfg.n_layers} layers"
+        cfg = dataclasses.replace(cfg, n_layers=TRAIN_DEPTH[arch])
+    warmup = TRAIN_WARMUP.get(arch, 10)
+    steps = STEPS.get(arch, TRAIN_STEPS)
     seq_kernel = PREFILL_KERNEL[arch]
+    shape = ShapeConfig("train_chip", TRAIN_SEQ, TRAIN_BATCH, "train")
     t0 = time.perf_counter()
-    trainer = Trainer(cfg, ShapeConfig("train_chip", TRAIN_SEQ, TRAIN_BATCH,
-                                       "train"),
+    trainer = Trainer(cfg, shape,
                       mvcfg=MVStoreConfig(mode="U", fused_commit=True),
                       opt_cfg=adamw.AdamWConfig(warmup_steps=warmup),
                       seed=SEED)
@@ -4328,9 +4561,10 @@ def train_trial(torch, launches, arch=ARCH, steps=TRAIN_STEPS, warmup=10,
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for _, t in mvstore._flatten(state.mv.live))
     n_leaves = len(mvstore._flatten(state.mv.live))
-    bound_ms = sum(t.numel() * (4 * t.element_size() + 16)
-                   for _, t in mvstore._flatten(state.mv.live)) \
-        / HBM_BYTES_PER_S * 1e3
+    bound_ms = sum(FW.work(t, t, None, None, state.mv.ring.get(path), 0,
+                           None)[1]
+                   for path, t in mvstore._flatten(state.mv.live)) \
+        / RL.HBM_BW * 1e3
     prev = [_checksums(torch, state.mv.live)]
     losses, step_s, snaps = [], [], []
     mark = [0.0]
@@ -4371,6 +4605,7 @@ def train_trial(torch, launches, arch=ARCH, steps=TRAIN_STEPS, warmup=10,
     tokens = TRAIN_SEQ * TRAIN_BATCH
     row = {"trial": f"train_{arch}", "mode": "U", "fused_commit": True,
            "ring_slots": 2, "seq": TRAIN_SEQ, "batch": TRAIN_BATCH,
+           "layers": cfg.n_layers, "reduced": reduced,
            "warmup_steps": warmup,
            "steps": step, "params": n_params, "leaves": n_leaves,
            "init_s": init_s, "seconds": dt, "losses": losses,
@@ -4384,38 +4619,24 @@ def train_trial(torch, launches, arch=ARCH, steps=TRAIN_STEPS, warmup=10,
            "fused_adamw_launches_per_step": counts["fused_adamw"] / step,
            f"{seq_kernel}_launches_per_step": counts[seq_kernel] / step,
            "launches": counts}
-    check(n_params == TRAIN_PARAMS[arch],
-          f"train {arch}: {n_params} parameters")
-    check(step == steps and sup.restarts == 0,
-          f"train: {step} steps, {sup.restarts} restarts: {sup.events}")
-    check(all(np.isfinite(losses)), f"train: a loss is not finite: {losses}")
-    check(np.mean(losses[-5:]) < np.mean(losses[:5]),
-          f"train: the loss did not fall: {losses}")
-    check(all(snaps), "train: a one-behind snapshot was not ok or not the "
-                      f"previous step's parameters: {snaps}")
-    check(counts["fused_adamw"] == n_leaves * steps,
-          f"train: {counts['fused_adamw']} fused_adamw launches for "
-          f"{n_leaves} leaves x {steps} steps")
-    layers = prefill_launches(cfg)[seq_kernel]
-    check(counts[seq_kernel] >= 2 * layers * steps,
-          f"train: {counts[seq_kernel]} {seq_kernel} launches for "
-          f"{layers} layers x (forward + recompute) x {steps} steps")
-    check(counts["snapshot_select"] > 0, "train: no snapshot_select launch")
-
     # phase 9's window, taken while the trainer is up
     prof = torch.profiler.profile(activities=[ProfilerActivity.CUDA])
     prof.start()
-    t0, n, enqueue = time.perf_counter(), 0, 0.0
-    while not n or time.perf_counter() - t0 < trace_s:
-        t1 = time.perf_counter()
-        state, metrics = trainer.train_step(state, trainer.batch_at(step + n))
-        enqueue += time.perf_counter() - t1
-        float(metrics["loss"])
-        n += 1
+    t0, n = time.perf_counter(), 1
+    state, metrics = trainer.train_step(state, trainer.batch_at(step))
+    enqueue = time.perf_counter() - t0
+    float(metrics["loss"])
     torch.cuda.synchronize()
     window = time.perf_counter() - t0
     prof.stop()
+    # one more step, counted: the count costs host time on every
+    # operation, so it stays outside the timed and traced windows
+    with RL.count() as rec:
+        state, metrics = trainer.train_step(state,
+                                            trainer.batch_at(step + n))
+    float(metrics["loss"])
     trainer.controller.stop()
+    restarts, events = sup.restarts, sup.events
     del state, trainer, sup
     free_card(torch)
     gpu = gpu_events(prof)
@@ -4435,6 +4656,29 @@ def train_trial(torch, launches, arch=ARCH, steps=TRAIN_STEPS, warmup=10,
         row.update(flash_f32_split(gpu, n))
     emit(row)
     K.reset_launch_counts()
+    check(n_params == TRAIN_PARAMS[arch],
+          f"train {arch}: {n_params} parameters")
+    check(step == steps and restarts == 0,
+          f"train: {step} steps, {restarts} restarts: {events}")
+    check(all(np.isfinite(losses)), f"train: a loss is not finite: {losses}")
+    check(np.mean(losses[-5:]) < np.mean(losses[:5]),
+          f"train: the loss did not fall: {losses}")
+    check(all(snaps), "train: a one-behind snapshot was not ok or not the "
+                      f"previous step's parameters: {snaps}")
+    check(counts["fused_adamw"] == n_leaves * steps,
+          f"train: {counts['fused_adamw']} fused_adamw launches for "
+          f"{n_leaves} leaves x {steps} steps")
+    layers = prefill_launches(cfg)[seq_kernel]
+    check(counts[seq_kernel] >= 2 * layers * steps,
+          f"train: {counts[seq_kernel]} {seq_kernel} launches for "
+          f"{layers} layers x (forward + recompute) x {steps} steps")
+    check(counts["snapshot_select"] > 0, "train: no snapshot_select launch")
+    kernels = rec.kernels
+    check(kernels.get("fused_adamw", [0])[0] == n_leaves
+          and kernels.get(seq_kernel, [0])[0] >= 2 * layers,
+          f"train {arch}: the counted step's kernels {kernels}")
+    roofline_read(torch, rec, cfg, shape, arch, row["step_s_p50"],
+                  mode="U", peak=peak, reduced=reduced)
     return row
 
 
@@ -4899,26 +5143,105 @@ def traversal_trace(torch, tm, query):
             "host_split": split}
 
 
-def move_engine(torch, src, dst):
-    """Carry a quiescent word engine's state to a fresh one on another
-    device: the heap buffer, the lock row and the clock, one copy each.
-    Only a state with no version list is carried (a single-thread
-    prefill never leaves Mode Q, so none exists); the source stops."""
-    s, d = src.raw, dst.raw
-    check(s.policy.vlt.nonempty_count == 0 and s.policy.mode_name(s) ==
-          d.policy.mode_name(d), "move_engine: the source holds versions")
-    heap = s.heap
-    d.heap._install(heap._buf.to(d.device), len(heap))
-    d.locks._words.copy_(s.locks._words)
-    d.clock.store(s.clock.load())
+def _at_scale_params():
+    from repro_torch.configs.paper_stm import MultiverseParams
+
+    return MultiverseParams(k1=2, k2=3, k3=3, lock_table_bits=16)
+
+
+def _at_scale_keys(cfg):
+    return random.Random(SEED * 7919 + 11).sample(range(cfg["key_range"]),
+                                                  cfg["keys"])
+
+
+def prefill_structure(kind, cfg):
+    """``kind``'s at-scale structure (``cfg``, its ``AT_SCALE``) prefilled
+    through its insert path, ``PREFILL_PER_TXN`` keys to a transaction, on
+    a multiverse engine on the CPU (bit-identical to the card's: phase 3,
+    ``tests/test_torch_structs.py``; on the card each scalar read is a
+    device sync).  Returns what ``install_structure`` carries to the
+    card: the heap buffer and its length, the lock words, the clock and
+    the mode (numpy and ints), the structure's fields, and the prefill's
+    seconds.  ``StructurePrefills`` runs it in a spawned process, so it
+    stays on one core."""
+    import torch
+
+    from repro_torch.api import run
+    from repro_torch.structs import STRUCTS
+
+    torch.set_num_threads(1)
+    host = _make("multiverse", 2, _at_scale_params(), device="cpu")
+    s = STRUCTS[kind](host, **({"n_buckets": cfg["n_buckets"]}
+                               if kind == "hashmap" else {}))
+    keys = _at_scale_keys(cfg)
+    t0 = time.perf_counter()
+    for i in range(0, len(keys), PREFILL_PER_TXN):
+        run(host, lambda tx, ks=keys[i:i + PREFILL_PER_TXN]: [
+            s.insert(tx, k, INITIAL) for k in ks], tid=0)
+    seconds = time.perf_counter() - t0
+    raw = host.raw
+    # a single-thread prefill never leaves Mode Q: no version list to carry
+    check(raw.policy.vlt.nonempty_count == 0,
+          f"prefill {kind}: the engine holds versions")
+    out = {"heap": raw.heap._buf.numpy().copy(), "n": len(raw.heap),
+           "locks": raw.locks._words.numpy().copy(),
+           "clock": raw.clock.load(), "mode": raw.policy.mode_name(raw),
+           "fields": {k: v for k, v in vars(s).items() if k != "tm"},
+           "seconds": seconds}
+    host.stop()
+    return out
+
+
+class StructurePrefills:
+    """``prefill_structure`` of each ``AT_SCALE`` structure, in one
+    spawned process started at the beginning of the run: the prefills
+    are one Python insert a key (~30 s for the three on the host of an
+    NVIDIA H100 80GB HBM3, 700.00 W) and run beside phases 1-4 on a core
+    of their own.  ``get`` waits for
+    one; ``close`` stops the process."""
+
+    def __init__(self):
+        import concurrent.futures
+        import multiprocessing
+
+        self._pool = concurrent.futures.ProcessPoolExecutor(
+            max_workers=1, mp_context=multiprocessing.get_context("spawn"))
+        self._futures = {k: self._pool.submit(prefill_structure, k, cfg)
+                         for k, cfg in AT_SCALE.items()}
+
+    def get(self, kind):
+        return self._futures[kind].result()
+
+    def close(self):
+        self._pool.shutdown(cancel_futures=True)
+
+
+def install_structure(torch, kind, got):
+    """A multiverse engine on the card holding ``got`` (a
+    ``prefill_structure`` result: the heap buffer, the lock row and the
+    clock, one copy each) and ``kind``'s structure over it."""
+    from repro_torch.structs import STRUCTS
+
+    tm = _make("multiverse", 2, _at_scale_params())
+    d = tm.raw
+    check(d.policy.mode_name(d) == got["mode"],
+          f"prefill {kind}: mode {got['mode']} against the card's "
+          f"{d.policy.mode_name(d)}")
+    d.heap._install(torch.from_numpy(got["heap"]).to(d.device), got["n"])
+    d.locks._words.copy_(torch.from_numpy(got["locks"]))
+    d.clock.store(got["clock"])
     torch.cuda.synchronize()
-    src.stop()
+    s = STRUCTS[kind].__new__(STRUCTS[kind])
+    vars(s).update(got["fields"], tm=tm)
+    return tm, s
 
 
-def at_scale_trial(torch, kind, window_s=2.0, warmup_s=0.5):
+def at_scale_trial(torch, kind, prefilled, window_s=1.0, warmup_s=0.5):
     """One structure at the size ``AT_SCALE`` gives, on multiverse on the
     card, prefilled through its insert path ``PREFILL_PER_TXN`` keys to a
-    transaction, then one reader beside one updater:
+    transaction (``prefilled``: a ``prefill_structure`` result, carried
+    to the card by ``install_structure``), then one reader beside one
+    updater:
 
       * a tree serves ``RQ_SIZE``-key range queries from seeded ``lo``
         while the updater moves value between the keys of fixed adjacent
@@ -4933,30 +5256,13 @@ def at_scale_trial(torch, kind, window_s=2.0, warmup_s=0.5):
     Then one quiescent query under a profiler trace
     (``traversal_trace``)."""
     from repro_torch.api import MaxRetriesExceeded, run
-    from repro_torch.configs.paper_stm import MultiverseParams
-    from repro_torch.structs import STRUCTS
 
     cfg = AT_SCALE[kind]
     n, key_range = cfg["keys"], cfg["key_range"]
-    params = MultiverseParams(k1=2, k2=3, k3=3, lock_table_bits=16)
-    tm = _make("multiverse", 2, params)
-    # the prefill runs the same insert path on a CPU engine (bit-identical
-    # to the card's: phase 3, tests/test_torch_structs.py), whose state
-    # then moves to the card in one copy each of the heap, the lock row
-    # and the clock — on the card each scalar read is a device sync
-    host = _make("multiverse", 2, params, device="cpu")
-    s = STRUCTS[kind](host, **({"n_buckets": cfg["n_buckets"]}
-                               if kind == "hashmap" else {}))
-    rnd = random.Random(SEED * 7919 + 11)
-    keys = rnd.sample(range(key_range), n)
     t0 = time.perf_counter()
-    for i in range(0, n, PREFILL_PER_TXN):
-        run(host, lambda tx, ks=keys[i:i + PREFILL_PER_TXN]: [
-            s.insert(tx, k, INITIAL) for k in ks], tid=0)
-    move_engine(torch, host, tm)
-    s.tm = tm
-    prefill_s = time.perf_counter() - t0
-    order = sorted(keys)
+    tm, s = install_structure(torch, kind, prefilled)
+    install_s = time.perf_counter() - t0
+    order = sorted(_at_scale_keys(cfg))
 
     if kind == "hashmap":
         def query(tx, r):
@@ -5024,7 +5330,8 @@ def at_scale_trial(torch, kind, window_s=2.0, warmup_s=0.5):
     row = {"trial": f"at_scale_{kind}", "backend": "multiverse",
            "structure": kind, "keys": n, "key_range": key_range,
            "rq_size": RQ_SIZE if kind != "hashmap" else None,
-           "prefill_per_txn": PREFILL_PER_TXN, "prefill_s": prefill_s,
+           "prefill_per_txn": PREFILL_PER_TXN,
+           "prefill_s": prefilled["seconds"], "install_s": install_s,
            "seconds": dt, "queries": tot["queries"],
            "queries_per_s": tot["queries"] / dt,
            "failed_queries": tot["failed_queries"],
@@ -5056,15 +5363,17 @@ def at_scale_trial(torch, kind, window_s=2.0, warmup_s=0.5):
     return row
 
 
-def structures_phase(torch):
-    """The at-scale trial of each structure, the launch counts read around
+def structures_phase(torch, prefills):
+    """The at-scale trial of each structure (its prefill from
+    ``prefills``, a ``StructurePrefills``), the launch counts read around
     each: every one must launch ``gather_bracketed``."""
     from repro_torch import kernels as K
 
     totals = defaultdict(int)
     for kind in AT_SCALE:
+        got = prefills.get(kind)
         K.reset_launch_counts()
-        row = at_scale_trial(torch, kind)
+        row = at_scale_trial(torch, kind, got)
         torch.cuda.synchronize()
         row["launches"] = K.launch_counts()
         emit(row)
@@ -6309,12 +6618,12 @@ def idle_shares(torch):
     # and the Mamba trainer joined the run)
     traced = {
         "longread_scan4096": lambda p: longread_trial(
-            torch, "longread_scan4096", 4096, 12, 2.0, 0.5, probe=p),
+            torch, "longread_scan4096", 4096, 12, TRACE_S, 0.5, probe=p),
         "rwmix_w1024": lambda p: rwmix_trial(
-            torch, "rwmix_w1024", 1024, 2.0, 0.5, probe=p),
+            torch, "rwmix_w1024", 1024, TRACE_S, 0.5, probe=p),
         "group_tl2_1M": lambda p: group_trial(
-            torch, "group_tl2_1M", "tl2", 2.0, 0.5, probe=p),
-        "mvstore_1M": lambda p: mvstore_trial(torch, "mvstore_1M", 2.0, 0.5,
+            torch, "group_tl2_1M", "tl2", TRACE_S, 0.5, probe=p),
+        "mvstore_1M": lambda p: mvstore_trial(torch, "mvstore_1M", TRACE_S, 0.5,
                                               probe=p),
     }
     for name, trial in traced.items():
@@ -6341,6 +6650,7 @@ def main() -> int:
         return 2
     try:
         from repro_torch.kernels import _lib
+        from repro_torch.launch.roofline import HBM_BW
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}",
               file=sys.stderr)
@@ -6354,28 +6664,6 @@ def main() -> int:
     print(smi[0], flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
-    t0 = time.perf_counter()
-    _lib.library()
-    emit({"build_seconds": time.perf_counter() - t0,
-          "library": os.path.relpath(str(_lib.library_path()), HERE)})
-    emit({"mma_build": mma_build_check()})
-
-    dev = torch.device("cuda")
-    rng = np.random.default_rng(SEED)
-    t0 = time.perf_counter()
-    timings = kernel_checks(torch, dev, rng)
-    for name, row in timings.pop("host_paths").items():
-        emit({"host_path": name, **row})
-    for name, by_n in timings.items():
-        for n, row in by_n.items():
-            emit({"kernel": name, "n": n, "bound_by": "bytes", **row,
-                  "hbm_bytes_per_s": HBM_BYTES_PER_S})
-    emit({"kernel_checks_seconds": time.perf_counter() - t0,
-          "integer_kernels_bit_identical": True,
-          "flash_attention_within_tolerance": True,
-          "fused_adamw_within_tolerance": True,
-          "ssd_scan_within_tolerance": True})
-
     laps, t_lap = {}, t_run
 
     def lap(name):
@@ -6385,32 +6673,61 @@ def main() -> int:
         laps[name] = now - t_lap
         t_lap = now
 
-    lap("build_and_kernel_checks")
+    # the full-width train checks' CPU runs, beside the build and phase 3's
+    # checks (no profiler trace and no timing there: the kernel checks,
+    # which trace, wait until they are done)
+    cpu_reference = CPUReference(torch, (ARCH, MAMBA))
+    prefills = StructurePrefills()
+    t0 = time.perf_counter()
+    _lib.library()
+    emit({"build_seconds": time.perf_counter() - t0,
+          "library": os.path.relpath(str(_lib.library_path()), HERE)})
+    emit({"mma_build": mma_build_check()})
+    lap("build")
+
+    dev = torch.device("cuda")
     schedule_check(torch)
     lap("schedules")
     model_check(torch, dev)
     model_check(torch, dev, arch=MAMBA, prompt=(2, 512))
     lap("model_checks")
-    train_check(torch, dev)
-    train_check(torch, dev, arch=MAMBA)
+    train_check(torch, dev, cpu=cpu_reference)
+    train_check(torch, dev, arch=MAMBA, cpu=cpu_reference)
     lap("train_checks")
+    rng = np.random.default_rng(SEED)
+    t0 = time.perf_counter()
+    timings = kernel_checks(torch, dev, rng)
+    for name, row in timings.pop("host_paths").items():
+        emit({"host_path": name, **row})
+    for name, by_n in timings.items():
+        for n, row in by_n.items():
+            emit({"kernel": name, "n": n, "bound_by": "bytes", **row,
+                  "hbm_bytes_per_s": HBM_BW})
+    emit({"kernel_checks_seconds": time.perf_counter() - t0,
+          "integer_kernels_bit_identical": True,
+          "flash_attention_within_tolerance": True,
+          "fused_adamw_within_tolerance": True,
+          "ssd_scan_within_tolerance": True})
+    lap("kernel_checks")
     launches = main_path(torch)
     lap("stm_trials")
-    served, toks = serving_trial(torch, launches, idle_window_s=3.0)
+    served, toks = serving_trial(torch, launches, idle_window_s=TRACE_S)
     snapshot_checks(torch, launches, toks)
     free_card(torch)
-    _, toks = serving_trial(torch, launches, arch=MAMBA, idle_window_s=3.0)
+    _, toks = serving_trial(torch, launches, arch=MAMBA,
+                            idle_window_s=TRACE_S)
     snapshot_checks(torch, launches, toks, arch=MAMBA, modes=("U",))
     free_card(torch)
     lap("servers")
     train_trial(torch, launches)
-    train_trial(torch, launches, arch=MAMBA, steps=MAMBA_TRAIN_STEPS)
+    train_trial(torch, launches, arch=MAMBA)
     supervisor_drill(torch)
     lap("trainers")
     t0 = time.perf_counter()
-    for part in (eval_phase(torch), structures_phase(torch)):
+    for part in (eval_phase(torch), structures_phase(torch, prefills)):
         for k, v in part.items():
             launches[k] += v
+    prefills.close()
     emit({"eval_and_structures_seconds": time.perf_counter() - t0})
     lap("phase5_eval_and_structures")
     for name, phase in (("phase6_shards", shard_phase),
@@ -6419,7 +6736,9 @@ def main() -> int:
                         ("phase9_families",
                          lambda torch: families_phase(torch, dev)),
                         ("phase9b_seamless",
-                         lambda torch: seamless_phase(torch, dev))):
+                         lambda torch: seamless_phase(torch, dev)),
+                        ("phase9c_family_trainers",
+                         lambda torch: family_training_phase(torch, dev))):
         for k, v in phase(torch).items():
             launches[k] += v
         lap(name)
@@ -6429,6 +6748,18 @@ def main() -> int:
     idle_shares(torch)
     lap("phase10_idle_shares")
     emit({"phase_seconds": laps})
+    from repro_torch.launch import roofline_report
+
+    os.makedirs(os.path.dirname(ROOFLINE_JSONL), exist_ok=True)
+    with open(ROOFLINE_JSONL, "w") as f:
+        f.writelines(json.dumps(r) + "\n" for r in ROOFLINE_ROWS)
+    print(roofline_report.to_markdown(roofline_report.render(ROOFLINE_JSONL)),
+          flush=True)
+    emit({"roofline_rows": len(ROOFLINE_ROWS),
+          "mfu": {f"{r['shape']}_{r['arch']}": r["mfu"]
+                  for r in ROOFLINE_ROWS}})
+    check(len(ROOFLINE_ROWS) == 10, f"{len(ROOFLINE_ROWS)} roofline rows, "
+                                    "not 5 trainers and 5 servers")
 
     summary = []
     for name, (src, replaces, n) in KERNELS.items():

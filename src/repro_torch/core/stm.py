@@ -29,7 +29,8 @@ from __future__ import annotations
 
 import threading
 import time
-from typing import Any, Optional
+import warnings
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -55,7 +56,7 @@ from repro_torch.kernels import scatter_write as SW
 from repro_torch.reliability import faultpoints as FP
 
 __all__ = ["AbortTx", "MaxRetriesExceeded", "Multiverse",
-           "MultiversePolicy", "TMBase"]
+           "MultiversePolicy", "TMBase", "run"]
 
 
 def _host_values(values):
@@ -805,3 +806,22 @@ class Multiverse(TransactionEngine):
     def stats_unversioned_buckets(self) -> int:
         return self.policy.stats_unversioned_buckets
 
+
+
+def run(tm, fn: Callable, tid: int = 0, max_retries: int = 0) -> Any:
+    """DEPRECATED shim — the retry loop lives in ``repro_torch.api.run``.
+
+    Kept so existing call sites keep working; new code should use
+
+        from repro_torch.api import run, atomic, make_tm
+
+    which accepts both raw TMs and ``make_tm(...)`` substrates and owns
+    the retry/backoff/max_retries policy for every backend.
+    """
+    warnings.warn(
+        "repro_torch.core.stm.run() is deprecated; use repro_torch.api.run() "
+        "(or @repro_torch.api.atomic / tm.txn()) instead",
+        DeprecationWarning, stacklevel=2)
+    from repro_torch.api import run as api_run
+
+    return api_run(tm, fn, tid=tid, max_retries=max_retries)

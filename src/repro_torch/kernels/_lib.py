@@ -27,13 +27,15 @@ but the device's default one.
 Also here: the bounds contract shared by every gather/scatter
 (``check_addr_bounds``), the host-address to device-index conversion and
 its pinned staging blocks (``to_device``, ``StagingPool``), the 0-d bool
-verdicts the kernels write in place (``fresh_ok``), and the per-kernel
-launch counter.
+verdicts the kernels write in place (``fresh_ok``), the per-kernel
+launch counter, and the hook through which a wrapper reports its
+kernel's work to ``launch.roofline.count()`` (``counted``).
 """
 from __future__ import annotations
 
 import ctypes
 import fcntl
+import functools
 import hashlib
 import os
 import shutil
@@ -115,6 +117,50 @@ class LaunchCounter:
     def reset(self) -> None:
         with self._lock:
             self._n = 0
+
+
+#: the ``launch.roofline.count()`` dispatch modes open in this process;
+#: while there is none, a counted wrapper costs one test of this list
+COUNTERS: list = []
+
+
+def _active_counter():
+    """The innermost open ``count()`` on this thread's dispatch mode stack
+    (the autograd threads inherit the caller's), or None."""
+    from torch.utils._python_dispatch import \
+        _get_current_dispatch_mode_stack
+
+    for mode in reversed(_get_current_dispatch_mode_stack()):
+        if any(mode is c for c in COUNTERS):
+            return mode
+    return None
+
+
+def counted(name: str, work):
+    """Decorator of a kernel wrapper: while a ``launch.roofline.count()``
+    is open, the call runs with the counter's dispatch counting
+    suspended and ``work(*args, **kwargs)`` — the kernel's ``(flops,
+    bytes)`` — is added to it under ``name`` instead, on both routes,
+    so the plain version on the CPU and the kernel on the card count the
+    same.  The flops are what ``FlopCounterMode`` counts over the plain
+    version; the bytes are what the kernel's bound counts (each input
+    read once, each output written once).  A counted wrapper called
+    inside another adds nothing of its own.  The route is untouched."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            if not COUNTERS:
+                return fn(*args, **kwargs)
+            sink = _active_counter()
+            if sink is None or sink.suspended:
+                return fn(*args, **kwargs)
+            with sink.suspend():
+                out = fn(*args, **kwargs)
+                flops, nbytes = work(*args, **kwargs)
+            sink.add_kernel(name, flops, nbytes)
+            return out
+        return call
+    return wrap
 
 
 def _nvcc() -> str:

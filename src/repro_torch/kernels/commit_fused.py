@@ -296,6 +296,24 @@ def _check_ring(heap, ring, ring_ts, ring_slot, commit_ver) -> int:
     return slot
 
 
+def _work(heap, w_addr, w_val, w_seg, l_words, l_seg, r_words, r_seen, r_seg,
+          tids, r_clocks, commit_ver, n_txn, *, out_of_place=False,
+          ring=None, **_):
+    """``(flops, bytes)`` of one publish (``_lib.counted``): no products;
+    the bound's bytes, 32 a write (address, value, segment, the heap
+    word), 24 a write lock and 16 a read entry (their words and
+    segments), 17 a member (tid, clock, verdict); an out-of-place heap
+    read and written whole, and a ring row and its timestamp written."""
+    nbytes = (32 * len(w_addr) + 24 * len(l_words) + 16 * len(r_words)
+              + 17 * n_txn)
+    if out_of_place:
+        nbytes += 2 * heap.nbytes
+    if ring is not None:
+        nbytes += heap.nbytes + 4
+    return 0, nbytes
+
+
+@_lib.counted("commit_fused", _work)
 def commit_fused(heap: torch.Tensor, w_addr, w_val, w_seg, l_words, l_seg,
                  r_words, r_seen, r_seg, tids, r_clocks, commit_ver: int,
                  n_txn: int, *, mode: int = MODE_LE,

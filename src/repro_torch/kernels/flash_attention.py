@@ -26,7 +26,7 @@ equal (~1.4 us at S=512); the operations from S=2048 (``PERF.md``).
 
 ``flash_attention_plain`` is the plain PyTorch version the wrapper takes
 for CPU tensors: the same online softmax over 64-row kv blocks, all
-query rows at once.
+query rows at once, its output contiguous as the kernel's.
 """
 from __future__ import annotations
 
@@ -99,9 +99,28 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         acc = acc * corr[..., None] + pv
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
+    # contiguous, as the kernel's output: a caller's later reshape is then
+    # a view on both routes
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(
+        q.dtype).contiguous()
 
 
+def work(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+         causal: bool, scale: Optional[float] = None):
+    """``(flops, bytes)`` of one call (``_lib.counted``): the flops
+    ``FlopCounterMode`` counts over the plain version, both products
+    over every ``BLOCK_K`` block it visits (a causal call visits every
+    block that starts at or below its last query row: the whole square,
+    not half), and the bytes of the kernel's bound, q, k and v read and
+    the output written once."""
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    cols = min(Sk, -(-Sq // BLOCK_K) * BLOCK_K) if causal else Sk
+    return (4 * B * H * Sq * D * cols,
+            (2 * q.numel() + k.numel() + v.numel()) * q.element_size())
+
+
+@_lib.counted("flash_attention", work)
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool, scale: Optional[float] = None
                     ) -> torch.Tensor:
@@ -147,4 +166,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 __all__ = ["BLOCK_K", "MAX_HEAD_DIM", "NEG_INF", "flash_attention",
-           "flash_attention_plain", "launches"]
+           "flash_attention_plain", "launches", "work"]

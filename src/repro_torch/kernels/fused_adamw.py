@@ -94,6 +94,19 @@ def fused_adamw_plain(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
     return p2
 
 
+def work(p: torch.Tensor, g: torch.Tensor, m, v, ring, slot, scalars,
+         **_):
+    """``(flops, bytes)`` of one call (``_lib.counted``): no products
+    (``FlopCounterMode`` counts none in the plain version) and the bytes
+    of the kernel's bound: p, g, m and v read, p', m', v' and the ring
+    row written (24 per bf16 parameter with a ring)."""
+    per = 2 * p.element_size() + g.element_size() + 16
+    if ring is not None:
+        per += p.element_size()
+    return 0, p.numel() * per
+
+
+@_lib.counted("fused_adamw", work)
 def fused_adamw(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
                 v: torch.Tensor, ring: Optional[torch.Tensor], slot: int,
                 scalars: torch.Tensor, *, b1: float, b2: float, eps: float,
@@ -129,4 +142,4 @@ def fused_adamw(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
     return p2
 
 
-__all__ = ["fused_adamw", "fused_adamw_plain", "launches"]
+__all__ = ["fused_adamw", "fused_adamw_plain", "launches", "work"]

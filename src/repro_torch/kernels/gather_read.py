@@ -56,6 +56,20 @@ def gather_plain(row: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return row[idx]
 
 
+def _gather_work(row: torch.Tensor, idx, *_, **__):
+    """``(flops, bytes)`` of one gather (``_lib.counted``): no products;
+    each index read, each word read and written (24 B an int64 word)."""
+    return 0, len(idx) * (8 + 2 * row.element_size())
+
+
+def _bracketed_work(words, heap, idxs, addrs, *_, **__):
+    """``(flops, bytes)`` of one bracketed gather: no products; the two
+    lock-word reads, the heap read and the four output rows (56 B an
+    element)."""
+    return 0, 56 * len(addrs)
+
+
+@_lib.counted("gather_read", _gather_work)
 def gather_read_dev(row: torch.Tensor, idx: torch.Tensor,
                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Gather with ``idx`` already an int64 tensor on ``row``'s device
@@ -80,6 +94,7 @@ def gather_read_dev(row: torch.Tensor, idx: torch.Tensor,
     return out
 
 
+@_lib.counted("gather_read", _gather_work)
 def gather_read(row: torch.Tensor, addrs,
                 dev_idx: Optional[torch.Tensor] = None,
                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -116,6 +131,7 @@ def gather_lockver_plain(words: torch.Tensor, heap: torch.Tensor,
     return torch.stack((pre, post, vals, idx))
 
 
+@_lib.counted("gather_bracketed", _bracketed_work)
 def gather_bracketed(words: torch.Tensor, heap: torch.Tensor, idxs,
                      addrs, rows: int = 4, with_index: bool = False):
     """``out`` [rows, N] int64 on the rows' device: ``words[idxs]``

@@ -61,6 +61,20 @@ def scatter_fill_plain(row: torch.Tensor, idx: torch.Tensor,
     row[idx] = value
 
 
+def _scatter_work(row, addrs, *_, **__):
+    """``(flops, bytes)`` of one scatter (``_lib.counted``): no
+    products; each (index, value) pair read and each word written (24 B
+    an int64 word)."""
+    return 0, 24 * len(addrs)
+
+
+def _fill_work(row, addrs, *_, **__):
+    """``(flops, bytes)`` of one fill: each index read, each word
+    written."""
+    return 0, 16 * len(addrs)
+
+
+@_lib.counted("scatter_write", _scatter_work)
 def scatter_write_dev(row: torch.Tensor, idx: torch.Tensor,
                       vals: torch.Tensor) -> None:
     """Scatter with ``idx``/``vals`` already int64 tensors on ``row``'s
@@ -162,6 +176,7 @@ def _scatter_host(row: torch.Tensor, a: np.ndarray, values,
         launches.add()
 
 
+@_lib.counted("scatter_write", _scatter_work)
 def scatter_write(row: torch.Tensor, addrs, values) -> None:
     """``row[addrs] = values`` in place.  ``addrs`` are host addresses,
     checked against ``[0, len(row))`` before anything is launched;
@@ -187,6 +202,7 @@ def scatter_write(row: torch.Tensor, addrs, values) -> None:
         _scatter_host(row, a, values, fill=False)
 
 
+@_lib.counted("scatter_write", _fill_work)
 def scatter_fill(row: torch.Tensor, addrs, value: int) -> None:
     """``row[addrs] = value`` in place: one value at every address (the
     commit's lock release), bounds checked as in ``scatter_write``."""

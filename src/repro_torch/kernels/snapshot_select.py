@@ -49,6 +49,14 @@ def snapshot_select_plain(ring: torch.Tensor, ts: torch.Tensor,
     return ring[slot].clone(), ok
 
 
+def work(ring: torch.Tensor, ts: torch.Tensor, read_clock: int):
+    """``(flops, bytes)`` of one call (``_lib.counted``): no products, and
+    the bytes of the kernel's bound: the chosen row read and written,
+    the timestamps and the clock read."""
+    return 0, 2 * (ring.nbytes // ring.shape[0]) + ts.nbytes + 4
+
+
+@_lib.counted("snapshot_select", work)
 def snapshot_select(ring: torch.Tensor, ts: torch.Tensor,
                     read_clock: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(value [*shape], ok 0-d bool)`` for ``ring`` [R, *shape]
@@ -85,4 +93,4 @@ def _check(ring: torch.Tensor, ts: torch.Tensor) -> None:
 
 
 __all__ = ["NO_TS", "launches", "select_slot_plain", "snapshot_select",
-           "snapshot_select_plain"]
+           "snapshot_select_plain", "work"]

@@ -161,7 +161,11 @@ def output_plain(xh: torch.Tensor, dt: torch.Tensor, C_: torch.Tensor,
     y_inter = torch.einsum("bcin,bchnp->bcihp", _chunks(C_, Q).float(),
                            state_in) \
         * torch.exp(cum).transpose(2, 3)[..., None]
-    return (y_intra + y_inter).to(xh.dtype).reshape(Bsz, S, H, P)
+    # contiguous, as the kernel writes y: with one chunk the reshape is a
+    # view of the heads-major product, and a caller's later reshape would
+    # copy on this route only
+    return (y_intra + y_inter).to(xh.dtype).reshape(Bsz, S, H,
+                                                    P).contiguous()
 
 
 def ssd_scan_plain(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -229,6 +233,26 @@ def launch_stages(stages: int, xh: torch.Tensor, dt: torch.Tensor,
             [t.data_ptr() for t in work], Q)
 
 
+def work(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+         B_: torch.Tensor, C_: torch.Tensor, *, chunk: int = 256,
+         init_state: Optional[torch.Tensor] = None, want_state: bool = True):
+    """``(flops, bytes)`` of one call (``_lib.counted``): the flops
+    ``FlopCounterMode`` counts over the plain version (its four chunk
+    products over the whole Q x Q square: C.B^T, the chunk states, the
+    chunk's own rows and the carried state's term), and the bytes of the
+    kernel's bound: x, dt, A, B, C read, y written, and the initial and
+    final states."""
+    Bsz, S, H, P = xh.shape
+    N = B_.shape[-1]
+    Q = min(chunk, S)
+    flops = 2 * Bsz * S * (Q * N + 2 * N * H * P + H * Q * P)
+    nbytes = (2 * xh.numel() * xh.element_size()
+              + 4 * (dt.numel() + A.numel() + 2 * Bsz * H * N * P)
+              + 2 * B_.numel() * B_.element_size())
+    return flops, nbytes
+
+
+@_lib.counted("ssd_scan", work)
 def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              B_: torch.Tensor, C_: torch.Tensor, *, chunk: int = 256,
              init_state: Optional[torch.Tensor] = None,
@@ -289,4 +313,4 @@ __all__ = ["ALL_STAGES", "MAX_CHUNK", "MAX_HEAD_DIM", "MAX_STATE",
            "STAGE_CB", "STAGE_FOLD", "STAGE_OUT", "STAGE_STATE",
            "chunk_cb_plain", "chunk_cum_plain", "chunk_state_plain",
            "fold_plain", "launch_stages", "launches", "output_plain",
-           "scratch", "ssd_scan", "ssd_scan_plain"]
+           "scratch", "ssd_scan", "ssd_scan_plain", "work"]

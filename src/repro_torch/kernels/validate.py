@@ -75,6 +75,21 @@ def _as_seen(seen, device: torch.device) -> torch.Tensor:
     return _lib.to_device(np.asarray(seen, np.int64), device)
 
 
+def _mask_work(ver, *_, **__):
+    """``(flops, bytes)`` of one read-set check (``_lib.counted``): no
+    products; the version, owner, meta and seen fields read, the mask
+    written (28 B an entry) and the flag."""
+    return 0, 28 * ver.numel() + 4
+
+
+def _words_work(words, entries, *_, **__):
+    """``(flops, bytes)`` of one bulk revalidation: each (lock index,
+    seen) pair and its lock word read (24 B an entry), the verdict
+    written."""
+    return 0, 24 * len(entries) + 1
+
+
+@_lib.counted("validate", _mask_work)
 def validate_mask(ver: torch.Tensor, own: torch.Tensor, meta: torch.Tensor,
                   seen, r_clock: int, tid: int,
                   mode: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -130,6 +145,7 @@ def validate_words_plain(words: torch.Tensor, entries: torch.Tensor,
     return validate_plain(ver, own, meta, entries[:, 1], r_clock, tid, mode)
 
 
+@_lib.counted("validate", _words_work)
 def validate_words(words: torch.Tensor, entries, r_clock: int, tid: int,
                    mode: int, *, want_mask: bool = False):
     """``(ok, mask)``: whether every read-set entry is still valid, as a

@@ -67,6 +67,25 @@ def version_select_plain(ts: torch.Tensor, data: torch.Tensor,
     return vals, found.to(torch.int32)
 
 
+def _select_work(ts, data, *_, **__):
+    """``(flops, bytes)`` of one selection (``_lib.counted``): no
+    products; every slot's timestamp and value read, a value and a flag
+    written a row."""
+    return 0, ts.nbytes + data.nbytes + 12 * ts.shape[0]
+
+
+def _mirror_work(seq, way_addr, tsdata, idxs, *_, **__):
+    """``(flops, bytes)`` of one mirror resolve: the seqlock words, way
+    addresses, timestamps and values a row reads and its two output
+    words (116 B an element, the bound's count)."""
+    return 0, 116 * len(idxs)
+
+
+def _mirror_on_work(m, idxs, *_, **__):
+    return _mirror_work(None, None, None, idxs)
+
+
+@_lib.counted("version_select", _select_work)
 def version_select(ts: torch.Tensor, data: torch.Tensor,
                    r_clock: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(values int64[N], ok int32[N])`` on the rows' device."""
@@ -152,6 +171,7 @@ def mirror_tables(seq: torch.Tensor, way_addr: torch.Tensor,
                         seq.is_cuda)
 
 
+@_lib.counted("version_select", _mirror_work)
 def mirror_select(seq: torch.Tensor, way_addr: torch.Tensor,
                   tsdata: torch.Tensor, idxs, addrs, r_clock: int,
                   dev_idx: Optional[torch.Tensor] = None,
@@ -172,6 +192,7 @@ def mirror_select(seq: torch.Tensor, way_addr: torch.Tensor,
                             addrs, r_clock, dev_idx, out)
 
 
+@_lib.counted("version_select", _mirror_on_work)
 def mirror_select_on(m: MirrorTables, idxs, addrs, r_clock: int,
                      dev_idx: Optional[torch.Tensor] = None,
                      out: Optional[torch.Tensor] = None) -> torch.Tensor:

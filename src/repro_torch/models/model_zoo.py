@@ -135,6 +135,18 @@ def param_counts(cfg: ModelConfig) -> Dict[str, int]:
     return {"total": total, "active": active, "embed": embed}
 
 
+def model_flops(cfg: ModelConfig, shape: ShapeConfig) -> float:
+    """6*N*D for train cells, 2*N per token for prefill and 2*N per
+    generated token for decode (N: ``param_counts``' active count; a
+    vision cell counts its text tokens only), as the reference."""
+    n_active = param_counts(cfg)["active"]
+    if shape.kind == "train":
+        return 6.0 * n_active * shape.global_batch * _text_len(cfg, shape)
+    if shape.kind == "prefill":
+        return 2.0 * n_active * shape.global_batch * _text_len(cfg, shape)
+    return 2.0 * n_active * shape.global_batch  # decode: one token each
+
+
 def params_from_numpy(tree, device=None):
     """A nested dict of numpy arrays (the JAX package's parameter tree,
     e.g. through ``np.asarray`` per leaf) as the same nesting of tensors
@@ -157,5 +169,5 @@ def params_from_numpy(tree, device=None):
 
 
 __all__ = ["batch_shapes", "concrete_batch", "decode_fn", "init_cache",
-           "init_params", "loss_fn", "model_meta", "param_counts",
-           "params_from_numpy", "prefill_fn"]
+           "init_params", "loss_fn", "model_flops", "model_meta",
+           "param_counts", "params_from_numpy", "prefill_fn"]
