@@ -215,7 +215,22 @@ printed:
      trace of their GPU activity for ``TRACE_S`` (1 s; each server,
      qwen2.5-3b's, mamba2-780m's and jamba-v0.1-52b's, is traced as long
      after its serving trial's counted requests, and each trainer for
-     one step while it is still up).
+     one step while it is still up);
+ 11. the sharding layer (``sharding_phase``): (a) qwen2.5-3b at full
+     width, depth 2, float32, Mode U fused, on a real one-rank ``nccl``
+     group and a (1, 1) ``"cuda"`` mesh with the default rules —
+     ``reshard_state`` copies a plain state onto the mesh, and 3 sharded
+     steps (each followed by a one-behind ``mv_snapshot``) must equal 3
+     plain ones within 1e-4 (losses, parameters, moments), with the same
+     ``flash_attention``, ``fused_adamw`` and ``snapshot_select``
+     launches and no collective (``CommDebugMode``); (b) the fake-rank
+     dry run of ``train_trial``'s own qwen2.5-3b step (a process spawned
+     at the start, ``DryRuns``) must count that trainer's counted step's
+     flops and bytes integer for integer, and its per-rank peak must lie
+     within 10 % of the trainer's ``max_memory_allocated``; (c)
+     qwen2.5-3b ``train_4k`` and moonshot-v1-16b-a3b ``decode_32k`` on
+     the fake 16x16 pod must trace ``ok`` (per-rank peak, collectives by
+     kind and trace seconds printed).
 
 The last two lines are the kernels summary and
 ``{"ok": true, "device": {...}}``.
@@ -4585,9 +4600,15 @@ def train_trial(torch, launches, arch=ARCH):
     torch.cuda.reset_peak_memory_stats()
     alloc0 = torch.cuda.memory_stats()
     K.reset_launch_counts()
+    # the run gets the only reference to the initial state: held here,
+    # its live blocks (the fused commit's old parameters) would stay on
+    # the card through every step and count in the peak
+    held = [state]
+    del state
     mark[0] = t0 = time.perf_counter()
     try:
-        step, state = sup.run(state=state, train_step=trainer.train_step,
+        step, state = sup.run(state=held.pop(),
+                              train_step=trainer.train_step,
                               batch_at=trainer.batch_at,
                               n_steps=steps, on_step=on_step)
     finally:
@@ -6537,6 +6558,279 @@ def serving_phase(torch):
 PHASE4_ROWS = {}
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the sharding layer — the sharded step on the card (a), and the
+# fake-rank dry run against the card (b) and on the production pod (c)
+# ---------------------------------------------------------------------------
+
+#: (a)'s model: qwen2.5-3b at full width, SHARD_DEPTH layers, float32
+SHARD_DEPTH = 2
+SHARD_SEQ, SHARD_BATCH = 128, 4
+SHARD_STEPS = 3
+#: sharded vs plain steps on the card, float32 (rtol = atol): both run the
+#: same kernels on the same tensors, so only DTensor's own operation order
+#: could part them
+SHARD_TOL = 1e-4
+#: the dry run's per-rank peak against the trainer's measured
+#: ``max_memory_allocated``: the trace counts live storages, the
+#: allocator rounds blocks and holds cuBLAS workspaces
+PEAK_TOL = 0.10
+#: (c): two production cells on the fake 16 x 16 mesh, the second an
+#: expert-parallel decode
+PRODUCTION_CELLS = ((ARCH, "train_4k"), (MOONSHOT, "decode_32k"))
+
+
+def dryrun_cells():
+    """(b) and (c), traced on fake ranks (``launch/dryrun.py``) in a
+    process of their own, spawned at the start of the run: a fake
+    process group of 512 ranks, this process rank 0, whose tensors are
+    ``FakeTensor``s that claim the card's device type.  Nothing is
+    allocated on the card or launched there; autograd's engine asks for
+    the device's primary context all the same (about 520 MiB of the
+    card, held until the process ends).
+
+    (b): ``train_trial``'s own qwen2.5-3b step (full width and depth,
+    ``TRAIN_BATCH`` x ``TRAIN_SEQ``, Mode U with the fused commit and a
+    2-slot ring, the ``Trainer``'s parallel config) on a fake (1, 1)
+    ``"cuda"`` mesh with the default rules.  (c): ``lower_cell`` of each
+    ``PRODUCTION_CELLS`` cell on the fake 16 x 16 pod."""
+    import torch
+
+    from repro_torch.configs import (MVStoreConfig, ParallelConfig,
+                                     ShapeConfig, get_config)
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch.roofline import collective_bytes
+    from repro_torch.launch.sharding import default_rules
+    from repro_torch.optim import adamw
+
+    M.fake_world()
+    mesh = M.make_rank_mesh((1, 1), ("data", "model"), "cuda")
+    shape = ShapeConfig("train_chip", TRAIN_SEQ, TRAIN_BATCH, "train")
+    pcfg = ParallelConfig(attn_block_q=min(1024, TRAIN_SEQ),
+                          attn_block_k=min(1024, TRAIN_SEQ))
+    rec, memory, t = dryrun.compile_once(
+        get_config(ARCH), shape, mesh, pcfg,
+        MVStoreConfig(mode="U", fused_commit=True),
+        adamw.AdamWConfig(warmup_steps=TRAIN_WARMUP.get(ARCH, 10)),
+        default_rules(mesh))
+    out = {"card_step": {"flops": rec.flops, "bytes": rec.bytes,
+                         "memory": memory, "trace_s": t["trace_s"],
+                         "kernels": rec.kernels,
+                         "collectives": collective_bytes(rec)["ops"]}}
+    for arch, shape_name in PRODUCTION_CELLS:
+        row = dryrun.lower_cell(arch, shape_name, multi_pod=False)
+        out[f"{arch}/{shape_name}"] = row
+    out["cuda_initialized"] = torch.cuda.is_initialized()
+    return out
+
+
+class DryRuns:
+    """``dryrun_cells`` in one spawned process started at the beginning
+    of the run, beside the phases before it on a core of its own (the
+    traces are CPU-bound: they must not share this process's interpreter
+    with a profiler trace).  The process ends when its one task does,
+    and its CUDA context with it, long before the phases that fill the
+    card.  ``get`` waits for the result."""
+
+    def __init__(self):
+        import concurrent.futures
+        import multiprocessing
+
+        self._pool = concurrent.futures.ProcessPoolExecutor(
+            max_workers=1, mp_context=multiprocessing.get_context("spawn"),
+            max_tasks_per_child=1)
+        self._future = self._pool.submit(dryrun_cells)
+
+    def get(self):
+        t0 = time.perf_counter()
+        out = self._future.result()
+        return out, time.perf_counter() - t0
+
+    def close(self):
+        self._pool.shutdown(cancel_futures=True)
+
+
+def sharded_step_check(torch, dev):
+    """(a): qwen2.5-3b at full width, ``SHARD_DEPTH`` layers, float32,
+    Mode U with the fused commit, on a real process group of one rank
+    (``nccl``) and a (1, 1) ``"cuda"`` mesh with the default rules.
+    ``reshard_state`` moves a plain initial state onto the mesh (copies);
+    ``SHARD_STEPS`` sharded steps (``make_train_step(..., rules,
+    mesh)``) must match as many plain steps from the same state and
+    batches — losses, parameters and moments within ``SHARD_TOL`` — with
+    a one-behind reader's ``mv_snapshot`` after each step.  The kernels'
+    launches (``flash_attention``, ``fused_adamw``, ``snapshot_select``)
+    must be the same in both runs, and ``CommDebugMode`` must count no
+    collective in the sharded run (so NCCL's stream never runs beside
+    the one-stream rule's).  Returns the sharded run's launches."""
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch import kernels as K
+    from repro_torch.configs import (MVStoreConfig, ParallelConfig,
+                                     ShapeConfig, get_config)
+    from repro_torch.core import mvstore
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_rank_mesh
+    from repro_torch.launch.sharding import (default_rules, is_dtensor,
+                                             use_rules)
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.elastic import reshard_state
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_rank_mesh((1, 1), ("data", "model"), "cuda")
+        rules = default_rules(mesh)
+        cfg = dataclasses.replace(get_config(ARCH), n_layers=SHARD_DEPTH,
+                                  dtype="float32")
+        shape = ShapeConfig("shard_chip", SHARD_SEQ, SHARD_BATCH, "train")
+        pcfg = ParallelConfig(attn_block_q=SHARD_SEQ, attn_block_k=SHARD_SEQ)
+        mvcfg = MVStoreConfig(mode="U", fused_commit=True)
+        opt = adamw.AdamWConfig(warmup_steps=1)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED)
+        params = zoo.init_params(cfg, gen)
+        plain = steps.TrainState(
+            mvstore.mv_init(params, mvcfg, versioned="all"),
+            adamw.init(params, opt))
+        sharded = reshard_state(plain, mesh, rules)
+        batches = [zoo.concrete_batch(cfg, shape, gen)
+                   for _ in range(SHARD_STEPS)]
+        specs = {k: v.spec for k, v in
+                 zoo.input_specs(cfg, shape, rules).items()}
+        sbatches = [reshard_state(b, mesh, rules, spec_tree=specs)
+                    for b in batches]
+        check(all(is_dtensor(t) for t in
+                  _state_leaves(sharded).values()),
+              "sharded: reshard_state left a plain tensor")
+
+        def run(step, state, batches, sharded):
+            losses, oks = [], []
+            for b in batches:
+                state, m = step(state, b)
+                losses.append(m["loss"])
+                with use_rules(rules if sharded else None,
+                               mesh if sharded else None):
+                    _, ok = mvstore.mv_snapshot(state.mv,
+                                                state.mv.clock - 1)
+                oks.append(ok)
+            torch.cuda.synchronize()
+            return state, losses, oks
+
+        def local(t):
+            return t.full_tensor() if is_dtensor(t) else t
+
+        K.reset_launch_counts()
+        plain, pl_losses, pl_oks = run(
+            steps.make_train_step(cfg, pcfg, mvcfg, opt), plain, batches,
+            False)
+        plain_counts = K.launch_counts()
+        K.reset_launch_counts()
+        t1 = time.perf_counter()
+        with CommDebugMode() as comm:
+            sharded, sh_losses, sh_oks = run(
+                steps.make_train_step(cfg, pcfg, mvcfg, opt, rules, mesh),
+                sharded, sbatches, True)
+        sharded_s = time.perf_counter() - t1
+        counts = K.launch_counts()
+        n_coll = comm.get_total_counts()
+        loss_err = max(max_abs_err(torch, local(a), b, "float32",
+                                   SHARD_TOL)
+                       for a, b in zip(sh_losses, pl_losses))
+        got = {k: local(v) for k, v in _state_leaves(sharded).items()}
+        state_err = _tree_err(torch, got, _state_leaves(plain), SHARD_TOL,
+                              dev)
+        oks = [bool(local(o)) for o in sh_oks + pl_oks]
+        row = {"phase": "sharded_step", "arch": ARCH, "layers": SHARD_DEPTH,
+               "dtype": "float32", "seq": SHARD_SEQ, "batch": SHARD_BATCH,
+               "steps": SHARD_STEPS, "mesh": [1, 1],
+               "losses": [float(local(x)) for x in sh_losses],
+               "loss_max_abs_err": loss_err,
+               "state_max_abs_err": state_err, "tolerance": SHARD_TOL,
+               "collectives": n_coll, "launches": counts,
+               "plain_launches": plain_counts,
+               "sharded_steps_s": sharded_s,
+               "seconds": time.perf_counter() - t0}
+        emit(row)
+    finally:
+        dist.destroy_process_group()
+    del plain, sharded, batches, sbatches, params
+    free_card(torch)
+    check(all(oks), "sharded: a one-behind snapshot was not ok")
+    check(n_coll == 0, f"sharded: {n_coll} collectives on a (1, 1) mesh")
+    for k in ("flash_attention", "fused_adamw", "snapshot_select"):
+        check(counts[k] > 0 and counts[k] == plain_counts[k],
+              f"sharded: {counts[k]} {k} launches, the plain steps "
+              f"{plain_counts[k]}")
+    return counts
+
+
+def dryrun_check(torch, got, waited_s, trainer_row):
+    """(b) and (c), from ``dryrun_cells``: the dry run of the trainer's
+    own step must count the flops and bytes the trainer's counted step
+    wrote to ``build/roofline.jsonl``, integer for integer, and its
+    per-rank peak must lie within ``PEAK_TOL`` of the trainer's
+    ``max_memory_allocated``; each production cell must be ``ok`` (its
+    per-rank peak, collectives by kind and trace seconds are printed)."""
+    card = got["card_step"]
+    roof = [r for r in ROOFLINE_ROWS if r["arch"] == ARCH
+            and r["shape"] == "train_chip"]
+    check(len(roof) == 1, f"no counted {ARCH} train step to compare with")
+    roof = roof[0]
+    peak = card["memory"]["peak_bytes_per_device"]
+    measured = trainer_row["max_memory_allocated"]
+    emit({"phase": "dryrun_card_step", "arch": ARCH, "mesh": [1, 1],
+          "flops": card["flops"], "counted_flops": roof["flops"],
+          "bytes": card["bytes"], "counted_bytes": roof["bytes"],
+          "peak_bytes_per_device": peak, "max_memory_allocated": measured,
+          "peak_ratio": peak / measured, "memory": card["memory"],
+          "trace_s": card["trace_s"], "kernels": card["kernels"],
+          "collectives": card["collectives"], "waited_s": waited_s,
+          "cuda_initialized_in_trace": got["cuda_initialized"]})
+    for arch, shape_name in PRODUCTION_CELLS:
+        row = got[f"{arch}/{shape_name}"]
+        brief = {k: row.get(k) for k in (
+            "arch", "shape", "mesh", "status", "microbatches", "remat",
+            "trace_s", "error")}
+        if row["status"] == "ok":
+            brief.update(
+                peak_gb_per_rank=row["memory"]["peak_bytes_per_device"] / 1e9,
+                collectives={k: {"count": v["count"],
+                                 "wire_gb": v["wire_bytes"] / 1e9}
+                             for k, v in row["collective_ops"].items()},
+                flops_per_rank=row["fit_metrics_scanned"]["flops"],
+                dominant=row["roofline"]["dominant"])
+        emit({"phase": "dryrun_production_cell", **brief})
+    check(card["flops"] == roof["flops"] and card["bytes"] == roof["bytes"],
+          f"dry run {card['flops']} flops / {card['bytes']} bytes, the "
+          f"counted step {roof['flops']} / {roof['bytes']}")
+    check(abs(peak / measured - 1) <= PEAK_TOL,
+          f"dry-run peak {peak} against the trainer's {measured}")
+    check(not card["collectives"], "the (1, 1) trace issued collectives")
+    for arch, shape_name in PRODUCTION_CELLS:
+        row = got[f"{arch}/{shape_name}"]
+        check(row["status"] == "ok",
+              f"dry run {arch} {shape_name}: {row.get('error')}")
+
+
+def sharding_phase(torch, dev, dryruns, trainer_row):
+    """Phase 11: (a), then the spawned process's (b) and (c)."""
+    counts = sharded_step_check(torch, dev)
+    got, waited = dryruns.get()
+    dryruns.close()
+    dryrun_check(torch, got, waited, trainer_row)
+    return counts
+
+
 def main_path(torch):
     from repro_torch import kernels as K
 
@@ -6678,6 +6972,7 @@ def main() -> int:
     # which trace, wait until they are done)
     cpu_reference = CPUReference(torch, (ARCH, MAMBA))
     prefills = StructurePrefills()
+    dryruns = DryRuns()
     t0 = time.perf_counter()
     _lib.library()
     emit({"build_seconds": time.perf_counter() - t0,
@@ -6719,7 +7014,7 @@ def main() -> int:
     snapshot_checks(torch, launches, toks, arch=MAMBA, modes=("U",))
     free_card(torch)
     lap("servers")
-    train_trial(torch, launches)
+    qwen_trainer = train_trial(torch, launches)
     train_trial(torch, launches, arch=MAMBA)
     supervisor_drill(torch)
     lap("trainers")
@@ -6747,6 +7042,9 @@ def main() -> int:
                                "path")
     idle_shares(torch)
     lap("phase10_idle_shares")
+    for k, v in sharding_phase(torch, dev, dryruns, qwen_trainer).items():
+        launches[k] += v
+    lap("phase11_sharding")
     emit({"phase_seconds": laps})
     from repro_torch.launch import roofline_report
 

@@ -39,6 +39,14 @@ the reference's call does (donated there) — R x the block per commit
 would be the price of an immutable ring.  A caller with concurrent ring
 readers fences that slot itself (``api/mvhandle.py``'s seqlock on the
 host copy of the timestamps).
+
+Sharded blocks.  A block may be a DTensor (``launch/steps``' sharded
+steps): its ring is laid out as ``(None,) + the block's spec``, its
+timestamps replicated, and the kernels run on each rank's shard
+(``sharding.local_call``): ``snapshot_select`` picks the slot on every
+rank alike (the timestamps are whole everywhere) and copies the local
+row; ``commit_fused`` writes, on each rank, the addresses that fall in
+its piece of the block.
 """
 from __future__ import annotations
 
@@ -51,6 +59,7 @@ import torch
 from repro_torch.configs.base import MVStoreConfig
 from repro_torch.kernels import commit_fused as CF
 from repro_torch.kernels import snapshot_select as SS
+from repro_torch.launch.sharding import is_dtensor, local_call, local_range
 from repro_torch.reliability import faultpoints as FP
 
 NO_TS = -1          # empty ring slot
@@ -91,6 +100,23 @@ def _unflatten(params, leaves: Dict[str, Any], prefix: str = ""):
         return {k: _unflatten(v, leaves, f"{prefix}[{k!r}]")
                 for k, v in params.items()}
     return leaves[prefix]
+
+
+def ring_placements(pl):
+    """A ring's placements from its block's (the slot dim is whole)."""
+    if pl is None:
+        return None
+    from torch.distributed.tensor import Shard
+    return tuple(Shard(p.dim + 1) if isinstance(p, Shard) else p
+                 for p in pl)
+
+
+def replicated(pl):
+    """Replicated placements on the mesh of placements ``pl``."""
+    if pl is None:
+        return None
+    from torch.distributed.tensor import Replicate
+    return (Replicate(),) * len(pl)
 
 
 def block_paths(params) -> list:
@@ -212,13 +238,24 @@ def mv_commit_fused(state: MVStoreState, key: str, addrs, values, *,
     z = np.zeros((0,), np.int64)
     one = np.zeros(1, np.int64)
     ring = state.ring.get(path)
-    kw = {}
-    if ring is not None:
-        kw = dict(ring=ring, ring_ts=state.ring_ts[path],
-                  ring_slot=new_clock % cfg.ring_slots)
-    new_block = CF.commit_fused(
-        live, a, values, np.zeros(a.size, np.int64), z, z, z, z, z, one, one,
-        new_clock, 1, out_of_place=True, **kw)[0]
+    pl = tuple(live.placements) if is_dtensor(live) else None
+    if pl is not None:              # this rank's addresses, made local
+        lo, n = local_range(live)
+        sel = (a >= lo) & (a < lo + n)
+        a, values = a[sel] - lo, np.asarray(values).reshape(-1)[sel]
+
+    def publish(block, ring, ring_ts):
+        kw = {}
+        if ring is not None:
+            kw = dict(ring=ring, ring_ts=ring_ts,
+                      ring_slot=new_clock % cfg.ring_slots)
+        return CF.commit_fused(
+            block, a, values, np.zeros(a.size, np.int64), z, z, z, z, z,
+            one, one, new_clock, 1, out_of_place=True, **kw)[0]
+
+    new_block = local_call(
+        publish, (live, ring, state.ring_ts.get(path)),
+        (pl, ring_placements(pl), replicated(pl)), pl, tuple(live.shape))
     if FP.ACTIVE is not None:
         FP.fire("mid_scatter")
     new_live = dict(state.live)
@@ -239,8 +276,17 @@ def mv_commit_fused(state: MVStoreState, key: str, addrs, values, *,
 def _select_version(buf, ts, read_clock):
     """Newest slot with NO_TS < ts <= read_clock: ``(value, ok)``, through
     the ``snapshot_select`` kernel on the card (its plain version for a
-    CPU ring)."""
-    return SS.snapshot_select(buf, ts, read_clock)
+    CPU ring); a sharded ring's on every rank's shard."""
+    if not is_dtensor(buf):
+        return SS.snapshot_select(buf, ts, read_clock)
+    from torch.distributed.tensor import Shard
+    rpl = tuple(buf.placements)
+    pl = tuple(Shard(p.dim - 1) if isinstance(p, Shard) else p
+               for p in rpl)
+    rep = replicated(pl)
+    return local_call(lambda b, t: SS.snapshot_select(b, t, read_clock),
+                      (buf, ts), (rpl, rep), [pl, rep],
+                      [tuple(buf.shape[1:]), ()])
 
 
 def mv_snapshot(state: MVStoreState, read_clock, *,

@@ -145,7 +145,8 @@ def counted(name: str, work):
     same.  The flops are what ``FlopCounterMode`` counts over the plain
     version; the bytes are what the kernel's bound counts (each input
     read once, each output written once).  A counted wrapper called
-    inside another adds nothing of its own.  The route is untouched."""
+    inside another adds nothing of its own.  A count that tracks memory
+    registers the outputs.  The route is untouched."""
     def wrap(fn):
         @functools.wraps(fn)
         def call(*args, **kwargs):
@@ -158,6 +159,8 @@ def counted(name: str, work):
                 out = fn(*args, **kwargs)
                 flops, nbytes = work(*args, **kwargs)
             sink.add_kernel(name, flops, nbytes)
+            if sink.memory:                     # the outputs it made
+                sink._track((), out)
             return out
         return call
     return wrap
@@ -429,12 +432,28 @@ def _raise_if(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
 
 
+_FAKE = []          # [FakeTensor], imported at first use
+
+
+def is_fake(t: torch.Tensor) -> bool:
+    """Whether ``t`` is a ``FakeTensor`` (a ``FakeTensorMode``'s tensor:
+    shape, dtype and device, no storage)."""
+    if not _FAKE:
+        from torch._subclasses.fake_tensor import FakeTensor
+        _FAKE.append(FakeTensor)
+    return isinstance(t, _FAKE[0])
+
+
 def device_kind(t: torch.Tensor) -> str:
-    """``"cuda"`` (launch the kernel) or ``"cpu"`` (plain version); any
-    other device raises."""
+    """``"cuda"`` (launch the kernel), ``"fake"`` (a ``FakeTensor`` on a
+    CUDA device: make the kernel's outputs, compute nothing — the dry
+    run's trace) or ``"cpu"`` (plain version); any other device
+    raises."""
     kind = t.device.type
     if kind not in ("cuda", "cpu"):
         raise RuntimeError(f"unsupported device {t.device}")
+    if kind == "cuda" and is_fake(t):
+        return "fake"
     return kind
 
 

@@ -340,6 +340,8 @@ def commit_fused(heap: torch.Tensor, w_addr, w_val, w_seg, l_words, l_seg,
     ``ring_ts[ring_slot]``, in place.  Every write address must lie in
     ``[0, len(heap))`` and every segment in ``[0, T)``; otherwise
     ``IndexError``/``ValueError`` is raised before anything launches.
+    A fake CUDA heap (the dry run's) gets the outputs made and nothing
+    computed or checked against the heap.
     """
     if heap.dtype not in _ENTRY or heap.dim() != 1 \
             or not heap.is_contiguous():
@@ -358,7 +360,10 @@ def commit_fused(heap: torch.Tensor, w_addr, w_val, w_seg, l_words, l_seg,
         raise ValueError("commit_fused: batch lengths disagree")
     lw = _words_col(l_words, n_l, heap, "l_words")
     rw = _words_col(r_words, n_r, heap, "r_words")
-    if _lib.device_kind(heap) == "cpu":
+    kind = _lib.device_kind(heap)
+    if kind == "fake":
+        return _commit_fake(heap, n_txn, n_l, out_of_place, ring, ring_ts)
+    if kind == "cpu":
         for seg in (ws, ls, rs):
             if seg.size and int(seg.view(np.uint64).max()) >= n_txn:
                 raise ValueError("commit_fused: segment id outside [0, T)")
@@ -379,6 +384,17 @@ def commit_fused(heap: torch.Tensor, w_addr, w_val, w_seg, l_words, l_seg,
     return _commit_card(heap, wa, vals, ws, lw, ls, rw, rn, rs, td, rc,
                         commit_ver, n_txn, mode, out_of_place, ring,
                         ring_ts, slot)
+
+
+def _commit_fake(heap, n_txn, n_l, out_of_place, ring, ring_ts):
+    """The fake route (a fake CUDA heap, the dry run's): the outputs a
+    launch returns, made and not computed."""
+    out = torch.empty_like(heap) if out_of_place else heap
+    ok = torch.empty(n_txn, dtype=torch.bool, device=heap.device)
+    l_out = torch.empty(n_l, dtype=torch.int64, device=heap.device)
+    if ring is None:
+        return out, ok, l_out
+    return out, ok, l_out, ring, ring_ts
 
 
 class _Layout:

@@ -128,7 +128,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     A CUDA tensor launches the kernel (f32 or bf16, D <= 256, unit-stride
     head dim; anything else raises); a CPU tensor takes the plain
-    version.  Nothing is read back to the host.
+    version; a fake CUDA tensor (the dry run's) gets the kernel's output
+    made and nothing computed.  Nothing is read back to the host.
 
     The kernel has no backward: on the card, an input that requires grad
     while grad mode is on raises (the kernel's output would carry no
@@ -137,7 +138,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check(q, k, v)
     if scale is None:
         scale = q.shape[3] ** -0.5
-    if _lib.device_kind(q) == "cpu":
+    kind = _lib.device_kind(q)
+    if kind == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, scale=scale)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError(
@@ -154,7 +156,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if any(t.stride(3) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention takes a unit-stride head dim")
     o = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
-    if o.numel() == 0:
+    if kind == "fake" or o.numel() == 0:
         return o
     strides = (ctypes.c_longlong * 12)(
         *(s for t in (q, k, v, o) for s in t.stride()[:3]))

@@ -115,10 +115,12 @@ def fused_adamw(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
     int (checked against the ring's depth; out of range raises
     ``IndexError``), ``scalars`` a float32 [4] tensor on the leaf's
     device.  A CUDA leaf launches the kernel (contiguous tensors only;
-    anything else raises); a CPU leaf takes the plain version.  Nothing
-    is read back to the host."""
+    anything else raises); a CPU leaf takes the plain version; a fake
+    CUDA leaf (the dry run's) gets ``p'`` made and nothing computed.
+    Nothing is read back to the host."""
     _check(p, g, m, v, ring, slot, scalars)
-    if _lib.device_kind(p) == "cpu":
+    kind = _lib.device_kind(p)
+    if kind == "cpu":
         return fused_adamw_plain(p, g, m, v, ring, slot, scalars, b1=b1,
                                  b2=b2, eps=eps, wd=wd)
     tensors = (p, g, m, v, scalars) + ((ring,) if ring is not None else ())
@@ -126,7 +128,7 @@ def fused_adamw(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
         raise ValueError("fused_adamw takes contiguous tensors on the card")
     p2 = torch.empty_like(p)
     n = p.numel()
-    if n == 0:
+    if kind == "fake" or n == 0:
         return p2
     slot_t = None
     if ring is not None:

@@ -44,9 +44,11 @@ def select_slot_plain(ts: torch.Tensor, read_clock: int):
 def snapshot_select_plain(ring: torch.Tensor, ts: torch.Tensor,
                           read_clock: int) -> Tuple[torch.Tensor,
                                                     torch.Tensor]:
-    """Plain PyTorch version: ``(ring[slot] copied, ok)``."""
+    """Plain PyTorch version: ``(ring[slot] copied, ok)``, the row taken
+    by ``index_select`` (no read of ``slot`` back to the host)."""
     slot, ok = select_slot_plain(ts, read_clock)
-    return ring[slot].clone(), ok
+    return torch.index_select(ring, 0, slot.reshape(1)).reshape(
+        ring.shape[1:]), ok
 
 
 def work(ring: torch.Tensor, ts: torch.Tensor, read_clock: int):
@@ -61,8 +63,9 @@ def snapshot_select(ring: torch.Tensor, ts: torch.Tensor,
                     read_clock: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(value [*shape], ok 0-d bool)`` for ``ring`` [R, *shape]
     (contiguous, any dtype) and ``ts`` int32 [R] on the same device.
-    Nothing is read back to the host.  (``mv_snapshot`` calls this for
-    every versioned block: the card's path reads as few tensor
+    Nothing is read back to the host.  A fake CUDA ring (the dry run's)
+    gets the outputs made and nothing computed.  (``mv_snapshot`` calls
+    this for every versioned block: the card's path reads as few tensor
     properties as it can.)"""
     if not ring.is_cuda:
         _check(ring, ts)
@@ -77,6 +80,8 @@ def snapshot_select(ring: torch.Tensor, ts: torch.Tensor,
         raise ValueError("snapshot_select takes contiguous ring and ts")
     out = ring.new_empty(shape[1:])
     dev = ring.device
+    if _lib.is_fake(ring):
+        return out, torch.empty((), dtype=torch.bool, device=dev)
     ok = _lib.fresh_ok(dev)
     _lib.launch("snapshot_select_rows", dev, ring.data_ptr(), shape[0],
                 out.nbytes, ts.data_ptr(), int(read_clock), out.data_ptr(),

@@ -263,7 +263,9 @@ def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
     A CUDA tensor launches the kernel (xh, B_, C_ all f32 or all bf16;
     dt, A and init_state f32; contiguous; N <= 128, P <= 64, Q <= 1024;
-    anything else raises); a CPU tensor takes the plain version.
+    anything else raises); a CPU tensor takes the plain version; a fake
+    CUDA tensor (the dry run's) gets the kernel's outputs made and
+    nothing computed.
 
     The kernel has no backward: on the card, an input that requires grad
     while grad mode is on raises (the kernel's output would carry no
@@ -272,7 +274,8 @@ def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     Bsz, S, H, P = xh.shape
     N = B_.shape[-1]
     Q = _chunk_len(S, chunk)
-    if _lib.device_kind(xh) == "cpu":
+    kind = _lib.device_kind(xh)
+    if kind == "cpu":
         y, state = ssd_scan_plain(xh, dt, A, B_, C_, chunk=chunk,
                                   init_state=init_state)
         return y, (state if want_state else None)
@@ -298,7 +301,7 @@ def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     y = torch.empty_like(xh)
     state = (torch.empty((Bsz, H, N, P), dtype=torch.float32,
                          device=xh.device) if want_state else None)
-    if y.numel() == 0:          # B, H or P is 0: the state is empty too
+    if kind == "fake" or y.numel() == 0:   # B, H or P 0: no state either
         return y, state
     starts, _, total = _layout(Bsz, S, H, P, N, Q)
     # held until the launches are enqueued: a block freed earlier could be

@@ -21,6 +21,18 @@ dispatch mode sees: each kernel wrapper adds its own formula instead
 suspended inside it, so the CPU (plain versions) and the card (the
 kernels) count the same numbers for the same step.
 
+Per rank.  Under a sharded step the operands are DTensors: ``count()``
+declines every operation that holds one (``NotImplemented``), so DTensor
+dispatches it, and what is counted is what DTensor runs on this rank —
+its local operations, at their local shapes, and the functional
+collectives (``_c10d_functional``) its redistributions issue.  So a
+count is this rank's, as the reference's cost analysis is per device.
+The global-shape operations DTensor runs under a fake mode only to
+learn an output's shape are not counted (``_hide_shape_propagation``).
+``count(memory=True)`` also tracks the bytes of the storages alive
+(each once, however many views) and keeps their peak: under a
+``FakeTensorMode`` the dry run's per-rank peak.
+
 Collective wire bytes use the reference's ring factors (all-reduce
 moves 2(n-1)/n of the tensor, all-gather (n-1)/n of the full result,
 reduce-scatter n-1 times its 1/n result, all-to-all (n-1)/n, a
@@ -29,7 +41,9 @@ point-to-point send 1x).
 from __future__ import annotations
 
 import contextlib
+import functools
 import threading
+import weakref
 from collections import defaultdict
 from typing import Dict, Iterator, List, Optional
 
@@ -59,6 +73,13 @@ _C10D_KIND = {
     "reduce_scatter_tensor_coalesced_": "reduce-scatter",
     "alltoall_": "all-to-all", "alltoall_base_": "all-to-all",
     "send": "collective-permute",
+    # functional collectives (DTensor's): ``_c10d_functional`` ops
+    "all_reduce": "all-reduce", "all_reduce_coalesced": "all-reduce",
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_to_all_single": "all-to-all",
 }
 
 _WIRE_FACTOR = {
@@ -103,6 +124,9 @@ class Record:
         self.by_op: Dict[str, List[int]] = defaultdict(lambda: [0, 0, 0])
         self.products: Dict[tuple, int] = defaultdict(int)
         self.collectives: List[dict] = []
+        #: bytes of the storages alive now and at most (``memory=True``)
+        self.live_bytes = 0
+        self.peak_bytes = 0
         self._lock = threading.Lock()
 
     def add(self, name: str, flops: int, nbytes: int) -> None:
@@ -129,17 +153,20 @@ class Record:
     def summary(self) -> dict:
         return {"device": self.device, "flops": self.flops,
                 "bytes": self.bytes, "kernels": self.kernels,
-                "collectives": len(self.collectives)}
+                "collectives": len(self.collectives),
+                "peak_bytes": self.peak_bytes}
 
 
 class _CountMode(TorchDispatchMode):
     """The dispatch mode behind ``count()``; the kernel wrappers find it
     on the thread's mode stack (``kernels/_lib.counted``)."""
 
-    def __init__(self, record: Record):
+    def __init__(self, record: Record, memory: bool = False):
         super().__init__()
         self.record = record
         self._tls = threading.local()
+        self.memory = memory
+        self._live: Dict[int, int] = {}      # storage -> bytes
 
     @property
     def suspended(self) -> bool:
@@ -160,9 +187,14 @@ class _CountMode(TorchDispatchMode):
         kwargs = kwargs or {}
         if self.suspended or func in _METADATA:
             return func(*args, **kwargs)
-        if func.namespace == "c10d":
+        if _DTENSOR and any(issubclass(t, _DTENSOR[0]) for t in types):
+            return NotImplemented     # DTensor runs it: count its locals
+        ns = func.namespace
+        if ns == "c10d" or ns == "_c10d_functional":
             out = func(*args, **kwargs)
-            self._collective(func, args)
+            self._collective(func, args, out)
+            if self.memory:
+                self._track(args, out)
             return out
         # as FlopCounterMode: an operation that decomposes is counted by
         # its parts
@@ -172,7 +204,36 @@ class _CountMode(TorchDispatchMode):
             return r
         out = func(*args, **kwargs)
         self._count(func, args, kwargs, out)
+        if self.memory:
+            self._track((args, kwargs), out)
         return out
+
+    def _track(self, args, out) -> None:
+        """Register the storages of the tensors an operation read or made
+        that are not yet known, each with a finalizer that takes its
+        bytes off when its last reference (a view, a tensor autograd
+        saved) is gone; keep the peak."""
+        rec = self.record
+        for t in tree_flatten((args, out))[0]:
+            if not isinstance(t, torch.Tensor) or \
+                    t.device.type != rec.device:
+                continue
+            st = t.untyped_storage()
+            key = st._cdata
+            if key in self._live:
+                continue
+            n = st.nbytes()
+            with rec._lock:
+                self._live[key] = n
+                rec.live_bytes += n
+                if rec.live_bytes > rec.peak_bytes:
+                    rec.peak_bytes = rec.live_bytes
+            weakref.finalize(st, self._free, key, n)
+
+    def _free(self, key: int, n: int) -> None:
+        with self.record._lock:
+            if self._live.pop(key, None) is not None:
+                self.record.live_bytes -= n
 
     def _count(self, func, args, kwargs, out) -> None:
         ins = [t for t in tree_flatten((args, kwargs))[0]
@@ -200,20 +261,27 @@ class _CountMode(TorchDispatchMode):
                 self.record.products[tuple(outs[0].shape[-2:])] += \
                     _nbytes(outs[0])
 
-    def _collective(self, func, args) -> None:
+    def _collective(self, func, args, out) -> None:
         name = func._overloadpacket.__name__
         kind = _C10D_KIND.get(name)
         if kind is None:
             return
-        # the first argument holds the results (the in-place tensors,
-        # the gathered or scattered outputs, the tensors sent)
-        res = [t for t in tree_flatten(args[0])[0]
-               if isinstance(t, torch.Tensor)]
         group = None
-        for a in args:
-            if isinstance(a, torch.ScriptObject):
-                group = torch.distributed.ProcessGroup.unbox(a).size()
-                break
+        if func.namespace == "_c10d_functional":
+            # (input, [reduce op,] group size, group name): the result is
+            # the output
+            res = [t for t in tree_flatten(out)[0]
+                   if isinstance(t, torch.Tensor)]
+            group = _functional_group_size(name, args)
+        else:
+            # the first argument holds the results (the in-place tensors,
+            # the gathered or scattered outputs, the tensors sent)
+            res = [t for t in tree_flatten(args[0])[0]
+                   if isinstance(t, torch.Tensor)]
+            for a in args:
+                if isinstance(a, torch.ScriptObject):
+                    group = torch.distributed.ProcessGroup.unbox(a).size()
+                    break
         with self.record._lock:
             self.record.collectives.append({
                 "kind": kind, "op": name,
@@ -221,6 +289,52 @@ class _CountMode(TorchDispatchMode):
                 "group": group,
                 "type": ", ".join(f"{str(t.dtype)[6:]}{list(t.shape)}"
                                   for t in res)})
+
+
+def _functional_group_size(name: str, args) -> Optional[int]:
+    """The group size of a functional collective: an argument of the
+    gather/scatter ops, the named group's size for the others."""
+    for a in args[1:]:
+        if isinstance(a, int) and not isinstance(a, bool):
+            return a
+    for a in args[1:]:
+        if isinstance(a, str):
+            try:
+                from torch.distributed.distributed_c10d import \
+                    _resolve_process_group
+                return _resolve_process_group(a).size()
+            except (ImportError, RuntimeError, ValueError):
+                return None
+    return None
+
+
+#: [DTensor], set once ``torch.distributed.tensor`` has been imported
+_DTENSOR: list = []
+
+
+def _hide_shape_propagation() -> None:
+    """DTensor learns an output's global shape by running the operation
+    on fake global-shape tensors (``ShardingPropagator.
+    _propagate_tensor_meta_non_cached``); wrap that once so that every
+    open ``count()`` is suspended inside it — those operations are not
+    this rank's work, nor its memory."""
+    import sys
+    if _DTENSOR or "torch.distributed.tensor" not in sys.modules:
+        return
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._sharding_prop import ShardingPropagator
+
+    fn = ShardingPropagator._propagate_tensor_meta_non_cached
+
+    @functools.wraps(fn)
+    def hidden(self, op_schema):
+        with contextlib.ExitStack() as stack:
+            for mode in list(_lib.COUNTERS):
+                stack.enter_context(mode.suspend())
+            return fn(self, op_schema)
+
+    ShardingPropagator._propagate_tensor_meta_non_cached = hidden
+    _DTENSOR.append(DTensor)
 
 
 _VIEWS: Dict[object, bool] = {}
@@ -238,7 +352,8 @@ def _is_view(func) -> bool:
 
 
 @contextlib.contextmanager
-def count(device: Optional[str] = None) -> Iterator[Record]:
+def count(device: Optional[str] = None,
+          memory: bool = False) -> Iterator[Record]:
     """Count what runs on ``device`` ("cuda" unless the caller names
     another, e.g. ``count(device="cpu")`` for a step on the CPU) while
     the context is open, in this thread and in the autograd threads its
@@ -247,10 +362,15 @@ def count(device: Optional[str] = None) -> Iterator[Record]:
     An operation counts when its tensors lie on ``device`` (0-d CPU
     tensors, PyTorch's wrapped scalars, may ride along); a copy between
     devices does not.  Bytes are every operand read plus every result
-    written (a view moves none).  Counting adds host time to every
-    operation: keep it out of timed windows."""
+    written (a view moves none).  Operations on DTensors are counted as
+    this rank runs them (module docstring).  With ``memory``, the
+    record's ``peak_bytes`` is the largest sum of live storages on
+    ``device`` this count saw (those made before it count from their
+    first use).  Counting adds host time to every operation: keep it
+    out of timed windows."""
+    _hide_shape_propagation()
     rec = Record(torch.device(device or "cuda").type)
-    mode = _CountMode(rec)
+    mode = _CountMode(rec, memory)
     _lib.COUNTERS.append(mode)
     try:
         with mode:

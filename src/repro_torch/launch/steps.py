@@ -9,19 +9,32 @@ kernel on the card, unversioned ones validated against their block
 clock) and runs the model on that view.  Plain functions: the port runs
 eagerly, so there is nothing to trace or compile, and the local mode is
 read from ``mvcfg`` when the step is made.
+
+Sharded steps.  Given ``rules`` and a ``mesh`` (as the reference's
+signatures take them), a step runs under ``sharding.use_rules`` on a
+state of DTensors (``reshard_state``, or the dry run's
+``train_state_specs`` made ``abstract``): the models' ``shard_act``
+sites lay activations out, gradients and accumulators are kept in their
+parameters' placements (``constrain``), and the kernels run on local
+shards (``sharding.local_call``: ``fused_adamw`` here, ``commit_fused``
+and ``snapshot_select`` in ``core/mvstore``).  Without rules a step runs
+exactly as before.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig, MVStoreConfig, \
-    ParallelConfig
+    ParallelConfig, ShapeConfig
 from repro_torch.core import mvstore
 from repro_torch.core.mvstore import MVStoreState
 from repro_torch.kernels import fused_adamw as FA
-from repro_torch.launch.sharding import tree_leaves
+from repro_torch.launch.sharding import (Rules, TensorSpec, is_dtensor,
+                                         leaves_with_path, local_call,
+                                         param_specs, placements,
+                                         torch_dtype, tree_leaves, use_rules)
 from repro_torch.models import model_zoo as zoo
 from repro_torch.optim import adamw
 
@@ -37,7 +50,8 @@ class TrainState(NamedTuple):
 
 
 def make_train_step(cfg: ModelConfig, pcfg: ParallelConfig,
-                    mvcfg: MVStoreConfig, opt_cfg: adamw.AdamWConfig):
+                    mvcfg: MVStoreConfig, opt_cfg: adamw.AdamWConfig,
+                    rules: Optional[Rules] = None, mesh=None):
     """Returns ``train_step(state, batch) -> (state', metrics)``; ``batch``
     holds ``tokens`` and ``labels`` tensors on the parameters' device.
 
@@ -51,14 +65,44 @@ def make_train_step(cfg: ModelConfig, pcfg: ParallelConfig,
       - ``adamw.apply`` then ``mvstore.mv_commit`` (the store enabled);
       - ``adamw.apply`` and the new live tree at clock + 1, every block
         stamped (no MVStore).
-    ``metrics`` holds the loss (a 0-d tensor) and the new clock."""
+    ``metrics`` holds the loss (a 0-d tensor) and the new clock.
+
+    With ``rules`` and ``mesh`` the step is sharded (module docstring):
+    each gradient is laid out as its parameter (the reference's
+    ``constrain``), and microbatch i is the i-th slice of every rank's
+    batch rows."""
+    specs = (dict(leaves_with_path(param_specs(zoo.model_meta(cfg),
+                                                rules)))
+             if rules is not None and mesh is not None else None)
+
+    def constrain(path, g):
+        """``g`` in its parameter's placements: DTensor would otherwise
+        leave a gradient partial or replicated."""
+        if specs is None or not is_dtensor(g):
+            return g
+        want = placements(specs[path], g.device_mesh)
+        return g if tuple(g.placements) == want else \
+            g.redistribute(g.device_mesh, want)
 
     def loss_and_grads(leaves, paths, params, batch):
         view = mvstore._unflatten(params, dict(zip(paths, leaves)))
         loss = zoo.loss_fn(view, batch, cfg, pcfg)
-        return loss.detach(), torch.autograd.grad(loss, leaves)
+        grads = torch.autograd.grad(loss, leaves)
+        return loss.detach(), [constrain(p, g) for p, g in zip(paths, grads)]
+
+    def microbatch(x, M, i):
+        rows = x.shape[0] // M
+        return local_call(
+            lambda t: t.reshape((M, t.shape[0] // M) + t.shape[1:])[i],
+            (x,), (("batch",) + (None,) * (x.dim() - 1),),
+            ("batch",) + (None,) * (x.dim() - 1),
+            (rows,) + tuple(x.shape[1:]))
 
     def train_step(state: TrainState, batch):
+        with use_rules(rules, mesh):
+            return run(state, batch)
+
+    def run(state: TrainState, batch):
         params = state.mv.live
         flat = mvstore._flatten(params)
         paths = [p for p, _ in flat]
@@ -67,12 +111,11 @@ def make_train_step(cfg: ModelConfig, pcfg: ParallelConfig,
         if M == 1:
             loss, grads = loss_and_grads(leaves, paths, params, batch)
         else:
-            acc = [torch.zeros(t.shape, dtype=torch.float32,
-                               device=t.device) for t in leaves]
+            acc = [torch.zeros_like(t, dtype=torch.float32)
+                   for t in leaves]
             losses = []
             for i in range(M):
-                mb = {k: x.reshape((M, x.shape[0] // M) + x.shape[1:])[i]
-                      for k, x in batch.items()}
+                mb = {k: microbatch(x, M, i) for k, x in batch.items()}
                 li, g = loss_and_grads(leaves, paths, params, mb)
                 for a, gi in zip(acc, g):
                     a.add_(gi.float())
@@ -129,10 +172,19 @@ def _fused_commit(mv: MVStoreState, grads, opt: adamw.AdamWState,
         ring = mv.ring.get(path)
         if ring is not None:
             mv.ring_ts[path][slot] = mvstore.NO_TS
-        new_p[path] = FA.fused_adamw(
-            p, g, m, v, ring, slot, scalars, b1=opt_cfg.b1, b2=opt_cfg.b2,
-            eps=opt_cfg.eps,
-            wd=opt_cfg.weight_decay if p.dim() >= 2 else 0.0)
+        wd = opt_cfg.weight_decay if p.dim() >= 2 else 0.0
+
+        def step(p, g, m, v, ring, scalars, wd=wd):
+            return FA.fused_adamw(p, g, m, v, ring, slot, scalars,
+                                  b1=opt_cfg.b1, b2=opt_cfg.b2,
+                                  eps=opt_cfg.eps, wd=wd)
+
+        # sharded: each rank steps its shard of the leaf (and of its ring)
+        pl = tuple(p.placements) if is_dtensor(p) else None
+        new_p[path] = local_call(
+            step, (p, g, m, v, ring, scalars),
+            (pl, pl, pl, pl, mvstore.ring_placements(pl),
+             mvstore.replicated(pl)), pl, tuple(p.shape))
         if ring is not None:
             mv.ring_ts[path][slot] = new_clock
     bc = mv.block_clocks
@@ -149,27 +201,33 @@ def _fused_commit(mv: MVStoreState, grads, opt: adamw.AdamWState,
 
 
 def make_prefill_step(cfg: ModelConfig, pcfg: ParallelConfig,
-                      mvcfg: MVStoreConfig):
+                      mvcfg: MVStoreConfig, rules: Optional[Rules] = None,
+                      mesh=None):
     """prefill_step(mv_state, batch, read_clock) ->
-    (logits, cache, cache_len, ok)."""
+    (logits, cache, cache_len, ok); sharded under ``rules``/``mesh``."""
     def prefill_step(mv_state: MVStoreState, batch, read_clock):
-        params, ok = _read_params(mv_state, read_clock, mvcfg)
-        logits, cache, cache_len = zoo.prefill_fn(params, batch, cfg, pcfg)
-        return logits, cache, cache_len, ok
+        with use_rules(rules, mesh):
+            params, ok = _read_params(mv_state, read_clock, mvcfg)
+            logits, cache, cache_len = zoo.prefill_fn(params, batch, cfg,
+                                                      pcfg)
+            return logits, cache, cache_len, ok
 
     return prefill_step
 
 
 def make_decode_step(cfg: ModelConfig, pcfg: ParallelConfig,
-                     mvcfg: MVStoreConfig):
+                     mvcfg: MVStoreConfig, rules: Optional[Rules] = None,
+                     mesh=None):
     """decode_step(mv_state, cache, cache_len, token, read_clock) ->
-    (logits, cache, cache_len, ok); the cache is updated in place."""
+    (logits, cache, cache_len, ok); the cache is updated in place;
+    sharded under ``rules``/``mesh``."""
     def decode_step(mv_state: MVStoreState, cache, cache_len, token,
                     read_clock):
-        params, ok = _read_params(mv_state, read_clock, mvcfg)
-        logits, cache, cache_len = zoo.decode_fn(
-            params, cache, cache_len, token, cfg, pcfg)
-        return logits, cache, cache_len, ok
+        with use_rules(rules, mesh):
+            params, ok = _read_params(mv_state, read_clock, mvcfg)
+            logits, cache, cache_len = zoo.decode_fn(
+                params, cache, cache_len, token, cfg, pcfg)
+            return logits, cache, cache_len, ok
 
     return decode_step
 
@@ -182,3 +240,59 @@ def _read_params(mv_state: MVStoreState, read_clock, mvcfg: MVStoreConfig):
     return mvstore.mv_snapshot(
         mv_state, read_clock,
         assume_versioned=mvcfg.mode in ("U", "UtoQ"))
+
+
+# ---------------------------------------------------------------------------
+# abstract states (the dry run)
+# ---------------------------------------------------------------------------
+
+
+def train_state_specs(cfg: ModelConfig, mvcfg: MVStoreConfig, rules: Rules,
+                      mesh, opt_cfg: adamw.AdamWConfig) -> TrainState:
+    """``TensorSpec``s of a ``TrainState`` under ``rules`` (``sharding.
+    abstract`` makes them DTensors on ``mesh``): parameters and moments
+    by their logical axes; in Mode U (and QtoU/UtoQ) a ring per leaf laid
+    out as ``(None,) + leaf spec`` and its timestamps replicated; the
+    clock and the block stamps host ints, the step count a replicated
+    0-d int32."""
+    leaves = list(leaves_with_path(zoo.model_meta(cfg)))
+    mdt = opt_cfg.moment_dtype
+
+    def tree(fn):
+        return mvstore._unflatten(zoo.model_meta(cfg),
+                                  {p: fn(m) for p, m in leaves})
+
+    live = tree(lambda m: TensorSpec(m.shape, torch_dtype(m.dtype),
+                                     rules.spec(m.axes)))
+    mu = tree(lambda m: TensorSpec(m.shape, torch_dtype(mdt),
+                                   rules.spec(m.axes)))
+    nu = tree(lambda m: TensorSpec(m.shape, torch_dtype(mdt),
+                                   rules.spec(m.axes)))
+    ring, ring_ts = {}, {}
+    if mvcfg.enabled and mvcfg.mode in ("U", "QtoU", "UtoQ"):
+        for path, m in leaves:
+            ring[path] = TensorSpec((mvcfg.ring_slots,) + tuple(m.shape),
+                                    torch_dtype(m.dtype),
+                                    (None,) + rules.spec(m.axes))
+            ring_ts[path] = TensorSpec((mvcfg.ring_slots,), torch.int32,
+                                       (None,))
+    mv = MVStoreState(live=live, ring=ring, ring_ts=ring_ts, clock=0,
+                      block_clocks={p: 0 for p, _ in leaves})
+    opt = adamw.AdamWState(mu=mu, nu=nu,
+                           count=TensorSpec((), torch.int32, ()))
+    return TrainState(mv=mv, opt=opt)
+
+
+def cache_specs(cfg: ModelConfig, shape: ShapeConfig, rules: Rules,
+                mesh=None):
+    """``TensorSpec``s of a cell's decode cache (bf16, as the reference's;
+    a Mamba state f32), laid out by ``model_zoo.cache_axes``."""
+    struct = zoo.init_cache(cfg, shape.global_batch, shape.seq_len,
+                            torch.bfloat16, device="meta")
+
+    def walk(s, a):
+        if isinstance(s, dict):
+            return {k: walk(s[k], a[k]) for k in s}
+        return TensorSpec(tuple(s.shape), s.dtype, rules.spec(a))
+
+    return walk(struct, zoo.cache_axes(cfg))

@@ -33,6 +33,9 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import flash_attention as FA
+from repro_torch.launch.sharding import (Rules, current_rules, is_dtensor,
+                                         local_call, mesh_coordinate,
+                                         mesh_ways, placements)
 
 NEG_INF = -1e30
 
@@ -62,10 +65,49 @@ def blockwise_attention(q, k, v, *, causal: bool, block_q: int = 1024,
         t = torch.promote_types(torch.promote_types(q.dtype, k.dtype),
                                 v.dtype)
         q, k, v = q.to(t), k.to(t), v.to(t)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return FlashAttentionFn.apply(q, k, v, causal, scale).to(out_dtype)
-    return FA.flash_attention(q, k, v, causal=causal,
-                              scale=scale).to(out_dtype)
+
+    def run(q, k, v):
+        if torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v)):
+            return FlashAttentionFn.apply(q, k, v, causal, scale)
+        return FA.flash_attention(q, k, v, causal=causal, scale=scale)
+
+    return heads_call(run, q, k, v).to(out_dtype)
+
+
+def heads_call(fn, q, k, v):
+    """``fn(q, k, v)`` -> [B, Sq, H, D], on each rank's batch rows and
+    heads when q is a DTensor (``sharding.local_call``; the heads split
+    as ``_head_split`` says)."""
+    if not is_dtensor(q):
+        return fn(q, k, v)
+    q_tp, kv_tp, cut = _head_split(q.device_mesh, q.shape[2], k.shape[2])
+    qa = ("batch", None, q_tp, None)
+    kva = ("batch", None, kv_tp, None)
+    body = fn if cut == slice(None) else \
+        (lambda q, k, v: fn(q, k[:, :, cut], v[:, :, cut]))
+    return local_call(body, (q, k, v), (qa, kva, kva), qa, tuple(q.shape))
+
+
+def _head_split(dm, H: int, KV: int):
+    """How a sharded attention splits its heads over the rules' 'tp'
+    axis: ``(q axis, kv axis, kv cut)``.  q's heads split when they
+    divide evenly, k's and v's too when theirs do; when they do not
+    (fewer kv heads than ways), each rank gets the kv heads its query
+    heads read, cut (``kv cut``) from the replicated k and v.  Anything
+    that does not split evenly stays whole on every rank."""
+    tp = (current_rules() or Rules()).get("tp")
+    ways = mesh_ways(dm, tp)
+    if ways == 1 or H % ways:
+        return None, None, slice(None)
+    h_loc, group = H // ways, H // KV
+    if KV % ways == 0:
+        return "tp", "tp", slice(None)
+    if h_loc % group and group % h_loc:
+        return None, None, slice(None)
+    m = mesh_coordinate(dm, tp)
+    return "tp", None, slice((m * h_loc) // group,
+                             ((m + 1) * h_loc - 1) // group + 1)
 
 
 def naive_attention(q, k, v, *, causal: bool, scale: Optional[float] = None):
@@ -159,8 +201,11 @@ def decode_attention(q, k_cache, v_cache, cache_len, *,
     q: [B, H, D]; k_cache/v_cache: [B, S, KV, D]; cache_len: [B] int32
     (number of valid positions).  ``chunk`` > 0 walks the KV in chunks
     with an online softmax (the reference's long-context path); the
-    reference's scanned and unrolled forms are one loop here.
+    reference's scanned and unrolled forms are one loop here.  A
+    sharded cache is read shard by shard (``_decode_sharded``).
     """
+    if is_dtensor(k_cache):
+        return _decode_sharded(q, k_cache, v_cache, cache_len, scale, chunk)
     B, H, D = q.shape
     S, KV = k_cache.shape[1], k_cache.shape[2]
     G = H // KV
@@ -197,3 +242,77 @@ def decode_attention(q, k_cache, v_cache, cache_len, *,
     o = torch.einsum("bkgs,bskd->bkgd", p.to(v_cache.dtype).float(),
                      v_cache.float())
     return o.reshape(B, H, D).to(q.dtype)
+
+
+def _decode_sharded(q, k_cache, v_cache, cache_len, scale, chunk):
+    """``decode_attention`` of DTensors on each rank's batch rows and
+    heads, as ``heads_call`` splits them.  A cache whose sequence is
+    split (``seq_shard``, long-context decode) is read piece by piece:
+    each rank's softmax statistics over its piece (max, sum, weighted
+    values), the maxima reduced across the pieces, each piece's sums
+    rescaled to the common max and summed — the online softmax across
+    ranks."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    rules = current_rules() or Rules()
+    dm = k_cache.device_mesh
+    B, H, D = q.shape
+    S, KV = k_cache.shape[1], k_cache.shape[2]
+    sc = scale if scale is not None else D ** -0.5
+    seq_ax = rules.get("seq_shard")
+    seq_ways = mesh_ways(dm, seq_ax)
+    q_tp, kv_tp, cut = _head_split(dm, H, KV)
+    qa, kva = ("batch", q_tp, None), ("batch", "seq_shard", kv_tp, None)
+
+    def kv_heads(t):
+        return t if cut == slice(None) else t[:, :, cut]
+
+    ins = (qa, kva, kva, ("batch",))
+    if seq_ways == 1:
+        return local_call(
+            lambda q, k, v, cl: decode_attention(
+                q, kv_heads(k), kv_heads(v), cl, scale=scale, chunk=chunk),
+            (q, k_cache, v_cache, cache_len), ins, qa, tuple(q.shape))
+
+    off = mesh_coordinate(dm, seq_ax) * -(-S // seq_ways)
+
+    def stats(q, k, v, cl):
+        k, v = kv_heads(k), kv_heads(v)
+        b, h, d = q.shape
+        s_loc, kv = k.shape[1], k.shape[2]
+        qg = q.float().reshape(b, kv, h // kv, d)
+        s = torch.einsum("bkgd,bskd->bkgs", qg, k.float()) * sc
+        pos = off + torch.arange(s_loc, device=q.device)
+        s = torch.where(pos < cl.reshape(b, 1, 1, 1), s, NEG_INF)
+        m = s.amax(dim=-1)
+        p = torch.exp(s - m[..., None])
+        acc = torch.einsum("bkgs,bskd->bkgd", p.to(v.dtype).float(),
+                           v.float())
+        return m.reshape(b, h), p.sum(dim=-1).reshape(b, h), \
+            acc.reshape(b, h, d)
+
+    seq_dims = set()
+    for ax in (seq_ax if isinstance(seq_ax, tuple) else (seq_ax,)):
+        seq_dims.add(tuple(dm.mesh_dim_names).index(ax))
+    base = placements(rules.spec(qa[:2]), dm)
+    whole = tuple(Replicate() if i in seq_dims else p
+                  for i, p in enumerate(base))
+
+    def part(op):
+        return tuple(Partial(op) if i in seq_dims else p
+                     for i, p in enumerate(base))
+
+    m, l, acc = local_call(stats, (q, k_cache, v_cache, cache_len), ins,
+                           [part("max"), part("sum"), part("sum")],
+                           [(B, H), (B, H), (B, H, D)])
+    m_all = m.redistribute(dm, whole)
+
+    def rescale(m, m_all, l, acc):
+        corr = torch.exp(m - m_all)
+        return l * corr, acc * corr[..., None]
+
+    pm, ps = part("max"), part("sum")
+    l, acc = local_call(rescale, (m, m_all, l, acc), (pm, whole, ps, ps),
+                        [ps, ps], [(B, H), (B, H, D)])
+    l, acc = l.redistribute(dm, whole), acc.redistribute(dm, whole)
+    return (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)

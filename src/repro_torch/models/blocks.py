@@ -14,7 +14,10 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig, ParallelConfig
-from repro_torch.launch.sharding import ParamMeta
+from repro_torch.launch.sharding import (ParamMeta, Rules, current_rules,
+                                         is_dtensor, local_call,
+                                         mesh_coordinate, mesh_ways,
+                                         shard_act, split_heads)
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import mamba as mamba_mod
@@ -73,10 +76,13 @@ def attn_apply(p, x, cfg: ModelConfig, pcfg: ParallelConfig, *,
     B, S, _ = x.shape
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     q, k, v = _qkv(p, x, kv_source)
+    q = shard_act(q, ("batch", None, "tp"))
+    k = shard_act(k, ("batch", None, "kv_flat"))
+    v = shard_act(v, ("batch", None, "kv_flat"))
     Sk = k.shape[1]
-    qh = q.reshape(B, S, h, dh)
-    kh = k.reshape(B, Sk, kv, dh)
-    vh = v.reshape(B, Sk, kv, dh)
+    qh = split_heads(q, h, dh)
+    kh = split_heads(k, kv, dh)
+    vh = split_heads(v, kv, dh)
     if use_rope:
         qh = apply_rope(qh, positions, cfg.rope_theta)
         kh = apply_rope(kh, positions if kv_source is None else
@@ -85,7 +91,8 @@ def attn_apply(p, x, cfg: ModelConfig, pcfg: ParallelConfig, *,
     o = attn_mod.attention(qh, kh, vh, causal=causal, impl=pcfg.attn_impl,
                            block_q=pcfg.attn_block_q,
                            block_k=pcfg.attn_block_k)
-    y = matmul(o.reshape(B, S, h * dh), p["w_o"])
+    y = shard_act(matmul(o.reshape(B, S, h * dh), p["w_o"]),
+                  ("batch", None, None))
     if want_cache:
         return y, (kh.reshape(B, -1, kv * dh), vh.reshape(B, -1, kv * dh))
     return y
@@ -106,28 +113,59 @@ def attn_decode(p, x, cfg: ModelConfig, pcfg: ParallelConfig, *,
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     S = cache_k.shape[1]
     if cross:                      # k and v are the cache's: q alone
-        qh = matmul(x, p["w_q"]).reshape(B, 1, h, dh)
+        qh = split_heads(matmul(x, p["w_q"]), h, dh)
         valid = cross_len
     else:
         q, k, v = _qkv(p, x)
-        qh = q.reshape(B, 1, h, dh)
+        qh = split_heads(q, h, dh)
         pos = cache_len[:, None]
         qh = apply_rope(qh, pos, cfg.rope_theta)
-        kh = apply_rope(k.reshape(B, 1, kv, dh), pos, cfg.rope_theta)
-        bidx = torch.arange(B, device=x.device)
-        keep = (cache_len < S)[:, None]
-        at = torch.clamp(cache_len, max=S - 1).long()
-        for cache, new in ((cache_k, kh), (cache_v, v)):
-            new = new.reshape(B, kv * dh).to(cache.dtype)
-            cache.index_put_((bidx, at),
-                             torch.where(keep, new, cache[bidx, at]))
+        kh = apply_rope(split_heads(k, kv, dh), pos, cfg.rope_theta)
+        _write_token(cache_k, cache_v, kh.reshape(B, kv * dh),
+                     v.reshape(B, kv * dh), cache_len)
         valid = cache_len + 1
-    kc = cache_k.reshape(B, S, kv, dh)
-    vc = cache_v.reshape(B, S, kv, dh)
+    kc = split_heads(cache_k, kv, dh)
+    vc = split_heads(cache_v, kv, dh)
     o = attn_mod.decode_attention(qh[:, 0], kc, vc, valid,
                                   chunk=pcfg.decode_attn_chunk)
     y = matmul(o.reshape(B, 1, h * dh), p["w_o"])
-    return y, cache_k, cache_v
+    return shard_act(y, ("batch", None, None)), cache_k, cache_v
+
+
+def _write_token(cache_k, cache_v, k_new, v_new, cache_len) -> None:
+    """Write one token's k and v ([B, kv*dh]) into the caches [B, S,
+    kv*dh] IN PLACE at row b, position ``cache_len[b]`` (a position past
+    the cache is dropped).  Sharded caches are written shard by shard
+    (``local_call``): a rank whose sequence piece (``seq_shard``) does
+    not hold the position writes nothing."""
+    S = cache_k.shape[1]
+    off = 0
+    if is_dtensor(cache_k):
+        ax = (current_rules() or Rules()).get("seq_shard")
+        dm = cache_k.device_mesh
+        off = mesh_coordinate(dm, ax) * -(-S // mesh_ways(dm, ax))
+
+    def write(ck, cv, kn, vn, cl):
+        B, s_loc = ck.shape[0], ck.shape[1]
+        if s_loc == 0:
+            return
+        bidx = torch.arange(B, device=ck.device)
+        if s_loc == S:
+            keep = (cl < S)[:, None]
+            at = torch.clamp(cl, max=S - 1).long()
+        else:                         # this rank's piece of the sequence
+            pos = cl - off
+            keep = ((pos >= 0) & (pos < s_loc))[:, None]
+            at = torch.clamp(pos, min=0, max=s_loc - 1).long()
+        for cache, new in ((ck, kn), (cv, vn)):
+            new = new.to(cache.dtype)
+            cache.index_put_((bidx, at),
+                             torch.where(keep, new, cache[bidx, at]))
+
+    cache_axes = ("batch", "seq_shard", "kv_flat")
+    local_call(write, (cache_k, cache_v, k_new, v_new, cache_len),
+               (cache_axes, cache_axes, ("batch", "kv_flat"),
+                ("batch", "kv_flat"), ("batch",)), None, None)
 
 
 # ---------------------------------------------------------------------------

@@ -9,7 +9,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.launch.sharding import ParamMeta
+from repro_torch.launch.sharding import (ParamMeta, is_dtensor, local_call,
+                                         local_range)
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -17,11 +18,46 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     float32 frame embedding against bf16 weights, or bf16 frames against
     float32 weights), the narrower operand is cast up to
     ``torch.promote_types`` of the two, as ``jnp.matmul`` does; torch's
-    ``@`` refuses mixed dtypes."""
+    ``@`` refuses mixed dtypes.
+
+    A DTensor ``a`` times a 2-D DTensor weight ``b`` is taken shard by
+    shard (``_sharded_matmul``)."""
     if a.dtype != b.dtype:
         t = torch.promote_types(a.dtype, b.dtype)
         a, b = a.to(t), b.to(t)
+    if is_dtensor(a) and is_dtensor(b) and b.dim() == 2 and a.dim() >= 2:
+        return _sharded_matmul(a, b)
     return a @ b
+
+
+def _sharded_matmul(x, w):
+    """``x @ w`` for DTensors x [..., k] and w [k, n], as Megatron and
+    ZeRO-3 lay it out, mesh dim by mesh dim: where x's rows are split
+    (batch), w is gathered there (its FSDP gather) and the result's rows
+    stay split; where w splits its input dim (row parallel), x's last dim
+    is split alike and the result is a partial sum; where w splits its
+    output dim (column parallel), x's last dim is whole and the result's
+    last dim is split.  Each rank then multiplies its local pieces
+    (``sharding.local_call``), forward and backward, so no product is
+    computed twice on two ranks of the mesh — a layout DTensor's own
+    choice per operation does not promise, its backward least."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    last = x.dim() - 1
+    layout = []                         # (x, w, result) a mesh dim
+    for xp, wp in zip(x.placements, w.placements):
+        if isinstance(xp, Shard) and xp.dim < last:      # rows split
+            layout.append((xp, Replicate(), xp))
+        elif isinstance(wp, Shard) and wp.dim == 1:      # column parallel
+            layout.append((Replicate(), wp, Shard(last)))
+        elif isinstance(wp, Shard) or (isinstance(xp, Shard)
+                                       and xp.dim == last):
+            layout.append((Shard(last), Shard(0), Partial()))  # row par.
+        else:
+            layout.append((Replicate(),) * 3)
+    xs, ws, outs = zip(*layout)
+    return local_call(lambda a, b: a @ b, (x, w), (xs, ws), outs,
+                      tuple(x.shape[:-1]) + (w.shape[1],))
 
 
 def rmsnorm_meta(d: int) -> ParamMeta:
@@ -77,12 +113,46 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
     m = torch.amax(lf, dim=-1, keepdim=True).detach()
     shifted = lf - m
     lse = torch.log(torch.sum(torch.exp(shifted), dim=-1)) + m[..., 0]
-    label_logit = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    label_logit = _label_logit(lf, labels)
     nll = lse - label_logit
     loss = torch.mean(nll)
     if z_loss:
         loss = loss + z_loss * torch.mean(lse * lse)
     return loss
+
+
+def _label_logit(lf: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``lf[..., labels]``.  Of a DTensor whose vocab (last) dim is
+    sharded, each rank picks the labels its vocab piece holds and the
+    pieces sum (a ``Partial`` result: the vocab-parallel cross entropy's
+    gather, where a whole-vocab gather would gather the logits)."""
+    def pick(lf, labels):
+        return torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+
+    if not is_dtensor(lf):
+        return pick(lf, labels)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    last = lf.dim() - 1
+    vocab = {i for i, p in enumerate(lf.placements)
+             if isinstance(p, Shard) and p.dim == last}
+    if not vocab:
+        return pick(lf, labels)
+    off, _ = local_range(lf, last)
+
+    def pick_local(lf, labels):
+        idx = labels.long() - off
+        inside = (idx >= 0) & (idx < lf.shape[-1])
+        v = torch.gather(lf, -1, idx.clamp(0, max(lf.shape[-1] - 1, 0))
+                         [..., None])[..., 0]
+        return torch.where(inside, v, torch.zeros_like(v))
+
+    lab_pl = tuple(Replicate() if i in vocab else p
+                   for i, p in enumerate(lf.placements))
+    out_pl = tuple(Partial() if i in vocab else p
+                   for i, p in enumerate(lf.placements))
+    return local_call(pick_local, (lf, labels),
+                      (tuple(lf.placements), lab_pl), out_pl,
+                      tuple(labels.shape))
 
 
 def count_params(tree) -> int:

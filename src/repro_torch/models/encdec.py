@@ -22,7 +22,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, ParallelConfig
-from repro_torch.launch.sharding import ParamMeta, stack_meta, torch_dtype
+from repro_torch.launch.sharding import (ParamMeta, checkpoint_contexts,
+                                         shard_act, stack_meta, torch_dtype)
 from repro_torch.models import blocks
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models.common import rmsnorm, rmsnorm_meta, softmax_xent
@@ -66,7 +67,8 @@ def _remat(pcfg: ParallelConfig, body):
     if pcfg.remat != "block" or not torch.is_grad_enabled():
         return body
     return lambda *a: checkpoint(body, *a, use_reentrant=False,
-                                 preserve_rng_state=False)
+                                 preserve_rng_state=False,
+                                 context_fn=checkpoint_contexts)
 
 
 def encode(params, frame_embeds, cfg: ModelConfig, pcfg: ParallelConfig):
@@ -76,7 +78,7 @@ def encode(params, frame_embeds, cfg: ModelConfig, pcfg: ParallelConfig):
     narrower than the weights (bf16 frames, float32 weights) would come
     out of the first layer promoted, and raise ``TypeError`` there, as
     the reference's ``lax.scan`` raises."""
-    h = frame_embeds
+    h = shard_act(frame_embeds, ("batch", None, None))
     F = h.shape[1]
     positions = torch.arange(F, device=h.device)[None, :]
 
@@ -166,6 +168,11 @@ def encdec_init_cache(cfg: ModelConfig, batch: int, max_len: int,
                            device=device) for n, s in lens.items()}
 
 
+def encdec_cache_axes():
+    ax = (None, "batch", "seq_shard", "kv_flat")
+    return {"k": ax, "v": ax, "cross_k": ax, "cross_v": ax}
+
+
 def encdec_prefill(params, batch, cfg: ModelConfig, pcfg: ParallelConfig):
     """Returns (last-position logits [B, V], cache, cache_len [B]); the
     cache length counts the text alone, not the frames."""
@@ -209,5 +216,6 @@ def encdec_decode_step(params, cache, cache_len, token, cfg: ModelConfig,
     return logits, cache, cache_len + 1
 
 
-__all__ = ["decode_seq", "encdec_decode_step", "encdec_init_cache",
+__all__ = ["decode_seq", "encdec_cache_axes", "encdec_decode_step",
+           "encdec_init_cache",
            "encdec_loss", "encdec_meta", "encdec_prefill", "encode"]

@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.launch.sharding import ParamMeta
+from repro_torch.launch.sharding import ParamMeta, shard_act
 from repro_torch.models.common import matmul
 
 
@@ -23,4 +23,5 @@ def ffn_apply(params, x: torch.Tensor) -> torch.Tensor:
     is multiplied as JAX promotes it (``common.matmul``)."""
     g = matmul(x, params["w_gate"])
     h = g * (1 / (1 + torch.exp(-g))) * matmul(x, params["w_up"])
-    return matmul(h, params["w_down"])
+    h = shard_act(h, ("batch", None, "tp"))
+    return shard_act(matmul(h, params["w_down"]), ("batch", None, None))

@@ -23,8 +23,9 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import MambaConfig
 from repro_torch.kernels import ssd_scan as SS
-from repro_torch.launch.sharding import ParamMeta, torch_dtype
-from repro_torch.models.common import rmsnorm, rmsnorm_meta
+from repro_torch.launch.sharding import (ParamMeta, is_dtensor, local_call,
+                                         shard_act, split_heads, torch_dtype)
+from repro_torch.models.common import matmul, rmsnorm, rmsnorm_meta
 
 class SSMDims(NamedTuple):
     d_inner: int
@@ -69,12 +70,22 @@ def _causal_conv(x, w, state: Optional[torch.Tensor] = None):
     """Depthwise causal conv.  x: [B, S, C]; w: [K, C].
 
     With ``state`` ([B, K-1, C], previous raw inputs) performs the decode
-    step (S == 1) and returns (y, new_state); otherwise returns y."""
+    step (S == 1) and returns (y, new_state); otherwise returns y — of a
+    DTensor x, on each rank's batch rows and channels (the conv is
+    depthwise: a channel never reads another)."""
     k = w.shape[0]
     if state is not None:
         buf = torch.cat([state, x], dim=1)                  # [B, K, C]
         y = torch.einsum("bkc,kc->bc", buf.float(), w.float())[:, None, :]
         return y.to(x.dtype), buf[:, 1:]
+    if is_dtensor(x):
+        from torch.distributed.tensor import Replicate, Shard
+        xs = tuple(Replicate() if isinstance(p, Shard) and p.dim == 1 else p
+                   for p in x.placements)
+        ws = tuple(Shard(1) if isinstance(p, Shard) and p.dim == 2
+                   else Replicate() for p in xs)
+        return local_call(_causal_conv, (x, w), (xs, ws), xs,
+                          tuple(x.shape))
     pad = F.pad(x, (0, 0, k - 1, 0))
     y = sum(pad[:, i:i + x.shape[1]].float() * w[i].float()
             for i in range(k))
@@ -124,12 +135,23 @@ def ssd_chunk_scan(xh, dt, A, B_, C_, *, chunk: int, init_state=None,
     when autograd records (grad mode on, an input requires grad) the
     call goes through ``SSDScanFn``.
     """
-    ins = (xh, dt, A, B_, C_, init_state)
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in ins):
-        return SSDScanFn.apply(*ins, chunk, want_state)
-    return SS.ssd_scan(xh, dt, A, B_, C_, chunk=chunk, init_state=init_state,
-                       want_state=want_state)
+    def run(xh, dt, A, B_, C_, init_state):
+        ins = (xh, dt, A, B_, C_, init_state)
+        if torch.is_grad_enabled() and any(
+                t is not None and t.requires_grad for t in ins):
+            return SSDScanFn.apply(*ins, chunk, want_state)
+        return SS.ssd_scan(xh, dt, A, B_, C_, chunk=chunk,
+                           init_state=init_state, want_state=want_state)
+
+    # sharded: each rank scans its batch rows and heads ('tp')
+    Bsz, _, H, P = xh.shape
+    st = ("batch", "tp", None, None)
+    return local_call(
+        run, (xh, dt, A, B_, C_, init_state),
+        (("batch", None, "tp", None), ("batch", None, "tp"), ("tp",),
+         ("batch", None, None), ("batch", None, None), st),
+        [("batch", None, "tp", None), st],
+        [tuple(xh.shape), (Bsz, H, B_.shape[-1], P)])
 
 
 def ssd_decode_step(state, x, dt, A, B_, C_):
@@ -178,11 +200,13 @@ def mamba_apply(params, x, cfg: MambaConfig, *, rms_eps: float = 1e-5,
     dims = ssm_dims(d, cfg)
     H, Pd = dims.n_heads, dims.head_dim
 
-    z = x @ params["w_z"]                                  # [B, S, di]
-    xr = x @ params["w_x"]
-    br = x @ params["w_B"]
-    cr = x @ params["w_C"]
-    dt_raw = x @ params["w_dt"]                            # [B, S, H]
+    z = matmul(x, params["w_z"])                           # [B, S, di]
+    xr = matmul(x, params["w_x"])
+    br = matmul(x, params["w_B"])
+    cr = matmul(x, params["w_C"])
+    dt_raw = matmul(x, params["w_dt"])                     # [B, S, H]
+    z = shard_act(z, ("batch", None, "tp"))
+    xr = shard_act(xr, ("batch", None, "tp"))
 
     decode = state is not None and S == 1
     if decode:
@@ -199,7 +223,7 @@ def mamba_apply(params, x, cfg: MambaConfig, *, rms_eps: float = 1e-5,
 
     dt = F.softplus(dt_raw.float() + params["dt_bias"][None, None, :])
     A = -torch.exp(params["A_log"].float())                # [H], negative
-    xh = xc.reshape(Bsz, S, H, Pd)
+    xh = split_heads(xc, H, Pd)
 
     if decode:
         y1, ssm = ssd_decode_step(state.ssm, xh[:, 0], dt[:, 0], A,
@@ -219,7 +243,7 @@ def mamba_apply(params, x, cfg: MambaConfig, *, rms_eps: float = 1e-5,
     y = y.reshape(Bsz, S, dims.d_inner)
     y = y * F.silu(z.float()).to(y.dtype)
     y = rmsnorm(y, params["norm"], rms_eps)
-    out = y @ params["w_out"]
+    out = shard_act(matmul(y, params["w_out"]), ("batch", None, None))
     if state is not None:
         return out, new_state
     return out

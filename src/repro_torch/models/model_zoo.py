@@ -16,7 +16,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, ParallelConfig, ShapeConfig
-from repro_torch.launch.sharding import (leaves_with_path, materialize,
+from repro_torch.launch.sharding import (Rules, TensorSpec,
+                                         leaves_with_path, materialize,
                                          tree_map)
 from repro_torch.models import encdec, transformer
 
@@ -63,6 +64,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
     return transformer.init_cache(cfg, batch, max_len, dtype, device)
 
 
+def cache_axes(cfg: ModelConfig):
+    if cfg.is_encdec:
+        return encdec.encdec_cache_axes()
+    return transformer.cache_logical_axes(cfg)
+
+
 def _text_len(cfg: ModelConfig, shape: ShapeConfig) -> int:
     if cfg.frontend == "vision":
         return shape.seq_len - cfg.frontend_len
@@ -90,6 +97,15 @@ def batch_shapes(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
         out["frame_embeds"] = ((B, cfg.frontend_len, cfg.d_model),
                                torch.bfloat16, emb_ax)
     return out
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig, rules: Rules,
+                mesh=None) -> Dict[str, TensorSpec]:
+    """``TensorSpec`` stand-ins (global shape, dtype, partition spec) of
+    a cell's inputs, for the dry run (``sharding.abstract`` makes them
+    DTensors on a mesh)."""
+    return {name: TensorSpec(shp, dt, rules.spec(ax))
+            for name, (shp, dt, ax) in batch_shapes(cfg, shape).items()}
 
 
 def concrete_batch(cfg: ModelConfig, shape: ShapeConfig,
@@ -168,6 +184,6 @@ def params_from_numpy(tree, device=None):
     return tree_map(one, tree)
 
 
-__all__ = ["batch_shapes", "concrete_batch", "decode_fn", "init_cache",
-           "init_params", "loss_fn", "model_flops", "model_meta",
+__all__ = ["batch_shapes", "cache_axes", "concrete_batch", "decode_fn",
+           "init_cache", "init_params", "input_specs", "loss_fn", "model_flops", "model_meta",
            "param_counts", "params_from_numpy", "prefill_fn"]

@@ -29,7 +29,9 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import MoEConfig
-from repro_torch.launch.sharding import ParamMeta
+from repro_torch.launch.sharding import (ParamMeta, Rules, current_rules,
+                                         is_dtensor, local_call, mesh_ways,
+                                         placements, shard_act)
 from repro_torch.models.ffn import ffn_apply
 
 
@@ -118,6 +120,59 @@ def route(x_groups, w_router, cfg: MoEConfig, capacity_factor: float):
             slot_of.reshape(G, N, K).to(torch.int32), weights, aux)
 
 
+def _route(x_groups, w_router, cfg: MoEConfig, capacity_factor: float):
+    """``route`` — of sharded groups, on each rank's groups
+    (``sharding.local_call``; routing never crosses a group).  The aux
+    loss, a mean over groups, comes back as a partial sum: each rank's
+    mean weighted by its share of the groups (a ``Partial("avg")`` would
+    give the right value, but DTensor hands its gradient back unscaled,
+    once a rank).  Groups that do not split evenly over the batch axes
+    (decode's one group) are routed whole on every rank."""
+    if not is_dtensor(x_groups):
+        return route(x_groups, w_router, cfg, capacity_factor)
+    rules = current_rules() or Rules()
+    from torch.distributed.tensor import Partial, Shard
+    G, N = x_groups.shape[0], x_groups.shape[1]
+    E, K = cfg.num_experts, cfg.experts_per_token
+    C = _capacity(N, cfg, capacity_factor)
+    split = G % mesh_ways(x_groups.device_mesh, rules.get("batch")) == 0
+    g = "batch" if split else None
+    pl = placements(rules.spec((g, None, None)), x_groups.device_mesh)
+    aux_pl = tuple(Partial() if isinstance(p, Shard) else p for p in pl)
+
+    def local_route(x, w):
+        slot_token, slot_of, weights, aux = route(x, w, cfg,
+                                                  capacity_factor)
+        if x.shape[0] != G:
+            aux = aux * (x.shape[0] / G)
+        return slot_token, slot_of, weights, aux
+
+    return local_call(
+        local_route, (x_groups, w_router), ((g, None, None), (None, None)),
+        [(g, None), (g, None, None), (g, None, None), aux_pl],
+        [(G, E * C), (G, N, K), (G, N, K), ()])
+
+
+def _experts(x, w):
+    """The expert products ``gecd,edf->gecf``: of DTensors, on each
+    rank's groups and experts (``sharding.local_call``), the weights
+    gathered over their FSDP dim first — so no expert product is
+    computed twice on ranks that split the groups or the experts."""
+    def prod(x, w):
+        return torch.einsum("gecd,edf->gecf", x, w)
+
+    if not is_dtensor(x):
+        return prod(x, w)
+    rules = current_rules() or Rules()
+    G = x.shape[0]
+    g = "batch" if G % mesh_ways(x.device_mesh, rules.get("batch")) == 0 \
+        else None
+    return local_call(prod, (x, w),
+                      ((g, "experts", None, None), ("experts", None, None)),
+                      (g, "experts", None, None),
+                      tuple(x.shape[:3]) + (w.shape[2],))
+
+
 def _rows(x, idx):
     """``take_along_axis(x, idx[:, :, None], axis=1)``: x [G, M, d], idx
     [G, L] -> [G, L, d]."""
@@ -139,17 +194,20 @@ def moe_apply(params, x, cfg: MoEConfig, *, capacity_factor: float = 1.25,
     E, K = cfg.num_experts, cfg.experts_per_token
     C = _capacity(N, cfg, capacity_factor)
 
-    slot_token, slot_of, weights, aux = route(
+    slot_token, slot_of, weights, aux = _route(
         x_groups, params["w_router"], cfg, capacity_factor)
 
     # dispatch: gather token rows into [G, E, C, d]; pad row N reads zeros
     xp = torch.cat([x_groups, x.new_zeros((G, 1, d))], dim=1)
     xd = _rows(xp, slot_token).reshape(G, E, C, d)
+    # reshard: batch-sharded groups -> expert-sharded buffers
+    xd = shard_act(xd, ("batch", "experts", None, None))
     # SiLU spelled as jax.nn.silu lowers it (see ffn.ffn_apply)
-    g = torch.einsum("gecd,edf->gecf", xd, params["w_gate"])
-    h = g * (1 / (1 + torch.exp(-g))) \
-        * torch.einsum("gecd,edf->gecf", xd, params["w_up"])
-    yd = torch.einsum("gecf,efd->gecd", h, params["w_down"])
+    g = _experts(xd, params["w_gate"])
+    h = g * (1 / (1 + torch.exp(-g))) * _experts(xd, params["w_up"])
+    yd = _experts(h, params["w_down"])
+    # reshard back to batch-sharded groups
+    yd = shard_act(yd, ("batch", None, None, None))
 
     yflat = torch.cat([yd.reshape(G, E * C, d), yd.new_zeros((G, 1, d))],
                       dim=1)                                  # [G, EC+1, d]
@@ -160,4 +218,4 @@ def moe_apply(params, x, cfg: MoEConfig, *, capacity_factor: float = 1.25,
 
     if "shared" in params:
         y = y + ffn_apply(params["shared"], x)
-    return y, aux * cfg.router_aux_weight
+    return shard_act(y, ("batch", None, None)), aux * cfg.router_aux_weight

@@ -20,11 +20,13 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, ParallelConfig
-from repro_torch.launch.sharding import (ParamMeta, stack_meta, torch_dtype,
-                                         tree_map)
+from repro_torch.launch.sharding import (ParamMeta, checkpoint_contexts,
+                                         local_call, shard_act, stack_meta,
+                                         torch_dtype, tree_map)
 from repro_torch.models import blocks
 from repro_torch.models import mamba as mamba_mod
-from repro_torch.models.common import rmsnorm, rmsnorm_meta, softmax_xent
+from repro_torch.models.common import (matmul, rmsnorm, rmsnorm_meta,
+                                       softmax_xent)
 
 VOCAB_PAD_MULTIPLE = 256
 
@@ -83,16 +85,28 @@ def lm_meta(cfg: ModelConfig) -> dict:
 
 
 def embed_lookup(table, tokens, pcfg: ParallelConfig):
+    """Rows of ``table`` [V, d] at ``tokens``.  A sharded table (fsdp x
+    tp) is all-gathered over its fsdp axis (the width stays tp-sharded)
+    and each rank takes its batch's rows locally, as the reference's
+    ``shard_map`` body does; the backward reduce-scatters the rows'
+    gradient back."""
     if pcfg.gather_mode == "onehot":
-        return F.one_hot(tokens.long(), table.shape[0]).to(table.dtype) \
+        h = F.one_hot(tokens.long(), table.shape[0]).to(table.dtype) \
             @ table
-    return table[tokens.long()]
+    else:
+        h = local_call(lambda tbl, tok: tbl[tok.long()], (table, tokens),
+                       ((None, "tp"), ("batch", None)),
+                       ("batch", None, "tp"),
+                       tuple(tokens.shape) + (table.shape[1],))
+    return shard_act(h, ("batch", None, None))
 
 
 def lm_logits(params, h, cfg: ModelConfig):
     if cfg.tie_embeddings:
-        return h @ params["embed"].T
-    return h @ params["lm_head"]
+        logits = matmul(h, params["embed"].T)
+    else:
+        logits = matmul(h, params["lm_head"])
+    return shard_act(logits, ("batch", None, "vocab"))
 
 
 def _group(tree, g: int):
@@ -141,6 +155,7 @@ def lm_forward(params, tokens, cfg: ModelConfig, pcfg: ParallelConfig, *,
     h = embed_lookup(params["embed"], tokens, pcfg)
     if prefix_embeds is not None:
         h = torch.cat([prefix_embeds.to(h.dtype), h], dim=1)
+        h = shard_act(h, ("batch", None, None))
     S = h.shape[1]
     positions = torch.arange(S, device=h.device)[None, :]
 
@@ -158,7 +173,8 @@ def lm_forward(params, tokens, cfg: ModelConfig, pcfg: ParallelConfig, *,
         for gp in gps:
             h, aux, _ = checkpoint(group_body, h, aux, gp,
                                    use_reentrant=False,
-                                   preserve_rng_state=False)
+                                   preserve_rng_state=False,
+                                   context_fn=checkpoint_contexts)
         return h, aux
 
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -169,7 +185,8 @@ def lm_forward(params, tokens, cfg: ModelConfig, pcfg: ParallelConfig, *,
             if k > 1:
                 h, aux = checkpoint(run, h, aux, groups[i:i + k],
                                     use_reentrant=False,
-                                    preserve_rng_state=False)
+                                    preserve_rng_state=False,
+                                    context_fn=checkpoint_contexts)
             else:
                 h, aux = run(h, aux, groups[i:i + 1])
     else:
@@ -223,6 +240,25 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
         cache[f"sub{j}"] = {n: t.new_zeros((g,) + t.shape)
                             for n, t in leaves.items()}
     return cache
+
+
+def cache_logical_axes(cfg: ModelConfig):
+    """Logical axes tree matching ``init_cache``'s (the dry run's specs)."""
+    group = {}
+    for j, (mixer, _) in enumerate(layer_kinds(cfg)):
+        if mixer == "attn":
+            group[f"sub{j}"] = {
+                "k": (None, "batch", "seq_shard", "kv_flat"),
+                "v": (None, "batch", "seq_shard", "kv_flat"),
+            }
+        else:
+            group[f"sub{j}"] = {
+                "ssm": (None, "batch", "tp", None, None),
+                "conv_x": (None, "batch", None, "tp"),
+                "conv_B": (None, "batch", None, None),
+                "conv_C": (None, "batch", None, None),
+            }
+    return group
 
 
 # ---------------------------------------------------------------------------

@@ -16,7 +16,8 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.launch.sharding import torch_dtype, tree_leaves, tree_map
+from repro_torch.launch.sharding import (is_dtensor, local_call, torch_dtype,
+                                         tree_leaves, tree_map)
 from repro_torch.models.model_zoo import params_from_numpy
 
 #: elements squared at a time by ``global_norm`` (a 256 MB f32 temporary;
@@ -64,7 +65,14 @@ def schedule(step: torch.Tensor, cfg: AdamWConfig) -> torch.Tensor:
 
 
 def _sum_sq(x: torch.Tensor) -> torch.Tensor:
-    """sum(x²) in f32, squared ``NORM_CHUNK`` elements at a time."""
+    """sum(x²) in f32, squared ``NORM_CHUNK`` elements at a time; of a
+    DTensor, each rank's shard summed locally (a partial sum over the
+    mesh dims that shard it)."""
+    if is_dtensor(x):
+        from torch.distributed.tensor import Partial, Shard
+        pl = tuple(Partial() if isinstance(p, Shard) else p
+                   for p in x.placements)
+        return local_call(_sum_sq, (x,), (tuple(x.placements),), pl, ())
     parts = [torch.sum(torch.square(c.float()))
              for c in x.reshape(-1).split(NORM_CHUNK)]
     if not parts:
