@@ -24,7 +24,10 @@ printed:
      ``mirror_select`` (a versioned chunk's mirror resolve in one launch)
      on both of its argument routes, and ``scatter_write`` from host
      columns (parameter and staged routes, the fill form, a repeated
-     index) and from columns on the card (and ``snapshot_select`` refused
+     index) and from columns on the card, ``gather_read_home`` (the
+     gather and its copy home in one call) and the scalar word read
+     ``read_word`` (int64 and int32 rows, a view) against the row (and
+     ``snapshot_select`` refused
      on a side stream; its, ``commit_fused``'s, the bracketed gather's, a
      bulk revalidation's, a versioned chunk's and a host-column scatter's
      host time split into parts, and the last two, the write-back and the
@@ -69,7 +72,7 @@ printed:
      CPU's plain routes, the card's kernels);
   4. the main path: ``make_tm(b, n, array_heap=True)`` on the card drives
      the longread (scan4096 on every backend, scan1M on multiverse) and
-     rwmix (w1024, every backend) traffic in threads (2 s windows); TL2
+     rwmix (w1024, every backend) traffic in threads (1 s windows); TL2
      and DCTL
      commit 1024-word rotations in groups of 8 through ``CommitBatcher``
      over a 1,000,000-word heap; and the MVStore serves 1,000,000-word
@@ -151,7 +154,7 @@ printed:
      a fresh engine recovers the committed prefix from the log alone;
      ``durable_group_tl2_1M`` (phase 4's group trial journaled, two
      1.5 s windows around a checkpoint of the whole heap) and
-     ``durable_mvstore_1M`` (3 s) replay into fresh stores on the card
+     ``durable_mvstore_1M`` (1.5 s) replay into fresh stores on the card
      equal to the trials' final state, with one ``scatter_write`` (base
      image included) or ``commit_fused`` launch a record, and a
      ``post_scatter`` kill on the replayed store completes its install;
@@ -230,7 +233,23 @@ printed:
      within 10 % of the trainer's ``max_memory_allocated``; (c)
      qwen2.5-3b ``train_4k`` and moonshot-v1-16b-a3b ``decode_32k`` on
      the fake 16x16 pod must trace ``ok`` (per-rank peak, collectives by
-     kind and trace seconds printed).
+     kind and trace seconds printed);
+ 12. the drivers (``drivers_phase``, run after 9c and before 10), each
+     called as a user calls it, through its ``main``, in this process:
+     ``repro_torch.examples.quickstart`` on every backend of
+     ``backend_names()`` (no torn read, all five audits committed on
+     every backend within ``QUICKSTART_SECONDS``, each backend's kernels
+     launched); ``bakeoff --quick``, every
+     assertion of the reference holding as written (its five speed
+     factors printed beside their bars); ``serve_snapshots --steps 30
+     --requests 6`` (every request completes, its served clocks never
+     decrease and lie within the trainer's, ``snapshot_select`` and
+     ``flash_attention`` launched); ``train_lm --full`` over qwen2.5-3b
+     at full width, Mode Q, ``TRAIN_LM_FULL_STEPS`` steps (finite losses,
+     no checkpoint, 2 x 36 ``flash_attention`` launches a step); and
+     ``train_lm --arch mamba2-780m --steps 50 --inject-failure-at 30``
+     (one restart from the step-20 checkpoint, the replayed steps' losses
+     equal to the first pass's bit for bit, ``ssd_scan`` launched).
 
 The last two lines are the kernels summary and
 ``{"ok": true, "device": {...}}``.
@@ -509,7 +528,7 @@ def kernel_checks(torch, dev, rng):
     from repro_torch.kernels import gather_read as GR
     from repro_torch.kernels import validate as VK
     from repro_torch.kernels import version_select as VS
-    from repro_torch.kernels._lib import to_device
+    from repro_torch.kernels._lib import read_word, to_device
     from repro_torch.launch.roofline import HBM_BW
 
     t_start = time.perf_counter()
@@ -540,6 +559,19 @@ def kernel_checks(torch, dev, rng):
                     torch, lambda: torch.index_select(row, 0, idx_t)),
                 bound_ms=bound(24 * n))
     rows.update(scatter_checks(torch, dev, rng, row, row_np, bound))
+    # the gather brought home in one call (NOrec's value validation) and
+    # the scalar word read (every scalar STM read on the card)
+    now_np = row.cpu().numpy()
+    for n in (1, 2, 200, 4096):
+        idx = rng.integers(0, H, n, dtype=np.int64)
+        got = GR.gather_read_home(row, idx)
+        check(np.array_equal(got, GR.gather_plain(
+            row, to_device(idx, dev)).cpu().numpy()),
+            f"gather_read_home != plain at N={n}")
+    for r, r_np in ((row, now_np), (row[7:], now_np[7:])):
+        for i in (0, 1, 4097, r_np.size - 1):
+            check(read_word(r, i) == int(r[i]) == int(r_np[i]),
+                  f"read_word != row at {i}")
 
     # gather_read over an int32 row (the MVStore block and ring rows)
     row32_np = rng.integers(-(1 << 31), 1 << 31, H, dtype=np.int64) \
@@ -553,6 +585,9 @@ def kernel_checks(torch, dev, rng):
             f"gather_read int32 != plain at N={n}")
         check(np.array_equal(got.cpu().numpy(), row32_np[idx]),
               f"gather_read int32 != host row at N={n}")
+    for i in (0, 4097, H - 1):
+        check(read_word(row32, i) == int(row32_np[i]),
+              f"read_word int32 != row at {i}")
 
     rows.update(bracketed_checks(torch, dev, rng, row, row_np, bound))
 
@@ -5529,7 +5564,7 @@ def shard_parity_check(torch):
     check(ok, "shardstore(1) and mvstore differ on the card")
 
 
-def shardstore_trial(torch, n_shards, duration_s=3.0, warmup_s=0.5,
+def shardstore_trial(torch, n_shards, duration_s=1.5, warmup_s=0.25,
                      cap_s=30.0):
     """The sharded store at the size of phase 4's ``mvstore_1M``: 1,000,000
     int32 words in spans of 8,192 over ``n_shards`` shards, every block
@@ -6073,7 +6108,7 @@ def durable_group_trial(torch, scratch):
 
 def durable_mvstore_trial(torch, scratch):
     """``durable_mvstore_1M``: phase 4's ``mvstore_1M`` with a
-    ``WriteAheadLog`` attached (3 s); a fresh 1M-word MVStore on the card
+    ``WriteAheadLog`` attached (1.5 s); a fresh 1M-word MVStore on the card
     replays the log to the trial's block and clock with one
     ``commit_fused`` launch a record; then a kill at ``post_scatter`` on
     that store completes its install from ``_inflight``, and
@@ -6090,7 +6125,7 @@ def durable_mvstore_trial(torch, scratch):
     wal_dir = os.path.join(scratch, "durable_mvstore")
     keep = {}
     K.reset_launch_counts()
-    row = mvstore_trial(torch, "durable_mvstore_1M", 3.0, 0.5,
+    row = mvstore_trial(torch, "durable_mvstore_1M", 1.5, 0.25,
                         wal_dir=wal_dir, keep=keep)
     torch.cuda.synchronize()
     row["launches"] = K.launch_counts()
@@ -6559,6 +6594,326 @@ PHASE4_ROWS = {}
 
 
 # ---------------------------------------------------------------------------
+# phase 12: the drivers (``repro_torch.examples``), called as a user calls
+# them, in the main process
+# ---------------------------------------------------------------------------
+
+#: seconds a backend's quickstart may take before the run fails: the
+#: driver retries each audit until it commits, as the reference does, so
+#: an audit that starved would otherwise hold the run to its time limit
+QUICKSTART_SECONDS = 90.0
+#: the reference's bake-off claims (``examples/bakeoff.py``), by table:
+#: (size key, size, speedup the reference asserts, strict)
+BAKEOFF_BARS = {"validation": ("reads", 1024, 1.0, True),
+                "read_bulk": ("reads", 4096, 4.0, False),
+                "commit": ("writes", 1024, 3.0, False),
+                "group_commit": ("txns", 8, 3.0, False),
+                "structrq": ("keys", 4096, 3.0, False)}
+#: ``train_lm --full``'s steps: fewer than ``launch.train``'s
+#: ``--ckpt-every`` 20, so no 40 GB checkpoint of qwen2.5-3b is written
+#: (a checkpoint follows step n only when n % 20 == 0, and n >= 1)
+TRAIN_LM_FULL_STEPS = 5
+
+
+def quickstart_kernels(backend):
+    """The kernels a backend's quickstart launches: every bulk audit one
+    gather (the lock-version backends' bracketed: the heap and its lock
+    words; NOrec's value-log validations one each too), every store
+    commit one ``commit_fused``; read and write sets stay under the bulk
+    thresholds, so no ``validate`` or ``scatter_write``."""
+    if backend in ("mvstore", "shardstore"):
+        return ("gather_read", "commit_fused")
+    if backend in LOCKVER_BACKENDS:
+        return ("gather_read", "gather_bracketed")
+    return ("gather_read",)
+
+
+class _Tee:
+    """``sys.stdout`` while a driver runs: its lines are printed and kept."""
+
+    def __init__(self, out):
+        self.out, self.lines = out, []
+
+    def write(self, s):
+        self.lines.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+    def text(self):
+        return "".join(self.lines)
+
+
+@contextlib.contextmanager
+def _train_lm_watch(name):
+    """``launch.train``'s ``TrainSupervisor`` replaced by a subclass that
+    keeps each supervisor and every ``(step, loss)`` its run reports, in
+    order (the CLI's own ``on_step`` still runs); the checkpoints go to a
+    fresh ``build/<name>`` (``tempfile.tempdir``), removed after."""
+    import tempfile
+
+    from repro_torch.launch import train as T
+
+    real, old_tmp = T.TrainSupervisor, tempfile.tempdir
+    sups = []
+
+    class Watched(real):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.losses = []
+            sups.append(self)
+
+        def run(self, *, on_step=None, **kw):
+            def watched(step, state, metrics):
+                self.losses.append((step, float(metrics["loss"])))
+                if on_step is not None:
+                    on_step(step, state, metrics)
+            return super().run(on_step=watched, **kw)
+
+    tmp = os.path.join(HERE, "build", name)
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    T.TrainSupervisor, tempfile.tempdir = Watched, tmp
+    try:
+        yield sups
+    finally:
+        T.TrainSupervisor, tempfile.tempdir = real, old_tmp
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _driver(torch, fn, totals):
+    """Runs ``fn`` with every launch counter set to 0 just before and read
+    just after; returns ``(fn(), launches, seconds, stdout text)``; an
+    ``AssertionError`` of the driver (its own checks) fails the run."""
+    from repro_torch import kernels as K
+
+    tee = _Tee(sys.stdout)
+    t0 = time.perf_counter()
+    K.reset_launch_counts()
+    try:
+        with contextlib.redirect_stdout(tee):
+            out = fn()
+    except AssertionError as e:
+        raise Failed(f"driver assertion: {e}") from e
+    torch.cuda.synchronize()
+    got = K.launch_counts()
+    for k, v in got.items():
+        totals[k] += v
+    return out, got, time.perf_counter() - t0, tee.text()
+
+
+def _nonzero(launches):
+    return {k: v for k, v in launches.items() if v}
+
+
+def _bounded(fn, seconds, what):
+    """``fn()`` in a daemon thread (the threads it starts are daemons
+    too), waited for ``seconds``: a driver that has not returned by then
+    fails the run, and its threads end with the process."""
+    box = {}
+
+    def body():
+        try:
+            box["out"] = fn()
+        except BaseException as e:          # re-raised in the caller
+            box["err"] = e
+
+    th = threading.Thread(target=body, daemon=True)
+    th.start()
+    th.join(seconds)
+    check(not th.is_alive(), f"{what}: not done after {seconds} s")
+    if "err" in box:
+        raise box["err"]
+    return box["out"]
+
+
+def quickstart_runs(torch, totals):
+    """``quickstart.main`` on every backend of ``backend_names()``: no torn
+    read (the driver asserts it), all five audits committed on every
+    backend, each backend's kernels launched."""
+    from repro_torch.api import backend_names
+    from repro_torch.examples import quickstart as Q
+
+    rows = []
+    for b in backend_names():
+        argv = ["--backend", b]
+        out, got, secs, _ = _driver(
+            torch, lambda: _bounded(lambda: Q.main(argv), QUICKSTART_SECONDS,
+                                    f"quickstart {b}"), totals)
+        st = out["stats"]
+        row = {"driver": "quickstart", "backend": b, "seconds": secs,
+               "audits": len(out["totals"]), "mode": st["mode"],
+               "commits": st["commits"], "aborts": st["aborts"],
+               "versioned_commits": st["versioned_commits"],
+               "launches": _nonzero(got)}
+        emit(row)
+        rows.append(row)
+        check(out["totals"] == [Q.N_ACCOUNTS * Q.INITIAL] * 5,
+              f"quickstart {b}: audits {out['totals']}")
+        for k in quickstart_kernels(b):
+            check(got[k] > 0, f"quickstart {b} launched no {k}")
+    return rows
+
+
+def bakeoff_run(torch, totals):
+    """``bakeoff.main(["--quick"])``, the reference's CI mode: every
+    assertion of the reference holds as written (the driver raises
+    otherwise); the rows and each claim's factor beside its bar are
+    printed."""
+    from repro_torch.examples import bakeoff
+
+    out, got, secs, _ = _driver(
+        torch, lambda: bakeoff.main(["--quick"]), totals)
+    factors = {}
+    for table, (key, size, bar, strict) in BAKEOFF_BARS.items():
+        row = next(r for r in out[table] if r[key] >= size)
+        factors[table] = {key: row[key], "speedup": row["speedup"],
+                          "bar": bar, "strict": strict}
+    emit({"driver": "bakeoff", "quick": True, "seconds": secs, **out,
+          "factors": factors, "launches": _nonzero(got)})
+    for k in ("validate", "gather_bracketed", "scatter_write",
+              "commit_fused"):
+        check(got[k] > 0, f"bakeoff launched no {k}")
+    return factors
+
+
+def serve_snapshots_run(torch, totals):
+    """``serve_snapshots.main(["--steps", "30", "--requests", "6"])``:
+    every request completes with its tokens, its served clocks never
+    decrease and lie within the trainer's clocks, and the server's reads
+    ran ``snapshot_select`` and its prefills ``flash_attention``; the
+    snapshot aborts are recorded."""
+    from repro_torch.examples import serve_snapshots as S
+
+    out, got, secs, _ = _driver(
+        torch, lambda: S.main(["--steps", "30", "--requests", "6"]), totals)
+    reqs, clocks = out["requests"], out["clocks"]
+    row = {"driver": "serve_snapshots", "steps": 30, "seconds": secs,
+           "trainer_clocks": [clocks[0], clocks[-1]],
+           "served_clocks": {r.rid: r.served_clocks for r in reqs},
+           "completed": sum(r.outcome is S.Outcome.COMPLETED for r in reqs),
+           "aborts": out["aborts"], "loss": out["loss"],
+           "launches": _nonzero(got)}
+    emit(row)
+    for r in reqs:
+        check(r.outcome is S.Outcome.COMPLETED and
+              len(r.tokens) == r.max_new,
+              f"serve_snapshots: request {r.rid} {r.outcome.value} with "
+              f"{len(r.tokens)} tokens")
+        sc = r.served_clocks
+        check(sc == sorted(sc) and clocks[0] <= sc[0] and
+              sc[-1] <= clocks[-1],
+              f"serve_snapshots: request {r.rid} served at {sc}, the "
+              f"trainer at {clocks[0]}..{clocks[-1]}")
+    check(np.isfinite(out["loss"]), "serve_snapshots: loss not finite")
+    for k in ("snapshot_select", "flash_attention"):
+        check(got[k] > 0, f"serve_snapshots launched no {k}")
+    return row
+
+
+def train_lm_runs(torch, totals):
+    """``train_lm.main``: qwen2.5-3b at full width through ``--full``
+    (3,397,627,904 parameters, Mode Q, 8 x 64 tokens a step,
+    ``TRAIN_LM_FULL_STEPS`` steps under ``TrainSupervisor``): finite
+    losses, the "done on cuda" line, no checkpoint, and at least
+    2 x 36 ``flash_attention`` launches a step (forward and recompute);
+    then the docstring's drill, mamba2-780m at the smoke config with a
+    failure injected at step 30 of 50: one restart, the steps replayed
+    from the step-20 checkpoint give the first pass's losses bit for bit,
+    and ``ssd_scan`` ran."""
+    from repro_torch.configs import get_config
+    from repro_torch.examples import train_lm
+
+    def call(argv):
+        def fn():
+            try:
+                train_lm.main(argv)
+            except SystemExit as e:
+                return e.code
+            raise Failed(f"train_lm {argv} returned without SystemExit")
+        return fn
+
+    rows = []
+    free_card(torch)
+    torch.cuda.reset_peak_memory_stats()
+    layers = get_config(ARCH).n_layers
+    with _train_lm_watch("train_lm_full") as sups:
+        code, got, secs, text = _driver(torch, call(
+            ["--full", "--arch", ARCH, "--steps",
+             str(TRAIN_LM_FULL_STEPS)]), totals)
+    sup, = sups
+    losses = [loss for _, loss in sup.losses]
+    row = {"driver": "train_lm", "argv": "--full", "arch": ARCH,
+           "steps": TRAIN_LM_FULL_STEPS, "seconds": secs, "exit": code,
+           "restarts": sup.restarts, "losses": losses,
+           "checkpoints": [e for e in sup.events if e[0] == "checkpoint"],
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "launches": _nonzero(got)}
+    emit(row)
+    rows.append(row)
+    check(code == 0 and "done on cuda" in text,
+          f"train_lm --full: exit {code}")
+    check(len(losses) == TRAIN_LM_FULL_STEPS and sup.restarts == 0 and
+          all(np.isfinite(losses)), f"train_lm --full: losses {losses}")
+    check(not row["checkpoints"], "train_lm --full wrote a checkpoint")
+    check(got["flash_attention"] >= 2 * layers * TRAIN_LM_FULL_STEPS,
+          f"train_lm --full: {got['flash_attention']} flash_attention "
+          f"launches in {TRAIN_LM_FULL_STEPS} steps of {layers} layers")
+    free_card(torch)
+
+    with _train_lm_watch("train_lm_drill") as sups:
+        code, got, secs, text = _driver(torch, call(
+            ["--arch", MAMBA, "--steps", "50", "--inject-failure-at", "30"]),
+            totals)
+    sup, = sups
+    restored = [e[1] for e in sup.events if e[0] == "restored"]
+    cut = next((i for i in range(1, len(sup.losses))
+                if sup.losses[i][0] <= sup.losses[i - 1][0]),
+               len(sup.losses))
+    first = dict(sup.losses[:cut])
+    replay = dict(sup.losses[cut:])
+    again = sorted(set(first) & set(replay))
+    row = {"driver": "train_lm", "argv": "--inject-failure-at 30",
+           "arch": MAMBA, "steps": 50, "seconds": secs, "exit": code,
+           "restarts": sup.restarts, "restored_at": restored,
+           "replayed_steps": [again[0], again[-1]] if again else [],
+           "replayed_losses_equal": all(first[s] == replay[s]
+                                        for s in again),
+           "launches": _nonzero(got)}
+    emit(row)
+    rows.append(row)
+    check(code == 0 and "done on cuda: 50 steps, restarts=1" in text,
+          f"train_lm drill: exit {code}")
+    check(sup.restarts == 1 and restored == [20] and
+          again == list(range(21, 31)),
+          f"train_lm drill: restarts {sup.restarts}, restored at "
+          f"{restored}, replayed {again}")
+    check(row["replayed_losses_equal"],
+          f"train_lm drill: replayed losses "
+          f"{[replay[s] for s in again]} differ from the first pass's "
+          f"{[first[s] for s in again]}")
+    check(got["ssd_scan"] > 0, "train_lm drill launched no ssd_scan")
+    return rows
+
+
+def drivers_phase(torch):
+    """Phase 12: the four drivers of ``repro_torch.examples`` through
+    their ``main``, each with its launch counts (set to 0 just before,
+    read just after); returns the launch totals."""
+    t0 = time.perf_counter()
+    totals = defaultdict(int)
+    quickstart_runs(torch, totals)
+    bakeoff_run(torch, totals)
+    free_card(torch)
+    serve_snapshots_run(torch, totals)
+    train_lm_runs(torch, totals)
+    free_card(torch)
+    emit({"drivers_phase_seconds": time.perf_counter() - t0})
+    return totals
+
+
+# ---------------------------------------------------------------------------
 # phase 11: the sharding layer — the sharded step on the card (a), and the
 # fake-rank dry run against the card (b) and on the production pod (c)
 # ---------------------------------------------------------------------------
@@ -6834,11 +7189,11 @@ def sharding_phase(torch, dev, dryruns, trainer_row):
 def main_path(torch):
     from repro_torch import kernels as K
 
-    # 2 s windows after 0.5 s of warm-up (3 s before the serving phase
-    # and the Mamba trainer joined the run, 6 s after 1 s before the eval
-    # and structure phase did; the eval drives the same traffic on every
-    # backend again)
-    win = dict(duration_s=2.0, warmup_s=0.5)
+    # 1 s windows after 0.25 s of warm-up (2 s after 0.5 s before the
+    # drivers phase joined the run, 3 s before the serving phase and the
+    # Mamba trainer did, 6 s after 1 s before the eval and structure phase
+    # did; the eval drives the same traffic on every backend again)
+    win = dict(duration_s=1.0, warmup_s=0.25)
     trials = [
         lambda: longread_trial(torch, "longread_scan4096", 4096, 12, **win),
         # one scan of 1M words under two updaters took 25-76 s on the
@@ -7033,7 +7388,8 @@ def main() -> int:
                         ("phase9b_seamless",
                          lambda torch: seamless_phase(torch, dev)),
                         ("phase9c_family_trainers",
-                         lambda torch: family_training_phase(torch, dev))):
+                         lambda torch: family_training_phase(torch, dev)),
+                        ("phase12_drivers", drivers_phase)):
         for k, v in phase(torch).items():
             launches[k] += v
         lap(name)

@@ -50,6 +50,7 @@ from repro_torch.core.engine import AbortTx, resolve_device
 from repro_torch.core.engine.bulkread import as_addr_array, gather_row
 from repro_torch.core.engine.commit import as_value_list
 from repro_torch.core.stats_schema import RECOVERY_STAT_KEYS, base_stats
+from repro_torch.kernels._lib import read_word
 from repro_torch.reliability import faultpoints as FP
 
 __all__ = ["MVStoreHandle"]
@@ -204,13 +205,14 @@ class MVStoreHandle(SubstrateBase):
         if addr in ctx.write_buf:
             return ctx.write_buf[addr]
         if ctx.versioned and ctx.read_only:
-            return self._versioned_read(ctx, lambda row: row[addr].item())
+            return self._versioned_read(ctx,
+                                        lambda row: read_word(row, addr))
         # unversioned (Mode-Q reader / writer encounter read): validate
         # that no commit has advanced the clock past our begin snapshot
         clock, live, _, _ = self._snap
         if clock > ctx.read_clock:
             self._abort_ctx(ctx)
-        return live[addr].item()
+        return read_word(live, addr)
 
     def read_bulk(self, ctx: _MVCtx, addrs) -> Any:
         """`Txn.read_bulk` at the store level: one gather per batch — of
@@ -399,7 +401,7 @@ class MVStoreHandle(SubstrateBase):
         return base
 
     def peek(self, addr: int) -> Any:
-        return self._snap[1][addr].item()
+        return read_word(self._snap[1], addr)
 
     # -- Layer-B extras ----------------------------------------------------
     def snapshot(self, read_clock: Optional[int] = None):

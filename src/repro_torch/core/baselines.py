@@ -24,6 +24,7 @@ behavior Multiverse's versioned path removes (paper Figs. 1/6/7).
 from __future__ import annotations
 
 import threading
+import time
 from typing import Any
 
 import torch
@@ -285,17 +286,27 @@ class NOrecPolicy(PolicyBase):
     def __init__(self):
         self.seq = AtomicInt(0)
 
+    # While a writer holds the seqlock (odd), a waiting thread yields the
+    # interpreter lock: the writer's write-back on a tensor heap releases
+    # it at every device operation, and a spin that kept it would hold it
+    # for a whole switch interval before the writer could go on.  The
+    # writer yields it too once it has released the seqlock (``_release``):
+    # a scalar read keeps the lock (``ArrayHeap``), so a writer that went
+    # straight on to its next transaction would take the seqlock again
+    # before any waiter ran, and the waiters would only ever see it odd.
     def on_begin(self, eng, d) -> None:
         while True:
             s = self.seq.load()
             if s % 2 == 0:
                 d.r_clock = s
                 break
+            time.sleep(0)
 
     def _validate_values(self, eng, d) -> int:
         while True:
             s = self.seq.load()
             if s % 2 == 1:
+                time.sleep(0)
                 continue
             if not V.validate_values(eng.heap, d.read_vals):
                 eng.abort_txn(d)
@@ -363,10 +374,14 @@ class NOrecPolicy(PolicyBase):
                 break
             d.r_clock = self._validate_values(eng, d)
         if not V.validate_values(eng.heap, d.read_vals):
-            self.seq.store(s + 2)
+            self._release(s)
             eng.abort_txn(d)
         C.write_back(eng, d)
+        self._release(s)
+
+    def _release(self, s: int) -> None:
         self.seq.store(s + 2)
+        time.sleep(0)
 
     def validate(self, eng, d) -> bool:
         return V.validate_values(eng.heap, d.read_vals)

@@ -32,12 +32,18 @@ threads issued them: a write enqueued while a stripe is held is ordered
 before any read enqueued after the stripe is released, which is the
 linearization the host-memory reference got from the interpreter lock.
 Scalar reads (``read``, ``__getitem__``) copy one word back and wait for
-it; scalar writes enqueue one element write before the stripe (or the
-heap lock) is released.
+it, keeping the interpreter lock (``_lib.read_word``), so no other STM
+thread runs during a scalar read, as none does during a read of the
+host heap; a lock word read back locked or flagged yields the lock
+(``time.sleep(0)``) to its holder, whom the reader would otherwise keep
+waiting.  Scalar
+writes enqueue one element write before the stripe (or the heap lock) is
+released.
 """
 from __future__ import annotations
 
 import threading
+import time
 from typing import Any, List, Optional, Tuple
 
 import numpy as np
@@ -47,7 +53,7 @@ from repro_torch.core.clock import Striped
 from repro_torch.core.locks import _GOLDEN, LockState, LockTable
 from repro_torch.kernels import gather_read as GR
 from repro_torch.kernels import scatter_write as SW
-from repro_torch.kernels._lib import check_addr_bounds, host_index
+from repro_torch.kernels._lib import check_addr_bounds, host_index, read_word
 
 __all__ = ["ArrayHeap", "ArrayLockTable", "ObjectHeap", "check_addr_bounds",
            "pack_lock", "resolve_device", "unpack_lock"]
@@ -175,7 +181,7 @@ class ArrayHeap:
         # buffer, same contract as the bulk paths
         if addr < 0 or addr >= self._len:
             raise IndexError(addr)
-        return int(self._buf[addr])
+        return read_word(self._buf, addr)
 
     def __setitem__(self, addr: int, value: Any) -> None:
         if addr < 0 or addr >= self._len:
@@ -202,6 +208,14 @@ class ArrayHeap:
         a = host_index(addrs)
         with self._lock:
             return GR.gather_read(self._live, a)
+
+    def gather_home(self, addrs) -> np.ndarray:
+        """``gather`` with the words copied home in the same call, which
+        keeps the interpreter lock (``GR.gather_read_home``): a host int64
+        array.  Under the heap lock like ``gather``."""
+        a = host_index(addrs)
+        with self._lock:
+            return GR.gather_read_home(self._live, a)
 
     def gather_bracketed(self, words: torch.Tensor, idxs, addrs, **kw):
         """A bulk read's bracketed gather, ``out`` [4, N]:
@@ -253,10 +267,13 @@ class ArrayLockTable(LockTable):
 
     # -- storage ops -------------------------------------------------------
     def _word(self, idx: int) -> int:
-        return int(self._words[idx])
+        return read_word(self._words, idx)
 
     def read(self, idx: int) -> LockState:
-        return unpack_lock(self._word(idx))
+        w = self._word(idx)
+        if w & 3:
+            time.sleep(0)          # held: let its holder go on
+        return unpack_lock(w)
 
     def read_wait_unflagged(self, idx: int) -> LockState:
         # one device read per spin
@@ -264,6 +281,7 @@ class ArrayLockTable(LockTable):
             w = self._word(idx)
             if not (w & 1):
                 return unpack_lock(w)
+            time.sleep(0)
 
     def cas(self, idx: int, expect: LockState, new: LockState) -> bool:
         with self._stripes.for_index(idx):

@@ -19,9 +19,12 @@ kernel's plain PyTorch version (the gather, the field split and
 ``validate_plain``).
 
 NOrec validates VALUES, not versions: ``validate_values`` re-reads each
-``(addr, value)`` pair against the heap — in one heap gather once the
-value log reaches ``BULK_MIN`` entries (on the card a per-word read is
-one blocking copy each).
+``(addr, value)`` pair against the heap — on a tensor heap (an
+``ArrayHeap``, whose per-word read is one blocking copy each) in one
+``gather_home`` whatever the log's length: one call that gathers and
+copies home without letting another thread in, so that the seqlock it
+is checked against has not moved by the time it returns; on the host
+heap in one gather once the value log reaches ``BULK_MIN`` entries.
 """
 from __future__ import annotations
 
@@ -29,7 +32,6 @@ from itertools import chain
 from typing import List, Optional
 
 import numpy as np
-import torch
 
 from repro_torch.kernels import validate as VK
 from repro_torch.kernels.validate import V_EQ, V_LE, V_LT  # noqa: F401
@@ -83,15 +85,17 @@ def revalidate(locks, read_set: List[tuple], r_clock: int, tid: int,
 
 def validate_values(heap, read_vals: List[tuple]) -> bool:
     """NOrec value validation: every read value must still be in place."""
+    home = getattr(heap, "gather_home", None)
     gather = getattr(heap, "gather", None)
-    if gather is not None and len(read_vals) >= BULK_MIN:
-        addrs = np.fromiter((p[0] for p in read_vals), np.int64,
-                            len(read_vals))
-        got = gather(addrs)
-        if isinstance(got, torch.Tensor):
-            got = got.tolist()
-        return all(g == p[1] for g, p in zip(got, read_vals))
-    for addr, val in read_vals:
-        if heap[addr] != val:
-            return False
-    return True
+    if home is not None and len(read_vals) >= 2:
+        got = home(np.fromiter((p[0] for p in read_vals), np.int64,
+                               len(read_vals))).tolist()
+    elif gather is not None and len(read_vals) >= BULK_MIN:
+        got = gather(np.fromiter((p[0] for p in read_vals), np.int64,
+                                 len(read_vals)))
+    else:
+        for addr, val in read_vals:
+            if heap[addr] != val:
+                return False
+        return True
+    return all(g == p[1] for g, p in zip(got, read_vals))

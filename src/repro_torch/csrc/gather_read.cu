@@ -116,6 +116,30 @@ extern "C" int gather_read_i32(const void* row, long long row_len,
   return gather_read<int32_t>(row, row_len, idx, n, out, stream);
 }
 
+// gather_read_home_i64: the int64 gather with its indices from the host
+// and its words copied home, in one call: the indices copied into the
+// device scratch (16 bytes an element: indices, then words), one launch
+// of gather_read_kernel, the words copied to host_out and waited for.
+// The library is a PyDLL, so the caller keeps the interpreter lock
+// through the whole call (kernels/gather_read.py, gather_read_home), and
+// no two calls share the scratch at once
+extern "C" int gather_read_home_i64(const void* row, long long row_len,
+                                    const void* host_idx, long long n,
+                                    void* scratch, void* host_out,
+                                    void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int64_t* idx = static_cast<int64_t*>(scratch);
+  int64_t* out = idx + n;
+  cudaError_t err = cudaMemcpyAsync(idx, host_idx, 8 * n,
+                                    cudaMemcpyHostToDevice, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int launched = gather_read<int64_t>(row, row_len, idx, n, out, s);
+  if (launched) return launched;
+  err = cudaMemcpyAsync(host_out, out, 8 * n, cudaMemcpyDeviceToHost, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaStreamSynchronize(s));
+}
+
 // idx: both index sets on the card ([2, N] int64), or null with
 // host_idx: both on the host as int32 ([2, 256], N <= 256)
 extern "C" int gather_bracketed_i64(const void* words, long long words_len,

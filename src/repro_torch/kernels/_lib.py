@@ -67,6 +67,7 @@ _D = ctypes.c_double
 SIGNATURES = {
     "gather_read_i64": (_P, _I, _P, _I, _P, _P),
     "gather_read_i32": (_P, _I, _P, _I, _P, _P),
+    "gather_read_home_i64": (_P, _I, _P, _I, _P, _P, _P),
     "scatter_write_i64": (_P, _I, _P, _P, _I, _P),
     "validate_readset_i64": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
     "validate_words_i64": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
@@ -79,6 +80,7 @@ SIGNATURES = {
     "commit_fused_i64": (_P, _P),
     "commit_rows_i64": (_P, _P),
     "stage_copy": (_P, _P, _I, _P, _P),
+    "read_word": (_P, _P, _I, _P, _P),
     "snapshot_select_rows": (_P, _I, _I, _P, _I, _P, _P, _P),
     "flash_attention_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _D,
                             _I, _P),
@@ -512,6 +514,39 @@ def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
         finally:
             pool.release(st)
     return out
+
+
+#: the host word ``read_word`` copies an element of each dtype into
+_WORDS = {torch.int64: ctypes.c_int64, torch.int32: ctypes.c_int32}
+#: each card's pinned word that ``read_word`` copies through, by index
+_READ_STAGING: dict = {}
+
+
+def read_word(row: torch.Tensor, idx: int) -> int:
+    """``int(row[idx])`` of a 1-D int64 or int32 ``row``, in one call that
+    keeps the interpreter lock: on the card one element copied home on
+    the default stream through a pinned word and waited for
+    (``read_word``), on the CPU read through a numpy view.  A torch read
+    hands the lock off twice (the index and the copy each release it),
+    and the STM's threads take it in between: an unversioned TM's scalar
+    audit of a few hundred words then starves behind the writers it let
+    in.  ``idx`` must lie in ``[0, len(row))``: both ends raise, as
+    ``check_addr_bounds``."""
+    if idx < 0 or idx >= row.shape[0]:
+        raise IndexError(idx)
+    if row.device.type == "cpu":
+        return int(row.numpy()[idx])
+    staging = _READ_STAGING.get(row.device.index)
+    if staging is None:
+        staging = _READ_STAGING.setdefault(
+            row.device.index, torch.empty(8, dtype=torch.uint8,
+                                          pin_memory=True))
+    out = _WORDS[row.dtype]()
+    size = row.element_size()
+    launch("read_word", row.device,
+           row.data_ptr() + idx * row.stride(0) * size,
+           ctypes.addressof(out), size, staging.data_ptr())
+    return out.value
 
 
 def to_host(tensors) -> list:

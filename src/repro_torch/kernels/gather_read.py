@@ -114,6 +114,41 @@ def gather_read(row: torch.Tensor, addrs,
     return gather_read_dev(row, dev_idx, out)
 
 
+#: each card's scratch for ``gather_read_home`` (uint8), by device index
+_HOME_SCRATCH: dict = {}
+
+
+@_lib.counted("gather_read", _gather_work)
+def gather_read_home(row: torch.Tensor, addrs) -> np.ndarray:
+    """``row[addrs]`` of an int64 row as a host int64 array, in one call
+    that keeps the interpreter lock: on the card the indices copied over,
+    one ``gather_read`` launch and the words copied home and waited for,
+    all inside ``gather_read_home_i64``; on the CPU a numpy gather.  A
+    torch gather and its copy home hand the lock to the STM's other
+    threads at each operation, and a validation that lets writers in is
+    stale by the time it returns (NOrec's value validation,
+    ``core/engine/validation.py``).  Bounds as ``gather_read``."""
+    _lib.check_row(row)
+    a = np.ascontiguousarray(_lib.host_index(addrs))
+    _lib.check_addr_bounds(a, row.numel())
+    if _lib.device_kind(row) == "cpu":
+        return row.numpy()[a]
+    out = np.empty(a.size, np.int64)
+    if a.size:
+        # calls hold the interpreter lock from here to their last copy, so
+        # none overlaps another's use of the scratch
+        scratch = _HOME_SCRATCH.get(row.device.index)
+        if scratch is None or scratch.numel() < 16 * a.size:
+            scratch = torch.empty(max(16 * a.size, 1 << 16),
+                                  dtype=torch.uint8, device=row.device)
+            _HOME_SCRATCH[row.device.index] = scratch
+        _lib.launch("gather_read_home_i64", row.device, row.data_ptr(),
+                    row.numel(), a.ctypes.data, a.size, scratch.data_ptr(),
+                    out.ctypes.data)
+        launches.add()
+    return out
+
+
 #: up to this many elements a bracketed gather's indices ride in the
 #: launch's parameters (kParamIdx in csrc/gather_read.cu)
 PARAM_IDX = 256
@@ -189,4 +224,5 @@ def gather_bracketed(words: torch.Tensor, heap: torch.Tensor, idxs,
 
 
 __all__ = ["bracketed_launches", "gather_bracketed", "gather_lockver_plain",
-           "gather_plain", "gather_read", "gather_read_dev", "launches"]
+           "gather_plain", "gather_read", "gather_read_dev",
+           "gather_read_home", "launches"]

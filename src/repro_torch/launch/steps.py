@@ -65,6 +65,11 @@ def make_train_step(cfg: ModelConfig, pcfg: ParallelConfig,
       - ``adamw.apply`` then ``mvstore.mv_commit`` (the store enabled);
       - ``adamw.apply`` and the new live tree at clock + 1, every block
         stamped (no MVStore).
+    On every branch the moments are updated in place and the parameters
+    published out of place (``adamw.apply`` does so, as the fused kernel
+    does): torch donates nothing, and a step that kept the old moments
+    beside the new could not fit qwen2.5-3b's Mode-Q step on one card
+    while its caller holds the old state.
     ``metrics`` holds the loss (a 0-d tensor) and the new clock.
 
     With ``rules`` and ``mesh`` the step is sharded (module docstring):

@@ -21,7 +21,8 @@ from repro_torch.launch.sharding import (is_dtensor, local_call, torch_dtype,
 from repro_torch.models.model_zoo import params_from_numpy
 
 #: elements squared at a time by ``global_norm`` (a 256 MB f32 temporary;
-#: one f32 copy of qwen2.5-3b's FFN gradient would be 3.2 GB)
+#: one f32 copy of qwen2.5-3b's FFN gradient would be 3.2 GB), and
+#: updated at a time by ``apply``
 NORM_CHUNK = 1 << 26
 
 
@@ -99,22 +100,47 @@ def step_scalars(grads, count: torch.Tensor, cfg: AdamWConfig):
 
 
 def apply(grads, state: AdamWState, params, cfg: AdamWConfig):
-    """Returns ``(new_params, new_state)``; functional, like the
-    reference (every output is a new tensor)."""
+    """Returns ``(new_params, new_state)``.  The parameters are published
+    out of place (new tensors, as the reference returns them); the moments
+    are updated in place and returned as the same tensors, in their own
+    dtype, the contract of the fused commit (``kernels/fused_adamw``).
+    Torch donates nothing, so a train step that kept the old moments
+    beside the new would hold both while its caller holds the old state
+    (qwen2.5-3b: 2 x 27.2 GB of float32 moments).  A contiguous leaf of
+    more than ``NORM_CHUNK`` elements is updated ``NORM_CHUNK`` elements
+    at a time (elementwise, so the values are the whole leaf's): its f32
+    temporaries stay ~256 MB each, where whole they would be 3.2 GB each
+    for qwen2.5-3b's FFN leaves."""
     count = state.count + 1
     lr, scale, b1c, b2c = step_scalars(grads, count, cfg)
 
-    def upd(g, m, v, p):
+    def upd_(g, m, v, p, decay):
         g = g.float() * scale
         m = cfg.b1 * m + (1 - cfg.b1) * g
         v = cfg.b2 * v + (1 - cfg.b2) * g * g
         mhat = m / b1c
         vhat = v / b2c
         step = mhat / (torch.sqrt(vhat) + cfg.eps)
-        decay = cfg.weight_decay if p.dim() >= 2 else 0.0
         p32 = p.float()
         newp = p32 - lr * (step + decay * p32)
         return newp.to(p.dtype), m, v
+
+    def upd(g, m, v, p):
+        decay = cfg.weight_decay if p.dim() >= 2 else 0.0
+        if (is_dtensor(p) or p.numel() <= NORM_CHUNK
+                or not (m.is_contiguous() and v.is_contiguous())):
+            newp, nm, nv = upd_(g, m, v, p, decay)
+            m.copy_(nm)
+            v.copy_(nv)
+            return newp, m, v
+        newp = torch.empty(p.shape, dtype=p.dtype, device=p.device)
+        ins = [t.reshape(-1) for t in (g, m, v, p)]
+        flat_out = [o.view(-1) for o in (newp, m, v)]
+        for lo in range(0, p.numel(), NORM_CHUNK):
+            sl = slice(lo, lo + NORM_CHUNK)
+            for o, r in zip(flat_out, upd_(*(t[sl] for t in ins), decay)):
+                o[sl].copy_(r)
+        return newp, m, v
 
     outs = tree_map(upd, grads, state.mu, state.nu, params)
     new_p, new_m, new_v = (tree_map(lambda o, i=i: o[i], outs)

@@ -281,3 +281,42 @@ def test_validate_words_checks_its_arguments():
     VK.launches.reset()
     VK.validate_words(port.row, [[3, 0]], 1, 0, 1)
     assert VK.launches.value == 0        # the plain route launches nothing
+
+
+@pytest.mark.parametrize("n", [1, 2, 200, 300])
+def test_value_validation_matches_reference(n, monkeypatch):
+    """NOrec's ``validate_values`` over a value log of ``n`` entries: on
+    a tensor heap one ``gather_home`` whatever ``n`` (``n`` >= 2), on the
+    host heap the scalar loop below ``BULK_MIN``; every verdict the
+    reference's."""
+    rng = np.random.default_rng(n)
+    words = rng.integers(-1000, 1000, 512)
+    gathers = []
+    heaps = {}
+    for kind in ("array", "object"):
+        h = AH.ArrayHeap(device=CPU) if kind == "array" else AH.ObjectHeap()
+        base = h.alloc(512, 0)
+        for i, w in enumerate(words.tolist()):
+            h[base + i] = w
+        name = "gather_home" if kind == "array" else "gather"
+        real = getattr(h, name)
+        monkeypatch.setattr(h, name, lambda a, real=real, kind=kind:
+                            gathers.append(kind) or real(a))
+        heaps[kind] = (h, base)
+    ref = J_AH.ObjectHeap()
+    rbase = ref.alloc(512, 0)
+    for i, w in enumerate(words.tolist()):
+        ref[rbase + i] = w
+    addrs = rng.choice(512, n, replace=False)
+    for bad in (False, True):
+        vals = words[addrs].tolist()
+        if bad:
+            vals[-1] += 1
+        want = JV.validate_values(ref, [(rbase + int(a), v)
+                                        for a, v in zip(addrs, vals)])
+        assert want is (not bad)
+        for kind, (h, base) in heaps.items():
+            log = [(base + int(a), v) for a, v in zip(addrs, vals)]
+            assert TV.validate_values(h, log) is want
+    assert gathers.count("array") == (2 if n >= 2 else 0)
+    assert gathers.count("object") == (2 if n >= TV.BULK_MIN else 0)

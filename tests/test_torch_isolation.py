@@ -19,7 +19,12 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    """The port's modules, ``chip_smoke.py`` and the port's scripts (the
+    A/B harnesses ``scripts/ab_*.py`` and ``scripts/*_torch.py``)."""
+    scripts = ROOT / "scripts"
+    return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted(scripts.glob("ab_*.py"))
+            + sorted(scripts.glob("*_torch.py")))
 
 
 def _imported(tree):
@@ -38,6 +43,17 @@ def test_no_jax_or_reference_imports(path):
     for name in _imported(tree):
         top = name.split(".")[0]
         assert top not in FORBIDDEN, f"{path.name} imports {name}"
+
+
+@pytest.mark.parametrize("path", sorted((ROOT / "scripts").glob("*_torch.sh")),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_shell_scripts_run_the_port(path):
+    """A shell script of the port runs ``repro_torch`` and nothing of the
+    JAX package (no ``examples/`` file, no ``repro`` module)."""
+    text = path.read_text()
+    assert "repro_torch" in text
+    assert "examples/" not in text
+    assert " repro." not in text and "-m repro " not in text
 
 
 def test_every_module_imports_without_jax_or_reference():
@@ -176,3 +192,29 @@ def test_unported_backends_say_so():
     assert [r["backend"] for r in rows] == ["multiverse", "modeq",
                                             "unversioned"]
     assert all(r["violations"] == 0 and r["drained"] for r in rows)
+
+
+#: each driver of the port, as a user starts it without ``--device``
+DRIVERS = {
+    "quickstart": ["-m", "repro_torch.examples.quickstart"],
+    "bakeoff": ["-m", "repro_torch.examples.bakeoff", "--quick"],
+    "serve_snapshots": ["-m", "repro_torch.examples.serve_snapshots",
+                        "--steps", "1", "--requests", "1"],
+    "train_lm": ["-m", "repro_torch.examples.train_lm", "--steps", "1"],
+    "diag_moe_top_torch": [str(ROOT / "scripts" / "diag_moe_top_torch.py")],
+}
+
+
+@pytest.mark.parametrize("name", sorted(DRIVERS))
+def test_the_drivers_default_to_the_card(name, tmp_path):
+    """``python -m repro_torch.examples.<name>`` (and the port's diag
+    script) without ``--device``, in a process that sees no card, raises
+    before it runs anything on the CPU."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="", TMPDIR=str(tmp_path))
+    out = subprocess.run([sys.executable] + DRIVERS[name], env=env,
+                         cwd=tmp_path, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode != 0
+    assert "CUDA is not available" in out.stderr
+    assert "audit 0" not in out.stdout and "done" not in out.stdout

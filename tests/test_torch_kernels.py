@@ -202,6 +202,36 @@ def test_scatter_beyond_int32_matches_twins():
     assert GR.gather_read(row, [0, 3, 5]).tolist() == [BIG, BIG, -BIG]
 
 
+@pytest.mark.parametrize("n", [1, 7, 512])
+def test_gather_home_matches_pallas(n):
+    """``gather_read_home``: the gather with its words brought home, a
+    host int64 array equal to the Pallas kernel's gather."""
+    rng = np.random.default_rng(200 + n)
+    heap = rng.integers(-I32, I32, 2048).astype(np.int32)
+    addrs = rng.integers(0, 2048, n)
+    tile = _tile(n, 512)
+    padded = np.pad(addrs, (0, (-n) % tile))
+    want = np.asarray(J_GR.gather_read_flat(
+        jnp.asarray(heap), jnp.asarray(padded, jnp.int32), tile=tile,
+        interpret=True))[:n]
+    got = GR.gather_read_home(_t(heap), list(addrs))
+    assert isinstance(got, np.ndarray) and got.dtype == np.int64
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.int64, torch.int32])
+def test_read_word_reads_one_element(dtype):
+    """``_lib.read_word`` is ``int(row[idx])`` of a row or a view of one,
+    and refuses an index outside the row at both ends."""
+    row = torch.arange(-5, 11, dtype=dtype) * 3
+    view = row[4:]
+    assert [_lib.read_word(row, i) for i in range(16)] == row.tolist()
+    assert [_lib.read_word(view, i) for i in range(12)] == view.tolist()
+    for bad in (-1, 16):
+        with pytest.raises(IndexError):
+            _lib.read_word(row, bad)
+
+
 @pytest.mark.parametrize("bad", [[-1], [0, -3], [16], [2, 17]])
 def test_out_of_range_addresses_raise_at_both_ends(bad):
     """Negative addresses would wrap and past-the-end ones would read or
@@ -209,6 +239,8 @@ def test_out_of_range_addresses_raise_at_both_ends(bad):
     row = torch.arange(16, dtype=torch.int64)
     with pytest.raises(IndexError):
         GR.gather_read(row, bad)
+    with pytest.raises(IndexError):
+        GR.gather_read_home(row, bad)
     with pytest.raises(IndexError):
         SW.scatter_write(row, bad, [9] * len(bad))
     assert row.tolist() == list(range(16))
@@ -222,6 +254,7 @@ def test_plain_route_counts_no_launch_and_refuses_other_devices():
     row = torch.arange(8, dtype=torch.int64)
     GR.gather_read(row, [1, 2])
     GR.gather_read(row.to(torch.int32), [1, 2])
+    GR.gather_read_home(row, [1, 2])
     SW.scatter_write(row, [1], [5])
     VK.validate_readset(row[:2], torch.zeros(2, dtype=torch.int32),
                         torch.zeros(2, dtype=torch.int32), [0, 1], 9, 0, 0)

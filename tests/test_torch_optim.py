@@ -102,7 +102,10 @@ def test_apply_matches_reference(dtype, count):
     tv = SH.tree_map(torch.abs, tv)
     cfg = dict(lr=3e-3, warmup_steps=3, total_steps=50)
     jstate = J_ADAMW.AdamWState(jm, jv, jnp.int32(count))
-    tstate = ADAMW.AdamWState(tm, tv, torch.tensor(count, dtype=torch.int32))
+    tstate = ADAMW.AdamWState(SH.tree_map(torch.clone, tm),
+                              SH.tree_map(torch.clone, tv),
+                              torch.tensor(count, dtype=torch.int32))
+    params_in = SH.tree_map(torch.clone, tp)
     jnew, jopt = J_ADAMW.apply(jg, jstate, jp, J_ADAMW.AdamWConfig(**cfg))
     tnew, topt = ADAMW.apply(tg, tstate, tp, ADAMW.AdamWConfig(**cfg))
     assert int(topt.count) == int(jopt.count) == count + 1
@@ -113,9 +116,67 @@ def test_apply_matches_reference(dtype, count):
         for got, want in zip(SH.tree_leaves(tree_t),
                              jax.tree.leaves(tree_j)):
             _close(got, want, 1e-5)
-    # functional: the inputs are untouched
-    for got, want in zip(SH.tree_leaves(tm), jax.tree.leaves(jm)):
-        np.testing.assert_array_equal(_np(got), _np(want))
+    # the moments are updated in place and returned as the same tensors;
+    # the parameters are published out of place, their inputs untouched
+    for new_t, old_t in ((topt.mu, tstate.mu), (topt.nu, tstate.nu)):
+        assert all(a is b for a, b in zip(SH.tree_leaves(new_t),
+                                          SH.tree_leaves(old_t)))
+    for got, want in zip(SH.tree_leaves(tp), SH.tree_leaves(params_in)):
+        assert torch.equal(got, want)
+    assert not any(a is b for a, b in zip(SH.tree_leaves(tnew),
+                                          SH.tree_leaves(tp)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_apply_by_chunks_matches_whole_leaves_and_reference(dtype,
+                                                            monkeypatch):
+    """A leaf above ``NORM_CHUNK`` elements is updated a chunk at a time
+    (its chunks aligned as ``NORM_CHUNK``'s power of two aligns them): the
+    same values bit for bit as the whole leaf, written into the state's
+    own moments, within the reference's tolerance."""
+    rng = np.random.default_rng(6)
+    shapes = {"w": (5, 1000), "norm": (1000,)}
+
+    def tree(dt, scale=1.0):
+        pairs = {k: _both(rng.standard_normal(v) * scale, dt)
+                 for k, v in shapes.items()}
+        return ({k: p[0] for k, p in pairs.items()},
+                {k: p[1] for k, p in pairs.items()})
+
+    jp, tp = tree(dtype)
+    jg, tg = tree("float32")
+    jm, tm = tree("float32", 0.1)
+    jv, tv = tree("float32", 0.1)
+    jv = jax.tree.map(jnp.abs, jv)
+    tv = SH.tree_map(torch.abs, tv)
+    cfg = dict(lr=3e-3, warmup_steps=3, total_steps=50)
+
+    def state():
+        return ADAMW.AdamWState(SH.tree_map(torch.clone, tm),
+                                SH.tree_map(torch.clone, tv),
+                                torch.tensor(2, dtype=torch.int32))
+
+    def leaves(out):
+        return [t for tree_ in (out[0], out[1].mu, out[1].nu)
+                for t in SH.tree_leaves(tree_)]
+
+    whole = ADAMW.apply(tg, state(), tp, ADAMW.AdamWConfig(**cfg))
+    monkeypatch.setattr(ADAMW, "NORM_CHUNK", 1 << 10)
+    st = state()
+    moments = [id(t) for t in SH.tree_leaves(st.mu) + SH.tree_leaves(st.nu)]
+    chunked = ADAMW.apply(tg, st, tp, ADAMW.AdamWConfig(**cfg))
+    assert [id(t) for t in SH.tree_leaves(chunked[1].mu)
+            + SH.tree_leaves(chunked[1].nu)] == moments
+    for got, want in zip(leaves(chunked), leaves(whole)):
+        assert got.dtype == want.dtype and torch.equal(got, want)
+    jstate = J_ADAMW.AdamWState(jm, jv, jnp.int32(2))
+    jnew, jopt = J_ADAMW.apply(jg, jstate, jp, J_ADAMW.AdamWConfig(**cfg))
+    for got, want in zip(SH.tree_leaves(chunked[0]), jax.tree.leaves(jnew)):
+        _close(got, want, TOL[dtype])
+    for got, want in zip(SH.tree_leaves(chunked[1].mu)
+                         + SH.tree_leaves(chunked[1].nu),
+                         jax.tree.leaves(jopt.mu) + jax.tree.leaves(jopt.nu)):
+        _close(got, want, 1e-5)
 
 
 def _adamw_inputs(shape, dtype, with_ring, seed=5, g_dtype="float32"):
