@@ -61,6 +61,7 @@ from repro_torch.kernels import commit_fused as CF
 from repro_torch.kernels import snapshot_select as SS
 from repro_torch.launch.sharding import is_dtensor, local_call, local_range
 from repro_torch.reliability import faultpoints as FP
+from repro_torch.runtime import spans
 
 NO_TS = -1          # empty ring slot
 
@@ -182,6 +183,7 @@ def _check_versioned(local_mode: str, paths, ring) -> None:
                 f"{missing[:3]}... — controller must version first")
 
 
+@spans.spanned("mvstore.commit")
 def mv_commit(state: MVStoreState, new_params, *, local_mode: str,
               cfg: MVStoreConfig) -> MVStoreState:
     """Publish a whole-store step.  Rings rotate: the new value lands in
@@ -289,6 +291,7 @@ def _select_version(buf, ts, read_clock):
                       [tuple(buf.shape[1:]), ()])
 
 
+@spans.spanned("mvstore.resolve")
 def mv_snapshot(state: MVStoreState, read_clock, *,
                 assume_versioned: bool = False,
                 impl: str = "xla") -> Tuple[Any, torch.Tensor]:

@@ -54,6 +54,7 @@ from repro_torch.core.stats_schema import normalize_stats
 from repro_torch.launch import steps as steps_mod
 from repro_torch.launch.sharding import tree_map
 from repro_torch.models import model_zoo as zoo
+from repro_torch.runtime import spans
 from repro_torch.serve.metrics import ServeMetrics
 from repro_torch.serve.queue import Outcome, Request, RequestQueue
 from repro_torch.serve.scheduler import ContinuousBatchingScheduler, \
@@ -110,6 +111,8 @@ class ModelSlotExecutor:
                                      device=device)
         self.tokens = torch.zeros((n_slots,), dtype=torch.int32,
                                   device=device)
+        #: each slot's request id, for the decode span's ``rids``
+        self.rids = [-1] * n_slots
 
     def current_clock(self) -> int:
         return int(self.state_fn().clock)
@@ -143,34 +146,44 @@ class ModelSlotExecutor:
 
     # -- SlotExecutor ----------------------------------------------------
     def prefill(self, slot: int, req: Request, clock: int) -> StepResult:
-        state = self.state_fn()
-        if self.reader is not None:
-            self.reader.begin(int(clock))
-        tokens = torch.as_tensor(np.asarray(req.payload, np.int32),
-                                 device=self.device)[None]
-        logits, cache1, len1, ok = self._prefill1(
-            state, {"tokens": tokens}, clock)
-        if not bool(ok):
-            return StepResult(False, clock)
-        self._insert(cache1, slot)
-        self.cache_len[slot] = len1[0]
-        tok = torch.argmax(logits[0]).to(torch.int32)
-        self.tokens[slot] = tok
-        return StepResult(True, int(clock), token=int(tok))
+        with spans.span("serve.prefill", rid=req.rid):
+            state = self.state_fn()
+            if self.reader is not None:
+                self.reader.begin(int(clock))
+            tokens = torch.as_tensor(np.asarray(req.payload, np.int32),
+                                     device=self.device)[None]
+            logits, cache1, len1, ok = self._prefill1(
+                state, {"tokens": tokens}, clock)
+            with spans.span("serve.readback"):
+                okb = bool(ok)
+            if not okb:
+                return StepResult(False, clock)
+            self._insert(cache1, slot)
+            self.cache_len[slot] = len1[0]
+            self.rids[slot] = req.rid
+            tok = torch.argmax(logits[0]).to(torch.int32)
+            self.tokens[slot] = tok
+            with spans.span("serve.readback"):
+                token = int(tok)
+            return StepResult(True, int(clock), token=token)
 
     def decode(self, slots: Sequence[int], clocks: Sequence[int]
                ) -> List[StepResult]:
         # one parameter resolution per batched step, at the oldest
         # active pin (see module docstring for the staleness contract)
-        rc = min(clocks)
-        state = self.state_fn()
-        logits, self.cache, self.cache_len, ok = self._decode(
-            state, self.cache, self.cache_len, self.tokens, rc)
-        self.tokens = torch.argmax(logits, dim=-1).to(torch.int32)
-        host = torch.cat([ok.reshape(1).to(torch.int32),
-                          self.tokens]).cpu().numpy()
-        okb = bool(host[0])
-        return [StepResult(okb, rc, token=int(host[1 + i])) for i in slots]
+        with spans.span("serve.decode",
+                        rids=[self.rids[i] for i in slots]):
+            rc = min(clocks)
+            state = self.state_fn()
+            logits, self.cache, self.cache_len, ok = self._decode(
+                state, self.cache, self.cache_len, self.tokens, rc)
+            self.tokens = torch.argmax(logits, dim=-1).to(torch.int32)
+            row = torch.cat([ok.reshape(1).to(torch.int32), self.tokens])
+            with spans.span("serve.readback"):
+                host = row.cpu().numpy()
+            okb = bool(host[0])
+            return [StepResult(okb, rc, token=int(host[1 + i]))
+                    for i in slots]
 
 
 class Server:

@@ -37,6 +37,7 @@ from repro_torch.launch.sharding import (Rules, TensorSpec, is_dtensor,
                                          torch_dtype, tree_leaves, use_rules)
 from repro_torch.models import model_zoo as zoo
 from repro_torch.optim import adamw
+from repro_torch.runtime import spans
 
 
 class TrainState(NamedTuple):
@@ -91,8 +92,10 @@ def make_train_step(cfg: ModelConfig, pcfg: ParallelConfig,
 
     def loss_and_grads(leaves, paths, params, batch):
         view = mvstore._unflatten(params, dict(zip(paths, leaves)))
-        loss = zoo.loss_fn(view, batch, cfg, pcfg)
-        grads = torch.autograd.grad(loss, leaves)
+        with spans.span("steps.forward"):
+            loss = zoo.loss_fn(view, batch, cfg, pcfg)
+        with spans.span("steps.backward"):
+            grads = torch.autograd.grad(loss, leaves)
         return loss.detach(), [constrain(p, g) for p, g in zip(paths, grads)]
 
     def microbatch(x, M, i):
@@ -150,6 +153,7 @@ def make_train_step(cfg: ModelConfig, pcfg: ParallelConfig,
     return train_step
 
 
+@spans.spanned("mvstore.commit")
 def _fused_commit(mv: MVStoreState, grads, opt: adamw.AdamWState,
                   opt_cfg: adamw.AdamWConfig, mvcfg: MVStoreConfig):
     """AdamW and the versioned ring write of every leaf in one

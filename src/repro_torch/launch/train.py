@@ -36,6 +36,7 @@ from repro_torch.data.pipeline import make_batch_iterator
 from repro_torch.launch import steps as steps_mod
 from repro_torch.models import model_zoo as zoo
 from repro_torch.optim import adamw
+from repro_torch.runtime import spans
 from repro_torch.runtime.fault_tolerance import FaultPlan, TrainSupervisor
 
 
@@ -90,7 +91,8 @@ class Trainer:
         batch = {k: torch.as_tensor(np.asarray(v), device=self.device)
                  for k, v in batch.items()}
         t0 = time.time()
-        state, metrics = fn(state, batch)
+        with spans.span("train.step"):
+            state, metrics = fn(state, batch)
         self.step_times.append(time.time() - t0)
         return state, metrics
 

@@ -26,6 +26,7 @@ from repro_torch.kernels import ssd_scan as SS
 from repro_torch.launch.sharding import (ParamMeta, is_dtensor, local_call,
                                          shard_act, split_heads, torch_dtype)
 from repro_torch.models.common import matmul, rmsnorm, rmsnorm_meta
+from repro_torch.runtime import spans
 
 class SSMDims(NamedTuple):
     d_inner: int
@@ -109,6 +110,7 @@ class SSDScanFn(torch.autograd.Function):
         return y, final
 
     @staticmethod
+    @spans.spanned("ssd.backward")
     def backward(ctx, dy, dfinal):
         saved = ctx.saved_tensors
         need = ctx.needs_input_grad[:6]
