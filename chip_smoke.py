@@ -47,10 +47,16 @@ printed:
      device time; and the attention gradient (``FlashAttentionFn``: the
      kernel forward, the plain backward) against autograd through
      ``naive_attention`` on the card, and the SSD scan's gradient
-     (``SSDScanFn``: the kernel forward, the plain scan's gradient
-     recomputed backward) against autograd through ``ssd_scan_plain`` on
+     (``SSDScanFn``: the kernel forward, ``ssd_scan_bwd`` backward: the
+     backward kernel for bf16, the plain scan's gradient for f32) against
+     autograd through ``ssd_scan_plain`` on
      the card at every ``SSD_CASES`` shape and at mamba2-780m's training
-     shape (its backward's peak memory recorded);
+     shape (its backward's peak memory recorded); and the SSD scan's
+     backward kernel (``ssd_scan_bwd``, five launches in one C call)
+     against the plain backward at every ``SSD_BWD_CASES`` shape within
+     ``SSD_BWD_TOL`` of each gradient's largest element, its launches'
+     scratch against the plain stages, two calls bit for bit, timed at
+     train_U's shape beside the plain backward and its bound;
   3. end to end: the same seeded two-thread schedule through
      ``make_tm(b, array_heap=True)`` for b in multiverse, tl2, dctl,
      norec, tinystm and mvstore, on the card and on the CPU, must leave
@@ -110,7 +116,7 @@ printed:
      the losses must be finite and fall; then the same for mamba2-780m
      for 12 steps (48 layers, 780,222,720 parameters; every layer of
      every step through ``ssd_scan`` by ``SSDScanFn``, forward and
-     recompute); and
+     recompute, and through ``ssd_scan_bwd`` backward); and
      a supervisor drill at the reduced config (a failure injected at step
      3, checkpoints every 2 steps) must finish with the losses of an
      uninterrupted run;
@@ -314,6 +320,10 @@ KERNELS = {
                     "src/repro/kernels/fused_adamw.py:70", "ffn_leaf"),
     "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
                  "src/repro/kernels/ssd_scan.py:77", "mamba_prefill_512"),
+    # the scan's gradient: no TPU kernel (the reference differentiates
+    # its XLA lowering), timed at train_U's shape
+    "ssd_scan_bwd": ("src/repro_torch/csrc/ssd_scan_bwd.cu", "none",
+                     "mamba_train_4x2048"),
 }
 BACKENDS = ("multiverse", "tl2", "dctl", "norec", "tinystm", "mvstore")
 #: the backends whose bulk reads take the lock-version bracket
@@ -332,6 +342,7 @@ DEVICE_KERNELS = {
     "flash_attention": ("flash_attention_kernel",),
     "fused_adamw": ("fused_adamw_kernel",),
     "ssd_scan": ("ssd_scan_kernel",),
+    "ssd_scan_bwd": ("ssd_bwd_",),
 }
 GPU_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 TRACE_DIR = os.path.join(HERE, "build", "traces")
@@ -365,6 +376,9 @@ MMA_KERNELS = {
     ("ssd_scan.cu", "ssd_scan_kernel_cb_mma"): (64, 128),
     ("ssd_scan.cu", "ssd_scan_kernel_state_mma"): (64, 128),
     ("ssd_scan.cu", "ssd_scan_kernel_out_mma"): (64, 128),
+    ("ssd_scan_bwd.cu", "ssd_bwd_dstate_mma"): (64, 128),
+    ("ssd_scan_bwd.cu", "ssd_bwd_dx_mma"): (64, 128),
+    ("ssd_scan_bwd.cu", "ssd_bwd_dbc_mma"): (64, 128),
 }
 
 
@@ -668,6 +682,7 @@ def kernel_checks(torch, dev, rng):
     rows.update(timed("fused_adamw", adamw_checks))
     rows.update(timed("ssd_scan", ssd_checks))
     timed("ssd_grad", ssd_grad_checks)
+    rows.update(timed("ssd_scan_bwd", ssd_bwd_checks))
     timed("attention_grad", attention_grad_checks)
     emit({"kernel_checks_split_seconds": split})
     return rows
@@ -2542,14 +2557,16 @@ SSD_TRAIN_CASE = {"mamba_train_4x512": (4, 512, 48, 64, 128, 256,
 def ssd_grad_checks(torch, dev):
     """The scan's gradient on the card: ``models.mamba.ssd_chunk_scan`` on
     inputs that require grad goes through ``SSDScanFn`` (one ``ssd_scan``
-    launch forward; the plain scan's gradient, recomputed, backward).  At
+    launch forward; ``ssd_scan_bwd`` backward: the kernel for bf16, the
+    plain scan's gradient, recomputed, for f32).  At
     every case of ``SSD_CASES`` (the short tile Q = 200 included) and at
     the training shape, its y and final state, and the gradients of a
     seeded <w_y, y> + <w_s, final state> for xh, dt, A, B_, C_ and
     init_state, against autograd straight through ``ssd_scan_plain`` on
-    the card, within ``SSD_TOL`` by xh's dtype (rtol = atol); each
-    gradient in its input's dtype.  The bare wrapper must still refuse an
-    input that requires grad.  Records, at the training shape, the
+    the card over float32 copies of the inputs, each gradient rounded to
+    its input's dtype once, within ``SSD_TOL`` by xh's dtype (rtol =
+    atol); each of the Function's gradients in its input's dtype.  The
+    bare wrapper must still refuse an input that requires grad.  Records, at the training shape, the
     backward's peak memory above what was allocated before it."""
     import torch.nn.functional as F
 
@@ -2578,7 +2595,15 @@ def ssd_grad_checks(torch, dev):
         base = [t for t in (xh, dts, A, Bm, Cm, st0) if t is not None]
         runs = {}
         for route in ("function", "plain"):
-            leaves = [t.clone().requires_grad_() for t in base]
+            # the plain route differentiates over float32 copies of the
+            # leaves and rounds each gradient to its input's dtype once,
+            # as the kernel does: autograd through bf16 leaves rounds
+            # each use's gradient to bf16 before adding the uses, and at
+            # a cancelling element that lies further from the float32
+            # sum than the tolerance (one read 0.0 against 0.109)
+            leaves = [t.clone().requires_grad_() if route == "function"
+                      else t.detach().float().requires_grad_()
+                      for t in base]
             args = leaves[:5]
             init_leaf = leaves[5] if init else None
             torch.cuda.synchronize()
@@ -2592,7 +2617,7 @@ def ssd_grad_checks(torch, dev):
             else:
                 y, st = SS.ssd_scan_plain(*args, chunk=q,
                                           init_state=init_leaf)
-            loss = (y.float() * wy).sum() + (st * ws).sum()
+            loss = (y.to(dtype).float() * wy).sum() + (st * ws).sum()
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             held = torch.cuda.memory_allocated()
@@ -2604,9 +2629,12 @@ def ssd_grad_checks(torch, dev):
                     "backward_s": time.perf_counter() - t0,
                     "backward_peak_bytes_above_held":
                         torch.cuda.max_memory_allocated() - held}
-            check(all(g.dtype == t.dtype for g, t in zip(grads, leaves)),
-                  f"{name}: a gradient is not in its input's dtype")
-            runs[route] = (y, st) + tuple(grads)
+            if route == "function":
+                check(all(g.dtype == t.dtype for g, t in zip(grads, base)),
+                      f"{name}: a gradient is not in its input's dtype")
+            else:
+                grads = tuple(g.to(t.dtype) for g, t in zip(grads, base))
+            runs[route] = (y.to(dtype), st) + tuple(grads)
             del loss
         labels = ("y", "final_state", "d_xh", "d_dt", "d_A", "d_B", "d_C",
                   "d_init_state")
@@ -2635,6 +2663,181 @@ def ssd_grad_checks(torch, dev):
     emit(row)
     free_card(torch)
     return row
+
+
+#: ssd_scan_bwd cases: name -> (B, S, H, P, N, chunk, init_state, dfinal,
+#: dt scale); the sweep's shapes and the short tile (Q = 200) at bf16,
+#: mamba2-780m's training shape at one row of 512 and at train_U's 4 x
+#: 2048 (both timed), jamba-v0.1-52b's heads (128 of 64, d_state 16: the
+#: N <= 64 instantiation; timed), and a steep decay (dt * A near -40 a row)
+SSD_BWD_CASES = {
+    "sweep_1x64x2x8x4_q16": (1, 64, 2, 8, 4, 16, False, True, 1.0),
+    "sweep_2x128x4x16x8_q32": (2, 128, 4, 16, 8, 32, True, True, 1.0),
+    "sweep_1x256x2x32x16_q64": (1, 256, 2, 32, 16, 64, True, False, 1.0),
+    "mamba_prompt_200": (1, 400, 48, 64, 128, 200, True, True, 1.0),
+    "steep_1x256x4x64x128": (1, 256, 4, 64, 128, 256, True, True, 40.0),
+    "mamba_train_1x512": (1, 512, 48, 64, 128, 256, False, False, 1.0),
+    "mamba_train_4x2048": (4, 2048, 48, 64, 128, 256, False, False, 1.0),
+    "jamba_train_2x2048": (2, 2048, 128, 64, 16, 256, False, False, 1.0),
+}
+SSD_BWD_TIMED = ("mamba_train_4x2048", "mamba_train_1x512",
+                 "jamba_train_2x2048")
+#: the backward's launches, by their __global__ names
+SSD_BWD_LAUNCHES = ("ssd_bwd_dstate", "ssd_bwd_fold", "ssd_bwd_dx",
+                    "ssd_bwd_dbc", "ssd_bwd_dt")
+#: the gradients' tolerance against the plain backward on the card, as a
+#: share of the largest |element| of the plain gradient (bf16 dx, dB, dC:
+#: both sides round the f32 sum to bf16 once, 2^-8 of the element at most;
+#: f32 ddt, dA, dinit: the kernel's split products, ~2^-16 a term, and
+#: another order of summation)
+SSD_BWD_TOL = {"dx": 2 ** -7, "ddt": 1e-3, "dA": 1e-3, "dB": 2 ** -7,
+               "dC": 2 ** -7, "dinit": 1e-3}
+#: dA's at the steep decay: its terms cancel to ~1e-3 of their size there,
+#: and the plain backward's own f32 dA lies 9.2e-4 of its largest element
+#: from a float64 evaluation (on the CPU; the kernel's staged plain
+#: version 9.3e-6)
+SSD_BWD_STEEP_TOL = {"dA": 1e-2}
+
+
+def ssd_bwd_inputs(torch, gen, dev, B, S, H, P, N, init, dfin, scale):
+    """Seeded bf16 inputs of the backward: xh, dt, A, B_, C_, init_state,
+    dy, dfinal (the last three None where not asked for)."""
+    import torch.nn.functional as F
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    xh = (rn(B, S, H, P) * 0.5).bfloat16()
+    dts = F.softplus(rn(B, S, H)) * scale
+    A = -torch.exp(rn(H) * 0.3)
+    Bm, Cm = (rn(B, S, N) * 0.5).bfloat16(), (rn(B, S, N) * 0.5).bfloat16()
+    st0 = rn(B, H, N, P) if init else None
+    dy = rn(B, S, H, P).bfloat16()
+    df = rn(B, H, N, P) if dfin else None
+    return xh, dts, A, Bm, Cm, st0, dy, df
+
+
+def _rel_err(torch, got, want):
+    """max |got - want| over max |want| (0 for an all-zero want); fails on
+    a non-finite element."""
+    g, w = got.detach().float(), want.detach().float()
+    check(bool(torch.isfinite(g).all()), "non-finite values")
+    return float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+
+
+def ssd_bwd_stage_errs(torch, SS, args, q, saved):
+    """The backward's five launches in one call, their scratch held
+    against the plain stages over the plain forward: the state gradient
+    after the fold (g), the fold's sums (sig), r, rd, dw, u (its partials
+    summed) and v, each as ``_rel_err``."""
+    xh, dts, A, Bm, Cm, st0, dy, df = args
+    Q = min(q, xh.shape[1])
+    N = Bm.shape[-1]
+    cum = SS.chunk_cum_plain(dts, A, Q)
+    state_in, _ = SS.fold_plain(SS.chunk_state_plain(xh, dts, Bm, cum, Q),
+                                cum, st0)
+    g, sig, _ = SS.bwd_fold_plain(SS.bwd_dstate_plain(dy, Cm, cum, Q), cum,
+                                  state_in, df)
+    _, r, rd, dw, u = SS.bwd_dx_plain(xh, dts, Bm, dy,
+                                      SS.chunk_cb_plain(Bm, Cm, Q), cum, g,
+                                      Q)
+    _, _, v = SS.bwd_dbc_plain(xh, dts, Bm, Cm, dy, cum, state_in, g, Q)
+    parts = SS.bwd_scratch(xh, N, Q)
+    outs = tuple(None if t is None else torch.empty_like(t)
+                 for t in (xh, dts, A, Bm, Cm, st0))
+    SS.launch_bwd(xh, dts, A, Bm, Cm, dy, df, saved, outs, parts, Q)
+    torch.cuda.synchronize()
+    gk, sigk, uk, rk, rdk, dwk, vk = parts
+    nt = uk.shape[3]
+    tile = torch.arange(uk.shape[4], device=xh.device) // 64
+    written = torch.arange(nt, device=xh.device)[:, None] <= tile[None, :]
+    uk = torch.where(written, uk, 0.).sum(3)[..., :Q]
+    return {n: _rel_err(torch, a, b) for n, a, b in (
+        ("g", gk, g), ("sig", sigk.sum(-1), sig), ("r", rk, r),
+        ("rd", rdk, rd), ("dw", dwk, dw), ("u", uk, u), ("v", vk, v))}
+
+
+def ssd_bwd_checks(torch, dev):
+    """ssd_scan_bwd (the backward kernel) on the card at every case of
+    ``SSD_BWD_CASES``: each gradient against the plain backward
+    (``ssd_scan_bwd_plain``, autograd through the plain scan) within
+    ``SSD_BWD_TOL``; the launches' scratch against the plain stages
+    (``ssd_bwd_stage_errs``); two calls equal bit for bit (no atomics).
+    The ``SSD_BWD_TIMED`` cases are timed: CUDA events, the profiler's
+    kernel time in all and by launch, the plain backward; the bound is the
+    larger of ``bwd_work``'s flops at the bf16 peak and its bytes over
+    the memory rate."""
+    from repro_torch.kernels import ssd_scan as SS
+    from repro_torch.launch.roofline import HBM_BW, PEAK_FLOPS
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    names = ("dx", "ddt", "dA", "dB", "dC", "dinit")
+    rows, errs = {}, {}
+    for name, (B, S, H, P, N, q, init, dfin, scale) in \
+            SSD_BWD_CASES.items():
+        args = ssd_bwd_inputs(torch, gen, dev, B, S, H, P, N, init, dfin,
+                              scale)
+        xh, dts, A, Bm, Cm, st0, dy, df = args
+        with torch.no_grad():
+            _, _, saved = SS.ssd_scan(xh, dts, A, Bm, Cm, chunk=q,
+                                      init_state=st0, want_state=False,
+                                      keep_scratch=True)
+        before = SS.bwd_launches.value
+        got = SS.ssd_scan_bwd(*args, chunk=q, saved=saved)
+        again = SS.ssd_scan_bwd(*args, chunk=q, saved=saved)
+        want = SS.ssd_scan_bwd_plain(*args, chunk=q)
+        torch.cuda.synchronize()
+        check(SS.bwd_launches.value == before + 2,
+              f"ssd_scan_bwd ({name}): {SS.bwd_launches.value - before} "
+              "launches for 2 calls")
+        case = {}
+        for n, a, b, c in zip(names, got, want, again):
+            if b is None:
+                continue
+            check(a.dtype == b.dtype and a.shape == b.shape,
+                  f"ssd_scan_bwd ({name}): {n} is {a.dtype} "
+                  f"{tuple(a.shape)}, the plain {b.dtype} {tuple(b.shape)}")
+            check(equal(torch, a, c),
+                  f"ssd_scan_bwd ({name}): {n} differs between two calls")
+            case[n] = _rel_err(torch, a, b)
+        case["stages"] = ssd_bwd_stage_errs(torch, SS, args, q, saved)
+        errs[name] = case
+        emit({"ssd_bwd_case": name, **case})
+        tol = dict(SSD_BWD_TOL, **(SSD_BWD_STEEP_TOL if scale > 1 else {}))
+        for n, e in case.items():
+            if n != "stages":
+                check(e <= tol[n],
+                      f"ssd_scan_bwd ({name}): {n} off the plain backward "
+                      f"by {e} of its largest element")
+        if name not in SSD_BWD_TIMED:
+            del args, saved, got, again, want
+            continue
+        flops, nbytes = SS.bwd_work(*args, chunk=q)
+        t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+        t_bytes = nbytes / HBM_BW * 1e3
+
+        def bwd(args=args, q=q, saved=saved):
+            return SS.ssd_scan_bwd(*args, chunk=q, saved=saved)
+        del got, again, want
+        plain_ms = time_ms(torch, lambda args=args, q=q:
+                           SS.ssd_scan_bwd_plain(*args, chunk=q),
+                           iters=5, warm=1)
+        rows[name] = kernel_row(
+            torch, "ssd_scan_bwd", bwd, iters=50,
+            launch_device_ms={k: device_times(torch, bwd, (k,), iters=20)[
+                "kernel_device_ms"] for k in SSD_BWD_LAUNCHES},
+            shape=f"B={B} S={S} H={H} P={P} N={N} Q={min(q, S)} bf16",
+            max_rel_err=case, tolerance=SSD_BWD_TOL, plain_ms=plain_ms,
+            library_ms=None, library="none (no one call)", flops=flops,
+            bytes=nbytes, ops_ms=t_ops, bytes_ms=t_bytes,
+            bound_ms=max(t_ops, t_bytes),
+            bound_by="operations" if t_ops >= t_bytes else "bytes")
+        emit({"ssd_bwd_row": name, **rows[name]})
+        del args, saved
+        free_card(torch)
+    emit({"kernel_check": "ssd_scan_bwd", "cases": len(SSD_BWD_CASES),
+          "max_rel_err": errs})
+    return {"ssd_scan_bwd": rows}
 
 
 #: fused_adamw cases: name -> (shape, p dtype, g dtype, ring slots); the

@@ -24,7 +24,9 @@ other.
     fused_adamw     AdamW step + versioned ring write (every leaf of a
                     fused Mode-U train step)
     ssd_scan        Mamba-2 SSD chunked scan, final state carried out
-                    (every Mamba layer of every prefill)
+                    (every Mamba layer of every prefill and training
+                    forward); its gradient in one C call of five launches
+                    (every Mamba layer's training backward)
 """
 from typing import Dict
 
@@ -48,6 +50,8 @@ COUNTERS = {m.launches.name: m.launches
 #: the bracketed bulk-read gathers, also counted under ``gather_read``
 COUNTERS[gather_read.bracketed_launches.name] = \
     gather_read.bracketed_launches
+#: the scan's backward
+COUNTERS[ssd_scan.bwd_launches.name] = ssd_scan.bwd_launches
 #: the versioned reads' mirror resolves, also counted under
 #: ``version_select``
 COUNTERS[version_select.mirror_launches.name] = \

@@ -53,9 +53,9 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("gather_read.cu", "scatter_write.cu", "validate.cu",
            "version_select.cu", "commit_fused.cu", "snapshot_select.cu",
            "flash_attention.cu", "fused_adamw.cu", "ssd_scan.cu",
-           "staging.cu")
+           "ssd_scan_bwd.cu", "staging.cu")
 #: headers the sources include (hashed with them, not compiled alone)
-HEADERS = ("copy_bytes.cuh", "mma_bf16.cuh")
+HEADERS = ("copy_bytes.cuh", "mma_bf16.cuh", "ssd_tiles.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -94,6 +94,7 @@ SIGNATURES["commit_fused_i32"] = SIGNATURES["commit_fused_i64"]
 SIGNATURES["commit_rows_i32"] = SIGNATURES["commit_rows_i64"]
 SIGNATURES["ssd_scan_f32"] = (_P,) * 11 + (_I,) * 7 + (_P,)
 SIGNATURES["ssd_scan_bf16"] = SIGNATURES["ssd_scan_f32"]
+SIGNATURES["ssd_scan_bwd_bf16"] = (_P,) * 23 + (_I,) * 6 + (_P,)
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()

@@ -43,6 +43,26 @@ reference's chunk einsums over every chunk at once, with the decay
 exponent masked to ``-inf`` above the diagonal before ``exp`` (the
 reference exponentiates the whole square and masks after), so no ``inf``
 is formed and autograd through it stays finite.
+
+The gradient is ``ssd_scan_bwd``: on the card ``csrc/ssd_scan_bwd.cu``
+(bf16), five launches from one C call over the forward's scratch (cum,
+C.B^T and the state entering each chunk), which ``ssd_scan(...,
+keep_scratch=True)`` hands back:
+
+  a. dstate per (batch, chunk, head): the chunk's outputs' pull on the
+            state entering it (``bwd_dstate_plain``);
+  b. fold   per (batch, head): the state's gradient walked back over the
+            chunks (``bwd_fold_plain``);
+  c. dx     per (batch, chunk, head, 64-row key tile): dx and dt's and
+            cum's pulls by row (``bwd_dx_plain``);
+  d. dbc    per (batch, chunk, 64-row tile): dB or dC summed over the
+            heads (``bwd_dbc_plain``);
+  e. dt     per head: cum's gradient, its reverse cumsum, ddt and dA
+            (``bwd_dt_plain``).
+
+``ssd_scan_bwd_staged`` composes the plain launches; ``ssd_scan_bwd_plain``
+(autograd through the recomputed plain scan) is the CPU route, and the
+card's for f32.
 """
 from __future__ import annotations
 
@@ -54,6 +74,11 @@ import torch
 from repro_torch.kernels import _lib
 
 launches = _lib.LaunchCounter("ssd_scan")
+#: backward kernel launches (one C call, five launches), one a call
+bwd_launches = _lib.LaunchCounter("ssd_scan_bwd")
+#: backward calls on the card with f32 inputs, which take the plain
+#: backward (the kernel is bf16 only)
+bwd_f32_plain = _lib.LaunchCounter("ssd_scan_bwd_f32_plain")
 
 MAX_STATE = 128       # the largest d_state (N) the CUDA kernel takes
 MAX_HEAD_DIM = 64     # the largest head dim (P)
@@ -184,13 +209,147 @@ def ssd_scan_plain(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y, final
 
 
-def _layout(Bsz: int, S: int, H: int, P: int, N: int, Q: int):
-    """The scratch's parts, cb ``[B, nc, Qp, Qp]``, cum ``[B, nc, H, Q]``
-    and the chunk states ``[B, nc, H, N, P]`` (``Qp``: Q rounded up to
-    64), as ``(starts, shapes, total)`` in f32 elements, each part
-    starting 16-byte aligned."""
-    nc, Qp = S // Q, -(-Q // 64) * 64
-    shapes = ((Bsz, nc, Qp, Qp), (Bsz, nc, H, Q), (Bsz, nc, H, N, P))
+def bwd_dstate_plain(dy: torch.Tensor, C_: torch.Tensor, cum: torch.Tensor,
+                     Q: int) -> torch.Tensor:
+    """Backward launch a: each chunk's outputs' pull on the state entering
+    it, ``D[c] = sum_i exp(cum_i) C_i^T dy_i``, ``[B, nc, H, N, P]`` f32."""
+    e = torch.exp(cum).transpose(2, 3)[..., None]           # [B,nc,Q,H,1]
+    return torch.einsum("bcin,bcihp->bchnp", _chunks(C_, Q).float(),
+                        _chunks(dy, Q).float() * e)
+
+
+def bwd_fold_plain(dstate: torch.Tensor, cum: torch.Tensor,
+                   state_in: torch.Tensor,
+                   dfinal: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Backward launch b, the reverse fold: ``(g, sig, dinit)``.  ``g[:,
+    c]`` is the gradient of the state leaving chunk c (``dfinal``, or
+    zeros, after the last), ``G[c] = D[c] + exp(cum_last[c]) G[c + 1]``;
+    ``sig [B, nc, H]`` is ``exp(cum_last) <state_in, g>``, the last row's
+    pull through the state's decay; ``dinit`` is ``G[0]``."""
+    Bsz, nc, H, N, P = dstate.shape
+    run = (dfinal.float() if dfinal is not None
+           else dstate.new_zeros((Bsz, H, N, P)))
+    el = torch.exp(cum[..., -1])                             # [B, nc, H]
+    gs, sig = [None] * nc, [None] * nc
+    for c in reversed(range(nc)):
+        gs[c] = run
+        sig[c] = el[:, c] * (state_in[:, c] * run).sum((-2, -1))
+        run = dstate[:, c] + el[:, c, :, None, None] * run
+    return torch.stack(gs, dim=1), torch.stack(sig, dim=1), run
+
+
+def _bwd_square(xh, dt, dy, cum, Q):
+    """The backward's Q x Q pieces over every chunk at once (what the
+    kernel forms tile by tile on chip): x, dy ``[B, nc, Q, H, P]`` f32,
+    dt ``[B, nc, H, Q]``, the decay exp(cum_i - cum_j) (j <= i, the
+    exponent masked first) and ``dM_ij = dy_i . x_j``, ``[B, nc, H, Q,
+    Q]``."""
+    x, d = _chunks(xh, Q).float(), _chunks(dy, Q).float()
+    dtc = _chunks(dt, Q).float().transpose(2, 3)
+    tri = torch.ones((Q, Q), dtype=torch.bool, device=xh.device).tril()
+    decay = torch.exp(torch.where(tri, cum[..., :, None] - cum[..., None, :],
+                                  float("-inf")))
+    return x, d, dtc, decay, torch.einsum("bcihp,bcjhp->bchij", d, x)
+
+
+def bwd_dx_plain(xh: torch.Tensor, dt: torch.Tensor, B_: torch.Tensor,
+                 dy: torch.Tensor, cb: torch.Tensor, cum: torch.Tensor,
+                 g: torch.Tensor, Q: int):
+    """Backward launch c, per key row j: ``(dx, r, rd, dw, u)``.  ``dx_j =
+    sum_{i >= j} M_ij dy_i + w_j (B_j g)`` in xh's dtype (``M = CB o
+    decay o dt_j``, ``w_j = exp(cum_last - cum_j) dt_j``, g the state's
+    gradient after the chunk); with ``t = dM o CB o decay``: ``r_j =
+    sum_{i > j} t_ij`` and ``rd_j = t_jj`` (dt_j's pull through the
+    chunk's rows), ``dw_j = B_j . (g x_j)`` (w_j's pull), ``u_i = sum_{j <
+    i} t_ij dt_j`` (cum_i's pull as the later end), each ``[B, nc, H, Q]``
+    f32.  The diagonal stays out of r and u: its pull on cum cancels
+    exactly (the decay there is exp(0)), and summed in, it would leave a
+    rounding of its size where a steep decay leaves it alone.  The kernel
+    writes u as one partial a key tile."""
+    Bsz, S, H, P = xh.shape
+    x, d, dtc, decay, dm = _bwd_square(xh, dt, dy, cum, Q)
+    cl = cb[:, :, None] * decay
+    t = dm * cl
+    rd = torch.diagonal(t, dim1=-2, dim2=-1)
+    off = t - torch.diag_embed(rd)
+    bg = torch.einsum("bcjn,bchnp->bcjhp", _chunks(B_, Q).float(), g)
+    w = torch.exp(cum[..., -1:] - cum) * dtc
+    dx = torch.einsum("bchij,bcihp->bcjhp", cl * dtc[..., None, :], d) \
+        + bg * w.transpose(2, 3)[..., None]
+    return (dx.to(xh.dtype).reshape(Bsz, S, H, P).contiguous(),
+            off.sum(-2), rd, (bg * x).sum(-1).transpose(2, 3),
+            (off * dtc[..., None, :]).sum(-1))
+
+
+def bwd_dbc_plain(xh: torch.Tensor, dt: torch.Tensor, B_: torch.Tensor,
+                  C_: torch.Tensor, dy: torch.Tensor, cum: torch.Tensor,
+                  state_in: torch.Tensor, g: torch.Tensor, Q: int):
+    """Backward launch d, summed over the heads (B and C have no head
+    axis): ``(dB, dC, v)``.  ``dC_i = sum_{j <= i} dCB_ij B_j + sum_h
+    exp(cum_i) state_in dy_i`` and ``dB_j = sum_{i >= j} dCB_ij C_i +
+    sum_h w_j g x_j`` in B_'s dtype, with ``dCB = sum_h dM o decay o
+    dt_j``; ``v_i = exp(cum_i) dy_i . (C_i state_in)`` (cum_i's pull
+    through the carried state), ``[B, nc, H, Q]`` f32."""
+    Bsz, S, N = B_.shape
+    x, d, dtc, decay, dm = _bwd_square(xh, dt, dy, cum, Q)
+    b, c = _chunks(B_, Q).float(), _chunks(C_, Q).float()
+    dcb = (dm * decay * dtc[..., None, :]).sum(2)            # [B,nc,Q,Q]
+    e = torch.exp(cum)                                       # [B,nc,H,Q]
+    w = torch.exp(cum[..., -1:] - cum) * dtc
+    ds = torch.einsum("bcihp,bchnp->bchin", d, state_in)     # dy s^T
+    dC = torch.einsum("bcij,bcjn->bcin", dcb, b) \
+        + torch.einsum("bchin,bchi->bcin", ds, e)
+    dB = torch.einsum("bcij,bcin->bcjn", dcb, c) \
+        + torch.einsum("bcjhp,bchnp,bchj->bcjn", x, g, w)
+    v = e * torch.einsum("bchin,bcin->bchi", ds, c)
+    return (dB.to(B_.dtype).reshape(Bsz, S, N), dC.to(C_.dtype).reshape(
+        Bsz, S, N), v)
+
+
+def bwd_dt_plain(dt: torch.Tensor, A: torch.Tensor, cum: torch.Tensor,
+                 r: torch.Tensor, rd: torch.Tensor, dw: torch.Tensor,
+                 u: torch.Tensor, v: torch.Tensor, sig: torch.Tensor, Q: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Backward launch e: ``(ddt [B, S, H], dA [H])`` f32.  cum's gradient
+    ``dcum_i = u_i - dt_i r_i + v_i - dw_i w_i``, plus on the chunk's
+    last row ``sig + sum_j dw_j w_j``; its reverse cumsum is ``dt A``'s,
+    so ``ddt = r + rd + dw exp(cum_last - cum) + A dcum_rev`` and ``dA =
+    sum dt dcum_rev``."""
+    Bsz, S, H = dt.shape
+    dtc = _chunks(dt, Q).float().transpose(2, 3)             # [B,nc,H,Q]
+    sdecay = torch.exp(cum[..., -1:] - cum)
+    dww = dw * sdecay * dtc
+    dcum = u - dtc * r + v - dww
+    dcum[..., -1] += sig + dww.sum(-1)
+    rev = dcum.flip(-1).cumsum(-1).flip(-1)
+    ddt = r + rd + dw * sdecay + A.float()[None, None, :, None] * rev
+    return (ddt.transpose(2, 3).reshape(Bsz, S, H).contiguous(),
+            (dtc * rev).sum((0, 1, 3)))
+
+
+def ssd_scan_bwd_staged(xh, dt, A, B_, C_, init_state, dy, dfinal, *,
+                        chunk: int = 256):
+    """The kernel's backward as its plain launches in order, over the
+    forward's plain stages (what the CUDA forward leaves in its scratch):
+    ``(dxh, ddt, dA, dB, dC, dinit)``, dinit None without init_state."""
+    Q = _chunk_len(xh.shape[1], chunk)
+    cum = chunk_cum_plain(dt, A, Q)
+    state_in, _ = fold_plain(chunk_state_plain(xh, dt, B_, cum, Q), cum,
+                             init_state)
+    g, sig, dinit = bwd_fold_plain(bwd_dstate_plain(dy, C_, cum, Q), cum,
+                                   state_in, dfinal)
+    dx, r, rd, dw, u = bwd_dx_plain(xh, dt, B_, dy,
+                                    chunk_cb_plain(B_, C_, Q), cum, g, Q)
+    dB, dC, v = bwd_dbc_plain(xh, dt, B_, C_, dy, cum, state_in, g, Q)
+    ddt, dA = bwd_dt_plain(dt, A, cum, r, rd, dw, u, v, sig, Q)
+    return (dx, ddt, dA, dB, dC,
+            dinit if init_state is not None else None)
+
+
+def _parts(shapes):
+    """``(starts, shapes, total)``: the f32 parts of ``shapes`` cut from
+    one allocation, each part starting 16-byte aligned."""
     starts, at = [], 0
     for shape in shapes:
         starts.append(at)
@@ -198,13 +357,38 @@ def _layout(Bsz: int, S: int, H: int, P: int, N: int, Q: int):
     return starts, shapes, at
 
 
+def _layout(Bsz: int, S: int, H: int, P: int, N: int, Q: int):
+    """The scratch's parts, cb ``[B, nc, Qp, Qp]``, cum ``[B, nc, H, Q]``
+    and the chunk states ``[B, nc, H, N, P]`` (``Qp``: Q rounded up to
+    64), as ``(starts, shapes, total)`` in f32 elements, each part
+    starting 16-byte aligned."""
+    nc, Qp = S // Q, -(-Q // 64) * 64
+    return _parts(((Bsz, nc, Qp, Qp), (Bsz, nc, H, Q), (Bsz, nc, H, N, P)))
+
+
+def _bwd_layout(Bsz: int, S: int, H: int, P: int, N: int, Q: int):
+    """The backward's scratch parts (f32, as ``_layout``): the state
+    gradient ``[B, nc, H, N, P]``, the fold's partials of exp(cum_last)
+    <s, g> ``[B, nc, H, ceil(N P / 1024)]``, u's partials by key tile
+    ``[B, nc, H, nt, Qp]``, and r, rd, dw, v ``[B, nc, H, Q]`` each."""
+    nc, nt = S // Q, -(-Q // 64)
+    row = (Bsz, nc, H, Q)
+    return _parts(((Bsz, nc, H, N, P), (Bsz, nc, H, -(-N * P // 1024)),
+                   (Bsz, nc, H, nt, nt * 64), row, row, row, row))
+
+
+def _views(buf: torch.Tensor, layout) -> Tuple[torch.Tensor, ...]:
+    starts, shapes, _ = layout
+    return tuple(buf[a:a + math.prod(shape)].view(shape)
+                 for a, shape in zip(starts, shapes))
+
+
 def scratch(xh: torch.Tensor, N: int, Q: int) -> Tuple[torch.Tensor, ...]:
     """The kernel's scratch as views ``(cb, cum, states)`` of ONE f32
     allocation on xh's device (``_layout``)."""
-    starts, shapes, total = _layout(*xh.shape, N, Q)
-    buf = torch.empty(total, dtype=torch.float32, device=xh.device)
-    return tuple(buf[a:a + math.prod(shape)].view(shape)
-                 for a, shape in zip(starts, shapes))
+    layout = _layout(*xh.shape, N, Q)
+    return _views(torch.empty(layout[2], dtype=torch.float32,
+                              device=xh.device), layout)
 
 
 def _launch(stages: int, xh, dt, A, B_, C_, init_state, y, final_state,
@@ -235,7 +419,8 @@ def launch_stages(stages: int, xh: torch.Tensor, dt: torch.Tensor,
 
 def work(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
          B_: torch.Tensor, C_: torch.Tensor, *, chunk: int = 256,
-         init_state: Optional[torch.Tensor] = None, want_state: bool = True):
+         init_state: Optional[torch.Tensor] = None, want_state: bool = True,
+         keep_scratch: bool = False):
     """``(flops, bytes)`` of one call (``_lib.counted``): the flops
     ``FlopCounterMode`` counts over the plain version (its four chunk
     products over the whole Q x Q square: C.B^T, the chunk states, the
@@ -252,14 +437,35 @@ def work(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return flops, nbytes
 
 
+def _check_cuda(name: str, ins, N: int, P: int, Q: int) -> None:
+    """The kernels' limits on CUDA inputs ``[xh, dt, A, B_, C_, *f32]``:
+    xh, B_, C_ all f32 or all bf16, the rest f32, contiguous, N <= 128,
+    P <= 64, Q <= 1024."""
+    xh, B_, C_ = ins[0], ins[3], ins[4]
+    if xh.dtype not in _KERNELS or B_.dtype != xh.dtype \
+            or C_.dtype != xh.dtype:
+        raise ValueError(f"{name} takes xh, B_, C_ all float32 or all "
+                         f"bfloat16, not {xh.dtype}, {B_.dtype}, "
+                         f"{C_.dtype}")
+    if any(t.dtype != torch.float32 for t in ins[1:3] + ins[5:]):
+        raise ValueError(f"{name} takes dt, A and the states in float32")
+    if N > MAX_STATE or P > MAX_HEAD_DIM or Q > MAX_CHUNK:
+        raise ValueError(f"{name} takes N <= {MAX_STATE}, P <= "
+                         f"{MAX_HEAD_DIM}, chunk <= {MAX_CHUNK}; got N={N}, "
+                         f"P={P}, Q={Q}")
+    if not all(t.is_contiguous() for t in ins):
+        raise ValueError(f"{name} takes contiguous tensors")
+
+
 @_lib.counted("ssd_scan", work)
 def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              B_: torch.Tensor, C_: torch.Tensor, *, chunk: int = 256,
              init_state: Optional[torch.Tensor] = None,
-             want_state: bool = True
-             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+             want_state: bool = True, keep_scratch: bool = False):
     """The chunked scan: ``(y, final_state)``, the state None unless
-    ``want_state``.
+    ``want_state``; with ``keep_scratch``, ``(y, final_state, scratch)``,
+    the kernel's scratch ``(cb, cum, states)`` (what ``ssd_scan_bwd``
+    reads; None off the card).
 
     A CUDA tensor launches the kernel (xh, B_, C_ all f32 or all bf16;
     dt, A and init_state f32; contiguous; N <= 128, P <= 64, Q <= 1024;
@@ -267,53 +473,183 @@ def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     CUDA tensor (the dry run's) gets the kernel's outputs made and
     nothing computed.
 
-    The kernel has no backward: on the card, an input that requires grad
-    while grad mode is on raises (the kernel's output would carry no
-    graph)."""
+    The forward kernel carries no graph: on the card, an input that
+    requires grad while grad mode is on raises (the gradient is
+    ``models.mamba.SSDScanFn``'s, which runs this under its forward and
+    ``ssd_scan_bwd`` backward)."""
     _check(xh, dt, A, B_, C_, init_state)
     Bsz, S, H, P = xh.shape
     N = B_.shape[-1]
     Q = _chunk_len(S, chunk)
     kind = _lib.device_kind(xh)
+    kept = ()
     if kind == "cpu":
         y, state = ssd_scan_plain(xh, dt, A, B_, C_, chunk=chunk,
                                   init_state=init_state)
-        return y, (state if want_state else None)
+        return (y, state if want_state else None) \
+            + ((None,) if keep_scratch else ())
     ins = [xh, dt, A, B_, C_] + ([init_state] if init_state is not None
                                  else [])
     if torch.is_grad_enabled() and any(t.requires_grad for t in ins):
         raise RuntimeError(
-            "ssd_scan: an input requires grad and the CUDA kernel has no "
-            "backward")
-    if xh.dtype not in _KERNELS or B_.dtype != xh.dtype \
-            or C_.dtype != xh.dtype:
-        raise ValueError(f"ssd_scan takes xh, B_, C_ all float32 or all "
-                         f"bfloat16, not {xh.dtype}, {B_.dtype}, "
-                         f"{C_.dtype}")
-    if any(t.dtype != torch.float32 for t in ins[1:3] + ins[5:]):
-        raise ValueError("ssd_scan takes dt, A and init_state in float32")
-    if N > MAX_STATE or P > MAX_HEAD_DIM or Q > MAX_CHUNK:
-        raise ValueError(f"ssd_scan takes N <= {MAX_STATE}, P <= "
-                         f"{MAX_HEAD_DIM}, chunk <= {MAX_CHUNK}; got N={N}, "
-                         f"P={P}, Q={Q}")
-    if not all(t.is_contiguous() for t in ins):
-        raise ValueError("ssd_scan takes contiguous tensors")
+            "ssd_scan: an input requires grad and the CUDA forward kernel "
+            "records no graph (SSDScanFn carries the gradient)")
+    _check_cuda("ssd_scan", ins, N, P, Q)
     y = torch.empty_like(xh)
     state = (torch.empty((Bsz, H, N, P), dtype=torch.float32,
                          device=xh.device) if want_state else None)
     if kind == "fake" or y.numel() == 0:   # B, H or P 0: no state either
-        return y, state
-    starts, _, total = _layout(Bsz, S, H, P, N, Q)
+        return (y, state) + ((None,) if keep_scratch else ())
+    layout = _layout(Bsz, S, H, P, N, Q)
     # held until the launches are enqueued: a block freed earlier could be
     # handed to another thread's work first
-    work = torch.empty(total, dtype=torch.float32, device=xh.device)
+    buf = torch.empty(layout[2], dtype=torch.float32, device=xh.device)
     _launch(ALL_STAGES, xh, dt, A, B_, C_, init_state, y, state,
-            [work.data_ptr() + 4 * a for a in starts], Q)
-    return y, state
+            [buf.data_ptr() + 4 * a for a in layout[0]], Q)
+    if keep_scratch:
+        kept = (_views(buf, layout),)
+    return (y, state) + kept
+
+
+# ---------------------------------------------------------------------------
+# the backward (csrc/ssd_scan_bwd.cu)
+# ---------------------------------------------------------------------------
+
+def ssd_scan_bwd_plain(xh, dt, A, B_, C_, init_state, dy, dfinal, *,
+                       chunk: int = 256, needs=(True,) * 6):
+    """The gradient as autograd gives it: the plain scan recomputed on
+    detached inputs under grad mode and differentiated.  ``(dxh, ddt, dA,
+    dB, dC, dinit)``, None where ``needs`` is false; dy and dfinal are
+    the gradients of y and of the final state (None: not used)."""
+    ts = (xh, dt, A, B_, C_, init_state)
+    needs = tuple(bool(n) and t is not None for t, n in zip(ts, needs))
+    ins = [None if t is None else t.detach().requires_grad_(n)
+           for t, n in zip(ts, needs)]
+    with torch.enable_grad():
+        outs = ssd_scan_plain(*ins[:5], chunk=chunk, init_state=ins[5])
+    pairs = [(o, g) for o, g in zip(outs, (dy, dfinal)) if g is not None]
+    wrt = [t for t, n in zip(ins, needs) if n]
+    grads = iter(torch.autograd.grad(
+        [o for o, _ in pairs], wrt, [g for _, g in pairs],
+        allow_unused=True))
+    return tuple(next(grads) if n else None for n in needs)
+
+
+def bwd_scratch(xh: torch.Tensor, N: int, Q: int) -> Tuple[torch.Tensor, ...]:
+    """The backward kernel's scratch as views ``(g, sig, u, r, rd, dw, v)`` of
+    ONE f32 allocation on xh's device (``_bwd_layout``)."""
+    layout = _bwd_layout(*xh.shape, N, Q)
+    return _views(torch.empty(layout[2], dtype=torch.float32,
+                              device=xh.device), layout)
+
+
+def launch_bwd(xh, dt, A, B_, C_, dy, dfinal, saved: Tuple, outs: Tuple,
+               parts: Tuple, Q: int) -> None:
+    """ONE C call of the backward's five launches on checked CUDA
+    tensors: ``saved`` the forward's scratch ``(cb, cum, states)``,
+    ``outs`` the six gradients (dinit may be None), ``parts`` the
+    backward's scratch (``bwd_scratch``), where each launch's results
+    stay to be held against its plain stage."""
+    Bsz, S, H, P = xh.shape
+    _lib.launch("ssd_scan_bwd_bf16", xh.device, xh.data_ptr(),
+                dt.data_ptr(), A.data_ptr(), B_.data_ptr(), C_.data_ptr(),
+                dy.data_ptr(),
+                dfinal.data_ptr() if dfinal is not None else None,
+                *(t.data_ptr() for t in saved),
+                *(None if t is None else t.data_ptr() for t in outs),
+                *(t.data_ptr() for t in parts),
+                Bsz, S, H, P, B_.shape[-1], Q)
+    bwd_launches.add()
+
+
+def bwd_work(xh, dt, A, B_, C_, init_state, dy, dfinal, *, chunk: int = 256,
+             needs=(True,) * 6, saved=None):
+    """``(flops, bytes)`` of one backward call (``_lib.counted``): the
+    flops ``FlopCounterMode`` counts over the plain backward when every
+    input requires grad (the four chunk products recomputed, and two
+    gradient products of each: three times ``work``'s), and the bytes of
+    the kernel's bound: x, dy and dx, B, C, dB and dC, dt and ddt, A and
+    dA, cum and the state entering each chunk read, dfinal read and dinit
+    written when given."""
+    Bsz, S, H, P = xh.shape
+    N = B_.shape[-1]
+    Q = min(chunk, S)
+    flops, _ = work(xh, dt, A, B_, C_, chunk=chunk)
+    states = Bsz * H * N * P
+    nbytes = (3 * xh.numel() * xh.element_size()
+              + 4 * B_.numel() * B_.element_size()
+              + 4 * (3 * dt.numel() + 2 * A.numel() + S // Q * states)
+              + 4 * states * ((dfinal is not None)
+                              + (init_state is not None)))
+    return 3 * flops, nbytes
+
+
+@_lib.counted("ssd_scan_bwd", bwd_work)
+def ssd_scan_bwd(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 B_: torch.Tensor, C_: torch.Tensor,
+                 init_state: Optional[torch.Tensor], dy: torch.Tensor,
+                 dfinal: Optional[torch.Tensor], *, chunk: int = 256,
+                 needs=(True,) * 6, saved: Optional[Tuple] = None):
+    """The chunked scan's gradient: ``(dxh, ddt, dA, dB, dC, dinit)``,
+    each in its input's dtype and shape, None where ``needs`` (a flag an
+    input) is false; dy is y's gradient, dfinal the final state's (None:
+    zeros).
+
+    A CUDA tensor launches the backward kernel (``csrc/ssd_scan_bwd.cu``:
+    bf16 xh, B_, C_ and dy; dt, A, init_state and dfinal f32;
+    contiguous; the forward's limits) over ``saved``, the forward's
+    scratch (``ssd_scan(..., keep_scratch=True)``).  f32 inputs on the
+    card take the plain version on this explicit branch, counted by
+    ``bwd_f32_plain`` (the kernel has no f32 instantiation); anything
+    else raises.  A CPU tensor
+    takes the plain version (``ssd_scan_bwd_plain``); a fake CUDA tensor
+    gets the outputs made and nothing computed."""
+    _check(xh, dt, A, B_, C_, init_state)
+    Bsz, S, H, P = xh.shape
+    N = B_.shape[-1]
+    Q = _chunk_len(S, chunk)
+    for name, t, shape in (("dy", dy, (Bsz, S, H, P)),
+                           ("dfinal", dfinal, (Bsz, H, N, P))):
+        if t is not None and (tuple(t.shape) != shape
+                              or t.device != xh.device):
+            raise ValueError(f"ssd_scan_bwd: {name} has shape "
+                             f"{tuple(t.shape)} on {t.device}, expected "
+                             f"{shape} on {xh.device}")
+    kind = _lib.device_kind(xh)
+    if kind == "cpu":
+        return ssd_scan_bwd_plain(xh, dt, A, B_, C_, init_state, dy, dfinal,
+                                  chunk=chunk, needs=needs)
+    ins = [xh, dt, A, B_, C_] + [t for t in (init_state, dfinal)
+                                 if t is not None]
+    _check_cuda("ssd_scan_bwd", ins, N, P, Q)
+    if dy.dtype != xh.dtype or not dy.is_contiguous():
+        raise ValueError(f"ssd_scan_bwd takes a contiguous dy in xh's "
+                         f"dtype {xh.dtype}, not {dy.dtype}")
+    make = torch.zeros_like if xh.numel() == 0 else torch.empty_like
+    outs = tuple(None if t is None else make(t)
+                 for t in (xh, dt, A, B_, C_, init_state))
+    if kind == "fake" or xh.numel() == 0:
+        return tuple(o if n else None for o, n in zip(outs, needs))
+    if xh.dtype == torch.float32:
+        bwd_f32_plain.add()
+        return ssd_scan_bwd_plain(xh, dt, A, B_, C_, init_state, dy, dfinal,
+                                  chunk=chunk, needs=needs)
+    if saved is None:
+        raise ValueError("ssd_scan_bwd on the card reads the forward's "
+                         "scratch: pass saved (ssd_scan(..., "
+                         "keep_scratch=True))")
+    launch_bwd(xh, dt, A, B_, C_, dy, dfinal, saved, outs,
+               bwd_scratch(xh, N, Q), Q)
+    return tuple(o if n else None for o, n in zip(outs, needs))
 
 
 __all__ = ["ALL_STAGES", "MAX_CHUNK", "MAX_HEAD_DIM", "MAX_STATE",
            "STAGE_CB", "STAGE_FOLD", "STAGE_OUT", "STAGE_STATE",
-           "chunk_cb_plain", "chunk_cum_plain", "chunk_state_plain",
-           "fold_plain", "launch_stages", "launches", "output_plain",
-           "scratch", "ssd_scan", "ssd_scan_plain", "work"]
+           "bwd_dbc_plain", "bwd_dstate_plain", "bwd_dt_plain",
+           "bwd_dx_plain", "bwd_f32_plain", "bwd_fold_plain",
+           "bwd_launches", "bwd_scratch", "bwd_work", "chunk_cb_plain",
+           "chunk_cum_plain", "chunk_state_plain", "fold_plain",
+           "launch_bwd", "launch_stages", "launches",
+           "output_plain", "scratch", "ssd_scan", "ssd_scan_bwd",
+           "ssd_scan_bwd_plain", "ssd_scan_bwd_staged", "ssd_scan_plain",
+           "work"]

@@ -10,9 +10,10 @@ to the model dtype, ``dt`` in f32, ``y`` out of the scan in xh's dtype
 with the D skip added in that dtype, then the gate and the norm.
 
 Training goes through ``SSDScanFn``: its forward is the kernel wrapper
-(the plain version on the CPU), its backward the gradient of the plain
-chunked scan, recomputed in torch (the reference differentiates its XLA
-lowering; there is no backward kernel).
+(the plain version on the CPU), its backward ``ssd_scan_bwd``: the
+hand-written backward kernel on the card (the reference differentiates
+its XLA lowering and has none), the plain chunked scan's gradient,
+recomputed in torch, on the CPU.
 """
 from __future__ import annotations
 
@@ -95,37 +96,33 @@ def _causal_conv(x, w, state: Optional[torch.Tensor] = None):
 
 class SSDScanFn(torch.autograd.Function):
     """``ssd_scan`` with a gradient: the kernel wrapper forward (grad mode
-    is off inside ``forward``), and a backward that recomputes the plain
-    chunked scan (``ssd_scan_plain``) on detached inputs under grad mode
-    and differentiates it.  The recompute's decay square [B, nc, H, Q, Q]
-    f32 lives only inside one layer's backward."""
+    is off inside ``forward``), which keeps the kernel's scratch (cum,
+    C.B^T and the state entering each chunk) for the backward, and
+    ``ssd_scan_bwd`` backward: on the card the backward kernel, which
+    reads that scratch and keeps the [B, nc, H, Q, Q] squares on chip; on
+    the CPU (and for f32 on the card) the plain chunked scan recomputed
+    and differentiated."""
 
     @staticmethod
     def forward(ctx, xh, dt, A, B_, C_, init_state, chunk: int,
                 want_state: bool):
-        y, final = SS.ssd_scan(xh, dt, A, B_, C_, chunk=chunk,
-                               init_state=init_state, want_state=want_state)
+        y, final, kept = SS.ssd_scan(xh, dt, A, B_, C_, chunk=chunk,
+                                     init_state=init_state,
+                                     want_state=want_state,
+                                     keep_scratch=True)
         ctx.save_for_backward(xh, dt, A, B_, C_, init_state)
-        ctx.chunk = chunk
+        ctx.chunk, ctx.kept = chunk, kept
         return y, final
 
     @staticmethod
     @spans.spanned("ssd.backward")
     def backward(ctx, dy, dfinal):
-        saved = ctx.saved_tensors
-        need = ctx.needs_input_grad[:6]
-        ins = [None if t is None else t.detach().requires_grad_(n)
-               for t, n in zip(saved, need)]
-        with torch.enable_grad():
-            outs = SS.ssd_scan_plain(*ins[:5], chunk=ctx.chunk,
-                                     init_state=ins[5])
-        pairs = [(o, g) for o, g in zip(outs, (dy, dfinal))
-                 if g is not None]
-        wrt = [t for t, n in zip(ins, need) if n]
-        grads = iter(torch.autograd.grad(
-            [o for o, _ in pairs], wrt, [g for _, g in pairs],
-            allow_unused=True))
-        return (*(next(grads) if n else None for n in need), None, None)
+        kept, ctx.kept = ctx.kept, None      # freed with the call
+        grads = SS.ssd_scan_bwd(
+            *ctx.saved_tensors, dy.contiguous(),
+            None if dfinal is None else dfinal.contiguous(),
+            chunk=ctx.chunk, needs=ctx.needs_input_grad[:6], saved=kept)
+        return (*grads, None, None)
 
 
 def ssd_chunk_scan(xh, dt, A, B_, C_, *, chunk: int, init_state=None,

@@ -464,10 +464,11 @@ def test_trainer_step_matches_the_reference(mode):
 @pytest.mark.cuda
 def test_training_mamba_on_the_card():
     """On the card ``lm_loss`` differentiates through ``SSDScanFn`` (the
-    ``ssd_scan`` kernel forward, the plain scan's gradient backward): the
-    gradient equals the CPU's within 1e-4 (float32, TF32 off), and a
-    ``Trainer`` step trains, launching the kernel for each layer's
-    forward and recompute."""
+    ``ssd_scan`` kernel forward; backward ``ssd_scan_bwd``, whose float32
+    inputs take the plain scan's gradient on its counted f32 branch, the
+    kernel being bf16): the gradient equals the CPU's within 1e-4
+    (float32, TF32 off), and a ``Trainer`` step trains, launching the
+    kernel for each layer's forward and recompute."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (the CUDA ssd_scan kernel)")
     from repro_torch.kernels import ssd_scan as SS

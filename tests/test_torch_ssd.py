@@ -378,3 +378,158 @@ def test_scratch_views_are_one_aligned_allocation():
         == states.untyped_storage().data_ptr()
     assert all(t.data_ptr() % 16 == 0 and t.is_contiguous()
                for t in (cb, cum, states))
+
+
+# The backward's decomposition: ``kernels/ssd_scan``'s ``bwd_*_plain``, one
+# function a launch of ``csrc/ssd_scan_bwd.cu`` (dstate, fold, dx, dbc, dt),
+# composed by ``ssd_scan_bwd_staged`` over the forward's plain stages,
+# against autograd through the plain scan (``ssd_scan_bwd_plain``).
+
+
+def _bwd_args(shape, init, dfinal, dt_scale=0.3, seed=11):
+    """Seeded float32 arguments of the backward: xh, dt, A, B_, C_,
+    init_state (or None), dy, dfinal (or None)."""
+    B, S, H, P, N, _ = shape
+    ts = [torch.from_numpy(a) for a in _inputs(B, S, H, P, N, seed=seed,
+                                                dt_scale=dt_scale)]
+    rng = np.random.default_rng(seed + 1)
+
+    def rand(*s):
+        return torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+    return (*ts, rand(B, H, N, P) if init else None, rand(B, S, H, P),
+            rand(B, H, N, P) if dfinal else None)
+
+
+@pytest.mark.parametrize("dfinal", [False, True], ids=["no_dfinal",
+                                                       "dfinal"])
+@pytest.mark.parametrize("init", [False, True], ids=["zero", "init_state"])
+@pytest.mark.parametrize("B,S,H,P,N,chunk", GRAD_SHAPES)
+def test_bwd_stages_compose_to_the_plain_backward(B, S, H, P, N, chunk,
+                                                  init, dfinal):
+    """The five plain launches in order equal autograd through the plain
+    scan within 2e-3 in float32, each gradient in its input's dtype and
+    shape (dinit None without an init_state)."""
+    args = _bwd_args((B, S, H, P, N, chunk), init, dfinal)
+    got = SS.ssd_scan_bwd_staged(*args, chunk=chunk)
+    want = SS.ssd_scan_bwd_plain(*args, chunk=chunk)
+    assert (got[5] is None) == (not init) == (want[5] is None)
+    for g, w in zip(got, want):
+        if w is not None:
+            assert g.dtype == w.dtype and g.shape == w.shape
+            _close(g, w, 2e-3)
+
+
+def test_bwd_stages_stay_finite_at_a_steep_decay():
+    """dt * A near -40 a row (``test_steep_decay_stays_finite_forward_and_
+    backward``'s): every output of the staged backward finite and within
+    2e-3 of the plain backward's largest element.  Only the decay's
+    squares at j <= i are exponentiated, and its diagonal stays out of r
+    and u, whose pulls on cum it would otherwise round where it is all that
+    is left of them."""
+    args = _bwd_args((1, 64, 2, 8, 4, 64), True, True, dt_scale=40.0,
+                     seed=4)
+    got = SS.ssd_scan_bwd_staged(*args, chunk=64)
+    want = SS.ssd_scan_bwd_plain(*args, chunk=64)
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        assert float((g - w).abs().max()) <= 2e-3 * float(w.abs().max())
+
+
+def test_bwd_diagonal_stays_out_of_r_and_u():
+    """``bwd_dx_plain``'s r sums t over the later rows only, rd holds the
+    diagonal, and u sums over the earlier columns only: r + rd is the
+    whole column sum of t = dM o CB o decay."""
+    xh, dt, A, b, c, _, dy, _ = _bwd_args((1, 64, 2, 8, 4, 32), False,
+                                          False)
+    Q = 32
+    cum = SS.chunk_cum_plain(dt, A, Q)
+    state_in, _ = SS.fold_plain(SS.chunk_state_plain(xh, dt, b, cum, Q),
+                                cum)
+    g, _, _ = SS.bwd_fold_plain(SS.bwd_dstate_plain(dy, c, cum, Q), cum,
+                                state_in)
+    cb = SS.chunk_cb_plain(b, c, Q)
+    _, r, rd, _, u = SS.bwd_dx_plain(xh, dt, b, dy, cb, cum, g, Q)
+    x, d, dtc, decay, dm = SS._bwd_square(xh, dt, dy, cum, Q)
+    t = dm * cb[:, :, None] * decay
+    torch.testing.assert_close(r + rd, t.sum(-2), rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(rd, torch.diagonal(t, dim1=-2, dim2=-1))
+    assert float(u[..., 0].abs().max()) == 0.0   # row 0 has no earlier j
+
+
+def test_bwd_wrapper_cpu_route_counts_no_launch_and_checks_arguments():
+    """On the CPU the wrapper is the plain backward (no launch, no f32
+    branch counted), returns None where a gradient is not needed, and
+    checks its arguments as the forward's wrapper does."""
+    args = _bwd_args((1, 32, 2, 8, 4, 16), True, True)
+    SS.bwd_launches.reset()
+    SS.bwd_f32_plain.reset()
+    got = SS.ssd_scan_bwd(*args, chunk=16)
+    assert SS.bwd_launches.value == 0 and SS.bwd_f32_plain.value == 0
+    for g, w in zip(got, SS.ssd_scan_bwd_plain(*args, chunk=16)):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    some = SS.ssd_scan_bwd(*args, chunk=16,
+                           needs=(True, False, True, False, True, False))
+    assert [g is not None for g in some] == [True, False, True, False,
+                                             True, False]
+    xh, dt, A, b, c, st, dy, df = args
+    with pytest.raises(ValueError, match="dy has shape"):
+        SS.ssd_scan_bwd(xh, dt, A, b, c, st, dy[:, :16], df, chunk=16)
+    with pytest.raises(ValueError, match="dfinal has shape"):
+        SS.ssd_scan_bwd(xh, dt, A, b, c, st, dy, df[..., :4], chunk=16)
+    with pytest.raises(ValueError, match="does not divide"):
+        SS.ssd_scan_bwd(*args, chunk=12)
+    with pytest.raises(ValueError, match="init_state has shape"):
+        SS.ssd_scan_bwd(xh, dt, A, b, c, st[..., :4], dy, df, chunk=16)
+
+
+def test_bwd_wrapper_fake_route_makes_the_outputs():
+    """A fake CUDA tensor (the dry run's) gets each gradient made in its
+    input's shape and dtype, on the card, and nothing launched."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.kernels import _lib
+    B, S, H, P, N = 1, 64, 2, 8, 16
+    shapes = [((B, S, H, P), torch.bfloat16), ((B, S, H), torch.float32),
+              ((H,), torch.float32), ((B, S, N), torch.bfloat16),
+              ((B, S, N), torch.bfloat16), ((B, H, N, P), torch.float32),
+              ((B, S, H, P), torch.bfloat16), ((B, H, N, P), torch.float32)]
+    SS.bwd_launches.reset()
+    with FakeTensorMode():
+        args = [torch.empty(s, dtype=d, device="cuda") for s, d in shapes]
+        assert _lib.device_kind(args[0]) == "fake"
+        got = SS.ssd_scan_bwd(*args, chunk=32)
+    assert SS.bwd_launches.value == 0
+    for g, (s, d) in zip(got, shapes[:6]):
+        assert tuple(g.shape) == s and g.dtype == d
+        assert g.device.type == "cuda"
+
+
+def test_ssd_bwd_device_ms_reads_the_backward_kernels_a_step(monkeypatch):
+    """The benchmark's ``ssd_bwd.device_ms``: every ``ssd_bwd`` kernel of
+    the trace, whatever its label, over the program's ``train.step``
+    spans; None without a trace, spans or such kernels."""
+    from perfbench.harness import common
+    from perfbench.harness.trace import Reduced
+    from repro_torch.runtime import spans
+
+    reader = common.load_module("layer_metrics", "ssd_bwd.device_ms")
+
+    def outcome(kernels):
+        red = None if kernels is None else Reduced(
+            window_s=1.0, busy_s=1.0, kernels=kernels, by_label={},
+            launches={}, label_counts={"train.step": 8}, lost=0,
+            device_ops=[], idle_gaps=[])
+        return common.Outcome(e2e={}, readings={"trace": red}, checks=[],
+                              attempted=1, failed=0, memory_peak=0,
+                              device={})
+
+    steps = [spans.Span("train.step", None, {}) for _ in range(4)]
+    monkeypatch.setattr(spans, "records", lambda: steps)
+    kernels = {"void ssd_bwd_dx_mma<128>(Dims)": 0.3,
+               "void ssd_bwd_dbc_mma<128>(Dims)": 0.1,
+               "void ssd_scan_kernel_out_mma<128>(Dims)": 5.0}
+    assert reader.read(outcome(kernels), None) == pytest.approx(100.0)
+    assert reader.read(outcome(None), None) is None
+    assert reader.read(outcome({"ssd_scan_kernel_out": 1.0}), None) is None
+    monkeypatch.setattr(spans, "records", lambda: [])
+    assert reader.read(outcome(kernels), None) is None
