@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Tuple
+from typing import List, Optional, Tuple
 
 # ---------------------------------------------------------------------------
 # Shape cells: seq_len x global_batch, and which step they drive.
@@ -96,6 +96,27 @@ class MoEConfig:
     every_n_layers: int = 1           # MoE replaces FFN every n layers
     router_aux_weight: float = 0.01
 
+    # -- settings of ``PortMoEConfig``, neutral here ----------------------
+    @property
+    def experts_held(self) -> int:
+        """Experts whose weights this device holds (all of them)."""
+        return self.num_experts
+
+    @property
+    def first_expert(self) -> int:
+        """Router index of the first held expert."""
+        return 0
+
+    @property
+    def dropless(self) -> bool:
+        """Route every token to its top k with no capacity bound."""
+        return False
+
+    @property
+    def shared_d_ff(self) -> int:
+        """Width of the shared SwiGLU beside the routed experts."""
+        return self.d_ff_expert * self.num_shared_experts
+
 
 @dataclass(frozen=True)
 class MambaConfig:
@@ -104,6 +125,17 @@ class MambaConfig:
     head_dim: int = 64
     d_conv: int = 4
     chunk: int = 256
+
+    # -- settings of ``PortMambaConfig``, neutral here --------------------
+    @property
+    def conv_bias(self) -> bool:
+        """A bias on the x, B and C convolutions."""
+        return False
+
+    @property
+    def n_groups(self) -> int:
+        """Groups of B and C (the mixer has one)."""
+        return 1
 
 
 @dataclass(frozen=True)
@@ -161,12 +193,99 @@ class ModelConfig:
             return True
         return (i % self.attn_layer_period) == self.attn_layer_offset
 
+    @property
+    def layer_types(self) -> List[str]:
+        """``"attention"`` or ``"mamba"``: each layer's mixer."""
+        return ["attention" if self.is_attn_layer(i) else "mamba"
+                for i in range(self.n_layers)]
+
+    # -- settings of ``PortModelConfig``, neutral here --------------------
+    @property
+    def embedding_multiplier(self) -> float:
+        """Factor on the embedded tokens."""
+        return 1.0
+
+    @property
+    def residual_multiplier(self) -> float:
+        """Factor on each mixer's and FFN's output before the residual
+        add."""
+        return 1.0
+
+    @property
+    def logits_scaling(self) -> float:
+        """Divisor of the output logits."""
+        return 1.0
+
+    @property
+    def attention_multiplier(self) -> Optional[float]:
+        """Softmax scale of attention (None: 1/sqrt(head dim))."""
+        return None
+
+    @property
+    def position_embedding(self) -> str:
+        """``"rope"`` or ``"nope"`` (no position embedding)."""
+        return "rope"
+
     def supports_shape(self, shape: ShapeConfig) -> Tuple[bool, str]:
         """Whether a shape cell is runnable; returns (ok, skip-reason)."""
         if shape.name == "long_500k" and not self.supports_long_context:
             return False, ("long_500k skipped: pure full-attention arch (no "
                            "sub-quadratic path)")
         return True, ""
+
+
+# ---------------------------------------------------------------------------
+# Port-only settings.  The JAX package's configurations have none of these
+# fields, so they live on subclasses: ``dataclasses.asdict`` of every
+# configuration of ``REGISTRY`` stays the reference's, field for field,
+# and the base classes answer each setting with its neutral value (the
+# properties above), so a layer reads ``cfg.<setting>`` of either.
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class PortMoEConfig(MoEConfig):
+    """A dropless expert layer: it routes every token to its top k with
+    no capacity bound, and holds ``experts_held`` of the router's
+    ``num_experts`` experts (None: all of them), from ``first_expert`` on
+    (its device's share under expert parallelism); a shared SwiGLU of
+    width ``shared_d_ff`` (0: none) beside them."""
+    experts_held: Optional[int] = None
+    first_expert: int = 0
+    shared_d_ff: int = 0
+
+    def __post_init__(self):
+        if self.experts_held is None:
+            object.__setattr__(self, "experts_held", self.num_experts)
+        if not (0 < self.experts_held and 0 <= self.first_expert
+                and self.first_expert + self.experts_held
+                <= self.num_experts):
+            raise ValueError(
+                f"experts {self.first_expert}.."
+                f"{self.first_expert + self.experts_held - 1} held of "
+                f"{self.num_experts}")
+
+    @property
+    def dropless(self) -> bool:
+        """Always: this layer has no capacity path."""
+        return True
+
+
+@dataclass(frozen=True)
+class PortMambaConfig(MambaConfig):
+    """A Mamba-2 mixer with a bias on its convolutions."""
+    conv_bias: bool = True
+
+
+@dataclass(frozen=True)
+class PortModelConfig(ModelConfig):
+    """A decoder with scaled embeddings, residual branches and logits, a
+    set softmax scale, and a choice of position embedding."""
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0
+    attention_multiplier: Optional[float] = None
+    position_embedding: str = "rope"
 
 
 @dataclass(frozen=True)

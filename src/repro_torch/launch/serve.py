@@ -46,7 +46,7 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch
 
-from repro_torch.configs import (ARCH_IDS, MVStoreConfig, ParallelConfig,
+from repro_torch.configs import (ALL_ARCH_IDS, MVStoreConfig, ParallelConfig,
                                  get_config, smoke_config)
 from repro_torch.core import mvstore
 from repro_torch.core.engine import resolve_device
@@ -280,7 +280,7 @@ class Server:
 def main(argv=None):
     ap = argparse.ArgumentParser(
         description="Serve seeded requests from an MVStore snapshot.")
-    ap.add_argument("--arch", default="qwen2.5-3b", choices=ARCH_IDS)
+    ap.add_argument("--arch", default="qwen2.5-3b", choices=ALL_ARCH_IDS)
     ap.add_argument("--smoke", action="store_true",
                     help="the reduced config (CPU tests)")
     ap.add_argument("--requests", type=int, default=8)

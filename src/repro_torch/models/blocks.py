@@ -83,14 +83,15 @@ def attn_apply(p, x, cfg: ModelConfig, pcfg: ParallelConfig, *,
     qh = split_heads(q, h, dh)
     kh = split_heads(k, kv, dh)
     vh = split_heads(v, kv, dh)
-    if use_rope:
+    if use_rope and cfg.position_embedding != "nope":
         qh = apply_rope(qh, positions, cfg.rope_theta)
         kh = apply_rope(kh, positions if kv_source is None else
                         torch.arange(Sk, device=x.device)[None],
                         cfg.rope_theta)
     o = attn_mod.attention(qh, kh, vh, causal=causal, impl=pcfg.attn_impl,
                            block_q=pcfg.attn_block_q,
-                           block_k=pcfg.attn_block_k)
+                           block_k=pcfg.attn_block_k,
+                           scale=cfg.attention_multiplier)
     y = shard_act(matmul(o.reshape(B, S, h * dh), p["w_o"]),
                   ("batch", None, None))
     if want_cache:
@@ -105,7 +106,8 @@ def attn_decode(p, x, cfg: ModelConfig, pcfg: ParallelConfig, *,
     cache_len: [B] valid positions.  Self-attention writes this token's
     k/v into the cache IN PLACE (row b, position ``cache_len[b]``; a
     position past the cache is dropped, as the reference's scatter drops
-    it) and attends ``cache_len + 1`` positions.  Cross-attention
+    it) and attends ``cache_len + 1`` positions; a NoPE config
+    (``cfg.position_embedding``) rotates neither q nor k.  Cross-attention
     (``cross``) writes nothing, gives q no RoPE and attends the first
     ``cross_len`` positions.  Returns (y, cache_k, cache_v), the caches
     being the tensors passed in."""
@@ -118,15 +120,18 @@ def attn_decode(p, x, cfg: ModelConfig, pcfg: ParallelConfig, *,
     else:
         q, k, v = _qkv(p, x)
         qh = split_heads(q, h, dh)
-        pos = cache_len[:, None]
-        qh = apply_rope(qh, pos, cfg.rope_theta)
-        kh = apply_rope(split_heads(k, kv, dh), pos, cfg.rope_theta)
+        kh = split_heads(k, kv, dh)
+        if cfg.position_embedding != "nope":
+            pos = cache_len[:, None]
+            qh = apply_rope(qh, pos, cfg.rope_theta)
+            kh = apply_rope(kh, pos, cfg.rope_theta)
         _write_token(cache_k, cache_v, kh.reshape(B, kv * dh),
                      v.reshape(B, kv * dh), cache_len)
         valid = cache_len + 1
     kc = split_heads(cache_k, kv, dh)
     vc = split_heads(cache_v, kv, dh)
     o = attn_mod.decode_attention(qh[:, 0], kc, vc, valid,
+                                  scale=cfg.attention_multiplier,
                                   chunk=pcfg.decode_attn_chunk)
     y = matmul(o.reshape(B, 1, h * dh), p["w_o"])
     return shard_act(y, ("batch", None, None)), cache_k, cache_v
@@ -199,8 +204,10 @@ def sublayer_apply(p, x, kind, cfg: ModelConfig, pcfg: ParallelConfig, *,
     ``want_cache``).  Decode mode: cache is this sub-layer's ``{"k", "v"}``
     or Mamba state ``{"ssm", "conv_x", "conv_B", "conv_C"}`` and is
     updated in place.  ``moe_groups``: a MoE FFN's routing group count
-    (``moe.moe_apply``'s ``groups``).  Returns (y, new_cache_or_None,
-    aux_loss).
+    (``moe.moe_apply``'s ``groups``).  Each branch's output is scaled by
+    ``cfg.residual_multiplier`` before its residual add where that is
+    not 1 (the MoE's with its shared expert's).  Returns (y,
+    new_cache_or_None, aux_loss).
     """
     mixer, ffn = kind
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -233,14 +240,19 @@ def sublayer_apply(p, x, kind, cfg: ModelConfig, pcfg: ParallelConfig, *,
     else:
         y = mamba_mod.mamba_apply(p["mamba"], h, cfg.mamba,
                                   rms_eps=cfg.rms_eps)
-    x = x + y
+    x = _residual(x, y, cfg)
     if ffn == "dense":
         h = rmsnorm(x, p["norm_ffn"], cfg.rms_eps)
-        x = x + ffn_mod.ffn_apply(p["ffn"], h)
+        x = _residual(x, ffn_mod.ffn_apply(p["ffn"], h), cfg)
     elif ffn == "moe":
         h = rmsnorm(x, p["norm_ffn"], cfg.rms_eps)
         y, aux = moe_mod.moe_apply(p["moe"], h, cfg.moe,
                                    capacity_factor=pcfg.moe_capacity_factor,
                                    groups=moe_groups)
-        x = x + y
+        x = _residual(x, y, cfg)
     return x, new_cache, aux
+
+
+def _residual(x, y, cfg: ModelConfig):
+    r = cfg.residual_multiplier
+    return x + y if r == 1.0 else torch.add(x, y, alpha=r)

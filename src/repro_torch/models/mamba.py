@@ -14,6 +14,10 @@ Training goes through ``SSDScanFn``: its forward is the kernel wrapper
 hand-written backward kernel on the card (the reference differentiates
 its XLA lowering and has none), the plain chunked scan's gradient,
 recomputed in torch, on the CPU.
+
+A config with ``conv_bias`` (``PortMambaConfig``) adds a bias to each of
+the x, B and C convolutions, in f32 before the cast, in the sequence and
+the decode form alike; the others have none.
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ from repro_torch.launch.sharding import (ParamMeta, is_dtensor, local_call,
                                          shard_act, split_heads, torch_dtype)
 from repro_torch.models.common import matmul, rmsnorm, rmsnorm_meta
 from repro_torch.runtime import spans
+
 
 class SSMDims(NamedTuple):
     d_inner: int
@@ -48,7 +53,7 @@ def ssm_dims(d_model: int, cfg: MambaConfig) -> SSMDims:
 def mamba_meta(d_model: int, cfg: MambaConfig, dtype: str) -> dict:
     dims = ssm_dims(d_model, cfg)
     di, h, n = dims.d_inner, dims.n_heads, dims.d_state
-    return {
+    meta = {
         "w_z": ParamMeta((d_model, di), ("fsdp", "tp"), dtype=dtype),
         "w_x": ParamMeta((d_model, di), ("fsdp", "tp"), dtype=dtype),
         "w_B": ParamMeta((d_model, n), ("fsdp", None), dtype=dtype),
@@ -66,10 +71,17 @@ def mamba_meta(d_model: int, cfg: MambaConfig, dtype: str) -> dict:
         "norm": rmsnorm_meta(di),
         "w_out": ParamMeta((di, d_model), ("tp", "fsdp"), dtype=dtype),
     }
+    if cfg.conv_bias:
+        for name, c, ax in (("x", di, "tp"), ("B", n, None), ("C", n, None)):
+            meta[f"conv_{name}_bias"] = ParamMeta(
+                (c,), (ax,), init="normal", scale=0.5, dtype="float32")
+    return meta
 
 
-def _causal_conv(x, w, state: Optional[torch.Tensor] = None):
-    """Depthwise causal conv.  x: [B, S, C]; w: [K, C].
+def _causal_conv(x, w, state: Optional[torch.Tensor] = None,
+                 bias: Optional[torch.Tensor] = None):
+    """Depthwise causal conv.  x: [B, S, C]; w: [K, C]; ``bias`` [C]
+    (or None) added in f32.
 
     With ``state`` ([B, K-1, C], previous raw inputs) performs the decode
     step (S == 1) and returns (y, new_state); otherwise returns y — of a
@@ -79,6 +91,8 @@ def _causal_conv(x, w, state: Optional[torch.Tensor] = None):
     if state is not None:
         buf = torch.cat([state, x], dim=1)                  # [B, K, C]
         y = torch.einsum("bkc,kc->bc", buf.float(), w.float())[:, None, :]
+        if bias is not None:
+            y = y + bias.float()
         return y.to(x.dtype), buf[:, 1:]
     if is_dtensor(x):
         from torch.distributed.tensor import Replicate, Shard
@@ -86,11 +100,13 @@ def _causal_conv(x, w, state: Optional[torch.Tensor] = None):
                    for p in x.placements)
         ws = tuple(Shard(1) if isinstance(p, Shard) and p.dim == 2
                    else Replicate() for p in xs)
-        return local_call(_causal_conv, (x, w), (xs, ws), xs,
-                          tuple(x.shape))
+        return local_call(lambda x, w: _causal_conv(x, w, bias=bias),
+                          (x, w), (xs, ws), xs, tuple(x.shape))
     pad = F.pad(x, (0, 0, k - 1, 0))
     y = sum(pad[:, i:i + x.shape[1]].float() * w[i].float()
             for i in range(k))
+    if bias is not None:
+        y = y + bias.float()
     return y.to(x.dtype)
 
 
@@ -193,8 +209,16 @@ def mamba_apply(params, x, cfg: MambaConfig, *, rms_eps: float = 1e-5,
     """Mamba-2 block.  x: [B, S, d].
 
     Sequence mode (state=None): returns y [B, S, d].
-    With ``state``: decode when S == 1, else a prefill that starts from
-    the state; returns (y, new_state)."""
+    With ``state``: decode when S == 1 (inside a ``mamba.decode`` span),
+    else a prefill that starts from the state; returns (y, new_state)."""
+    if state is not None and x.shape[1] == 1:
+        with spans.span("mamba.decode"):
+            return _mamba_apply(params, x, cfg, rms_eps, state)
+    return _mamba_apply(params, x, cfg, rms_eps, state)
+
+
+def _mamba_apply(params, x, cfg: MambaConfig, rms_eps: float,
+                 state: Optional[MambaState]):
     Bsz, S, d = x.shape
     dims = ssm_dims(d, cfg)
     H, Pd = dims.n_heads, dims.head_dim
@@ -208,14 +232,18 @@ def mamba_apply(params, x, cfg: MambaConfig, *, rms_eps: float = 1e-5,
     xr = shard_act(xr, ("batch", None, "tp"))
 
     decode = state is not None and S == 1
+    bias = {n: params.get(f"conv_{n}_bias") for n in ("x", "B", "C")}
     if decode:
-        xc, conv_x = _causal_conv(xr, params["conv_x"], state.conv_x)
-        bc, conv_B = _causal_conv(br, params["conv_B"], state.conv_B)
-        cc, conv_C = _causal_conv(cr, params["conv_C"], state.conv_C)
+        xc, conv_x = _causal_conv(xr, params["conv_x"], state.conv_x,
+                                  bias["x"])
+        bc, conv_B = _causal_conv(br, params["conv_B"], state.conv_B,
+                                  bias["B"])
+        cc, conv_C = _causal_conv(cr, params["conv_C"], state.conv_C,
+                                  bias["C"])
     else:
-        xc = _causal_conv(xr, params["conv_x"])
-        bc = _causal_conv(br, params["conv_B"])
-        cc = _causal_conv(cr, params["conv_C"])
+        xc = _causal_conv(xr, params["conv_x"], bias=bias["x"])
+        bc = _causal_conv(br, params["conv_B"], bias=bias["B"])
+        cc = _causal_conv(cr, params["conv_C"], bias=bias["C"])
     xc = F.silu(xc.float()).to(x.dtype)
     bc = F.silu(bc.float()).to(x.dtype)
     cc = F.silu(cc.float()).to(x.dtype)

@@ -21,24 +21,40 @@ product is float32; on the card it must not run on TF32
 flipped choice changes a token's whole output.  The expert products are
 batched matmuls (``torch.einsum``); the reference computes them outside
 any Pallas kernel too.
+
+A dropless layer (``cfg.dropless``, a ``PortMoEConfig``) takes another
+path, ``moe_dropless``: it holds ``cfg.experts_held`` of the router's
+``cfg.num_experts`` experts (its device's share under expert
+parallelism), routes every token to its top k over all of them, and
+computes its own experts' part for the tokens routed to them, with no
+capacity and no dropped token.  Its products are grouped over the held
+experts (``torch._grouped_mm``), so no buffer over all the experts is
+built.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.launch.sharding import (ParamMeta, Rules, current_rules,
                                          is_dtensor, local_call, mesh_ways,
                                          placements, shard_act)
+from repro_torch.models.common import matmul
 from repro_torch.models.ffn import ffn_apply
+from repro_torch.runtime import spans
 
 
 def moe_meta(d_model: int, cfg: MoEConfig, dtype: str) -> dict:
-    e, f = cfg.num_experts, cfg.d_ff_expert
+    """The router over all ``num_experts``; the weights of the
+    ``experts_held`` experts this device holds."""
+    f = cfg.d_ff_expert
+    e = cfg.experts_held
     p = {
-        "w_router": ParamMeta((d_model, e), (None, None), dtype="float32"),
+        "w_router": ParamMeta((d_model, cfg.num_experts), (None, None),
+                              dtype="float32"),
         "w_gate": ParamMeta((e, d_model, f), ("experts", "fsdp", None),
                             dtype=dtype),
         "w_up": ParamMeta((e, d_model, f), ("experts", "fsdp", None),
@@ -46,8 +62,8 @@ def moe_meta(d_model: int, cfg: MoEConfig, dtype: str) -> dict:
         "w_down": ParamMeta((e, f, d_model), ("experts", None, "fsdp"),
                             dtype=dtype),
     }
-    if cfg.num_shared_experts:
-        fs = f * cfg.num_shared_experts
+    if cfg.shared_d_ff:
+        fs = cfg.shared_d_ff
         p["shared"] = {
             "w_gate": ParamMeta((d_model, fs), ("fsdp", "tp"), dtype=dtype),
             "w_up": ParamMeta((d_model, fs), ("fsdp", "tp"), dtype=dtype),
@@ -186,7 +202,10 @@ def moe_apply(params, x, cfg: MoEConfig, *, capacity_factor: float = 1.25,
 
     ``groups``: routing group count; default one group per sequence (B).
     Decode callers (S == 1) pass groups=1 so the whole batch is one group.
+    A dropless config goes to ``moe_dropless`` (no groups, no capacity).
     """
+    if cfg.dropless:
+        return moe_dropless(params, x, cfg)
     B, S, d = x.shape
     G = groups if groups else B
     x_groups = x.reshape(G, (B * S) // G, d)
@@ -219,3 +238,74 @@ def moe_apply(params, x, cfg: MoEConfig, *, capacity_factor: float = 1.25,
     if "shared" in params:
         y = y + ffn_apply(params["shared"], x)
     return shard_act(y, ("batch", None, None)), aux * cfg.router_aux_weight
+
+
+# ---------------------------------------------------------------------------
+# Dropless routing over a held share of the experts
+# ---------------------------------------------------------------------------
+
+
+def route_dropless(x, w_router, cfg: MoEConfig):
+    """Every token's top k over all ``cfg.num_experts`` experts, sorted
+    by held expert.  x: [T, d] -> (order [T*k]: the (token, choice)
+    entries in held-expert order, those of experts held elsewhere last;
+    offs [held] int32: the end of each held expert's rows in that order;
+    weights [T, k] f32: the softmax over the top-k router logits).  No
+    host sync."""
+    E_h, K = cfg.experts_held, cfg.experts_per_token
+    logits = x.float() @ w_router                            # [T, E]
+    top, sel = torch.topk(logits, K, dim=-1)
+    weights = torch.softmax(top, dim=-1)
+    # held experts by their local index, every other one as E_h (last)
+    key = (sel - cfg.first_expert if cfg.first_expert else sel).clamp(
+        max=E_h)
+    if cfg.first_expert:
+        key = key.masked_fill(key < 0, E_h)
+    skey, order = torch.sort(key.reshape(-1), stable=True)
+    offs = torch.searchsorted(
+        skey, torch.arange(E_h, device=x.device), right=True)
+    return order, offs.to(torch.int32), weights
+
+
+def expert_rows(offs):
+    """Each held expert's row count, from the ends of its rows."""
+    return torch.diff(offs, prepend=offs.new_zeros(1)).long()
+
+
+def _grouped(x, w, offs):
+    """Rows ``offs[e-1]:offs[e]`` of x [M, k] times w[e] [k, n]; rows past
+    ``offs[-1]`` are left unset."""
+    return torch._grouped_mm(x, w, offs=offs)
+
+
+def moe_dropless(params, x, cfg: MoEConfig):
+    """x: [B, S, d] -> ([B, S, d], 0): the held experts' part of every
+    token's top-k mixture (each SwiGLU expert's output times its routing
+    weight, in x's dtype, summed in f32 by one batched product), plus the
+    shared expert.  Routing runs in a ``moe.route`` span and the products
+    in ``moe.experts``; each held expert's row count goes to the
+    ``moe.expert_rows`` counter (``spans.count``, computed only while
+    spans record).  No load-balance loss: the layer serves."""
+    B, S, d = x.shape
+    T, K = B * S, cfg.experts_per_token
+    xt = x.reshape(T, d)
+    with spans.span("moe.route"):
+        order, offs, weights = route_dropless(xt, params["w_router"], cfg)
+        spans.count("moe.expert_rows", lambda: expert_rows(offs))
+    with spans.span("moe.experts"):
+        xs = xt[torch.div(order, K, rounding_mode="floor")]  # [T*K, d]
+        h = F.silu(_grouped(xs, params["w_gate"], offs)) \
+            * _grouped(xs, params["w_up"], offs)
+        ys = _grouped(h, params["w_down"], offs)
+        # rows of experts held elsewhere (past offs[-1]) were never
+        # computed: zeroed, so whatever they hold cannot reach the sum
+        elsewhere = torch.arange(T * K, device=x.device) >= offs[-1]
+        y_tok = torch.empty_like(ys)
+        y_tok[order] = ys.masked_fill(elsewhere[:, None], 0.0)
+        y = torch.bmm(weights.to(x.dtype)[:, None],
+                      y_tok.reshape(T, K, d)).reshape(B, S, d)
+        if "shared" in params:
+            sh = params["shared"]
+            y = y + matmul(F.silu(matmul(x, sh["w_gate"]))
+                           * matmul(x, sh["w_up"]), sh["w_down"])
+    return y, torch.zeros((), dtype=torch.float32, device=x.device)

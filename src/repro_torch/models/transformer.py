@@ -101,11 +101,22 @@ def embed_lookup(table, tokens, pcfg: ParallelConfig):
     return shard_act(h, ("batch", None, None))
 
 
+def embed_tokens(params, tokens, cfg: ModelConfig, pcfg: ParallelConfig):
+    """The tokens' embeddings, times ``cfg.embedding_multiplier`` where
+    it is not 1."""
+    h = embed_lookup(params["embed"], tokens, pcfg)
+    if cfg.embedding_multiplier != 1.0:
+        h = h * cfg.embedding_multiplier
+    return h
+
+
 def lm_logits(params, h, cfg: ModelConfig):
     if cfg.tie_embeddings:
         logits = matmul(h, params["embed"].T)
     else:
         logits = matmul(h, params["lm_head"])
+    if cfg.logits_scaling != 1.0:
+        logits = logits / cfg.logits_scaling
     return shard_act(logits, ("batch", None, "vocab"))
 
 
@@ -152,7 +163,7 @@ def lm_forward(params, tokens, cfg: ModelConfig, pcfg: ParallelConfig, *,
         if G % k:
             raise ValueError(f"remat {pcfg.remat!r}: {G} groups do not "
                              f"split into runs of {k}")
-    h = embed_lookup(params["embed"], tokens, pcfg)
+    h = embed_tokens(params, tokens, cfg, pcfg)
     if prefix_embeds is not None:
         h = torch.cat([prefix_embeds.to(h.dtype), h], dim=1)
         h = shard_act(h, ("batch", None, None))
@@ -287,7 +298,7 @@ def lm_decode_step(params, cache, cache_len, token, cfg: ModelConfig,
     batch as one group.  Returns (logits [B, V], cache, cache_len + 1).
     """
     kinds = layer_kinds(cfg)
-    h = embed_lookup(params["embed"], token[:, None], pcfg)
+    h = embed_tokens(params, token[:, None], cfg, pcfg)
     for g in range(n_groups(cfg)):
         gp = _group(params["layers"], g)
         gc = _group(cache, g)

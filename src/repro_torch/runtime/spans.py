@@ -32,6 +32,13 @@ span opened between them read as one stretch.  ``records()`` returns
 the latest session's closed spans, in the order they closed; past
 ``CAP`` records a session counts what it drops (``dropped()``).
 
+Counters.  ``count(name, fn)`` adds the tensor ``fn()`` into the
+session's counter ``name`` in place, on the tensor's device, with no
+host sync; like a span it records only while a profiler records or
+inside ``recording()``, and otherwise does not call ``fn``.
+``counters()`` returns the latest session's, to be read (brought home)
+once, after the stretch.
+
 The spans the program opens, ``<layer>.<part>``:
 
     train.step        Trainer.train_step, around the step function
@@ -43,6 +50,14 @@ The spans the program opens, ``<layer>.<part>``:
     serve.prefill     ModelSlotExecutor.prefill; attrs: rid
     serve.decode      ModelSlotExecutor.decode; attrs: rids
     serve.readback    a copy home that waits for the card, inside either
+    mamba.decode      mamba_apply's decode form (one token a slot)
+    moe.route         a dropless MoE layer's routing (moe_dropless)
+    moe.experts       its grouped expert products and combine
+
+The counters:
+
+    moe.expert_rows   rows each held expert computed ([experts held],
+                      int64), summed over the dropless MoE layers' calls
 """
 from __future__ import annotations
 
@@ -50,7 +65,7 @@ import contextlib
 import functools
 import threading
 import time
-from typing import Any, Dict, Iterator, List, Optional
+from typing import Any, Callable, Dict, Iterator, List, Optional
 
 import torch
 from torch.autograd import profiler as _profiler
@@ -74,12 +89,21 @@ class Span:
 
 
 class _Session:
-    __slots__ = ("records", "dropped", "lock")
+    __slots__ = ("records", "dropped", "counters", "lock")
 
     def __init__(self):
         self.records: List[Span] = []
         self.dropped = 0
+        self.counters: Dict[str, torch.Tensor] = {}
         self.lock = threading.Lock()   # spans close on several threads
+
+    def count(self, name: str, value: torch.Tensor) -> None:
+        with self.lock:
+            acc = self.counters.get(name)
+            if acc is None:
+                self.counters[name] = value.detach().clone()
+            else:
+                acc.add_(value)
 
     def add(self, rec: Span) -> None:
         with self.lock:
@@ -162,20 +186,37 @@ def _end_profiled() -> None:
         _profiled = None
 
 
+def _session(profiled: bool) -> Optional[_Session]:
+    """The session a span or count records into, or None."""
+    if _recording is None and not profiled:
+        if _profiled is not None:
+            _end_profiled()
+        return None
+    session = _recording
+    if session is None:
+        session = _profiled if _profiled is not None else _begin_profiled()
+    return session
+
+
 def span(name: str, **attrs):
     """``with span(name, **attrs):`` records the block while a profiler
     records or inside ``recording()``; otherwise a shared no-op."""
     # the profiler's own flag, set from its start to its stop (the C
     # check reads false under a profile of all threads)
     profiled = _profiler._is_profiler_enabled
-    if _recording is None and not profiled:
-        if _profiled is not None:
-            _end_profiled()
-        return _NULL
-    session = _recording
+    session = _session(profiled)
     if session is None:
-        session = _profiled if _profiled is not None else _begin_profiled()
+        return _NULL
     return _Open(name, attrs, session, profiled)
+
+
+def count(name: str, value: Callable[[], torch.Tensor]) -> None:
+    """Add ``value()`` into the counter ``name`` (on its device, no host
+    sync) while spans record; otherwise nothing (``value`` is not
+    called, so an idle counter costs no device work)."""
+    session = _session(_profiler._is_profiler_enabled)
+    if session is not None:
+        session.count(name, value())
 
 
 def spanned(name: str):
@@ -208,6 +249,11 @@ def recording() -> Iterator[None]:
 def records() -> List[Span]:
     """The latest session's closed spans, in the order they closed."""
     return list(_latest.records)
+
+
+def counters() -> Dict[str, torch.Tensor]:
+    """The latest session's counters, as tensors on their devices."""
+    return dict(_latest.counters)
 
 
 def dropped() -> int:
